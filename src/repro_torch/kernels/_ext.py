@@ -1,0 +1,270 @@
+"""Build, load and launch the hand-written Hopper kernels in ``csrc/``.
+
+Each ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into its
+own shared library with a plain C interface, all files at once, at first
+use; the libraries are cached under ``build/repro_torch_ext/`` by a hash
+of their source and flags, and loaded with ``ctypes``.  A plain C
+interface keeps PyTorch's headers out of the build, which then takes
+seconds instead of minutes.
+
+Every launch wrapper here checks device, dtype, shape, contiguity and
+alignment, launches on PyTorch's current stream, raises if the launch
+was refused, and adds one to its kernel's count in ``LAUNCHES``.  Build
+and launch errors propagate; nothing falls back to the plain versions.
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import pathlib
+import subprocess
+import threading
+from typing import Dict, Optional, Sequence
+
+import torch
+
+__all__ = ["LAUNCHES", "build", "elementwise", "mma_instructions",
+           "reset_launches", "spmv", "stencil"]
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
+    "repro_torch_ext"
+SOURCES = ("elementwise", "spmv", "stencil")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+#: Launches per kernel ("scale_vector", "spmv_matrix", ...) since the
+#: last ``reset_launches()``.
+LAUNCHES: Dict[str, int] = collections.Counter()
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+
+
+def reset_launches() -> None:
+    """Set every launch count to 0."""
+    LAUNCHES.clear()
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found (CUDA_HOME unset and no "
+                           "nvcc on PATH): cannot build the kernels")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def _lib_path(name: str) -> pathlib.Path:
+    h = hashlib.sha256()
+    for f in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(f.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
+
+
+def mma_instructions() -> Dict[str, Dict[str, int]]:
+    """Tensor-core instructions per compiled kernel, from the built SASS.
+
+    ``{kernel symbol: {"DMMA": n, "HMMA": n}}`` over every library, read
+    with ``cuobjdump --dump-sass``: the audit that each matrix kernel
+    really issues MMA and each vector kernel none.
+    """
+    build()
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    counts: Dict[str, Dict[str, int]] = {}
+    for n in SOURCES:
+        sass = subprocess.run([tool, "--dump-sass", str(_lib_path(n))],
+                              capture_output=True, text=True, check=True,
+                              timeout=120).stdout
+        fn = None
+        for line in sass.splitlines():
+            line = line.strip()
+            if line.startswith("Function :"):
+                fn = line.split(":", 1)[1].strip()
+                counts[fn] = {"DMMA": 0, "HMMA": 0}
+            elif fn is not None:
+                for op in ("DMMA", "HMMA"):
+                    if f" {op}." in line or f" {op} " in line:
+                        counts[fn][op] += 1
+    return counts
+
+
+def build(names: Sequence[str] = SOURCES) -> Dict[str, ctypes.CDLL]:
+    """Compile (if not cached) and load the named kernel libraries.
+
+    One ``nvcc`` per source, all started together.  Raises with the
+    compiler's output if any of them fails.
+    """
+    with _LOCK:
+        todo = [n for n in names if n not in _LIBS]
+        if not todo:
+            return _LIBS
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        procs = {}
+        for n in todo:
+            path = _lib_path(n)
+            if path.exists():
+                continue
+            tmp = path.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+            procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT,
+                                         text=True), tmp, path)
+        failed = []
+        for n, (proc, tmp, path) in procs.items():
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"--- {n}.cu (nvcc exit {proc.returncode}) "
+                              f"---\n{out}")
+            else:
+                os.replace(tmp, path)
+        if failed:
+            raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+        for n in todo:
+            lib = ctypes.CDLL(str(_lib_path(n)))
+            _declare(n, lib)
+            _LIBS[n] = lib
+        return _LIBS
+
+
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float
+
+
+def _declare(name: str, lib: ctypes.CDLL) -> None:
+    err = getattr(lib, f"{name}_error_string")
+    err.argtypes, err.restype = [_I], ctypes.c_char_p
+    if name == "elementwise":
+        fn = lib.elementwise_launch
+        fn.argtypes = [_P, _P, _P, _LL, _I, _F, _I, _I, _LL, _P]
+    elif name == "spmv":
+        fn = lib.spmv_launch
+        fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
+    else:
+        fn = lib.stencil_launch
+        fn.argtypes = [_P, _P, _P, _I, _P, _P, _I, _P, _F, _I, _I, _I, _I,
+                       _I, _P]
+    fn.restype = _I
+
+
+def _lib(name: str) -> ctypes.CDLL:
+    lib = _LIBS.get(name)
+    return lib if lib is not None else build((name,))[name]
+
+
+def _check(name: str, code: int, kernel: str) -> None:
+    if code != 0:
+        msg = getattr(_lib(name), f"{name}_error_string")(code)
+        raise RuntimeError(f"{kernel} launch failed: {msg.decode()} "
+                           f"(cudaError {code})")
+    LAUNCHES[kernel] += 1
+
+
+def _need(t: torch.Tensor, what: str, dtype: Optional[torch.dtype] = None
+          ) -> None:
+    if not t.is_cuda:
+        raise ValueError(f"{what}: the CUDA kernel needs a tensor on the "
+                         f"card, got one on {t.device}")
+    if dtype is not None and t.dtype != dtype:
+        raise ValueError(f"{what}: dtype {t.dtype}, kernel takes {dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: the CUDA kernel needs a contiguous tensor")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{what}: the CUDA kernel needs 16-byte aligned "
+                         f"data")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# --------------------------------------------------------------------------
+# launch wrappers
+# --------------------------------------------------------------------------
+
+def elementwise(family: str, m: torch.Tensor, q,
+                add: Optional[torch.Tensor], *, engine: str,
+                tile_elems: int) -> torch.Tensor:
+    """Launch the elementwise kernel: ``q * m (+ add)``."""
+    dtype = m.dtype
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"elementwise kernel takes float32/bfloat16, "
+                         f"got {dtype}")
+    _need(m, f"{family} input", dtype)
+    if add is not None:
+        _need(add, f"{family} addend", dtype)
+        if add.shape != m.shape:
+            raise ValueError(f"{family}: shapes disagree")
+    out = torch.empty_like(m)
+    with torch.cuda.device(out.device):
+        code = _lib("elementwise").elementwise_launch(
+            m.data_ptr(), (add if add is not None else m).data_ptr(),
+            out.data_ptr(), out.numel(), int(add is not None), float(q),
+            int(dtype == torch.bfloat16), int(engine == "matrix"),
+            int(tile_elems), _stream(out))
+    _check("elementwise", code, f"{family}_{engine}")
+    return out
+
+
+def spmv(blocks: torch.Tensor, cols: torch.Tensor, x: torch.Tensor, *,
+         engine: str) -> torch.Tensor:
+    """Launch block-ELL SpMV; returns ``(n_block_rows, 8)`` float32."""
+    nbr, mb, bm, bn = blocks.shape
+    if (bm, bn) != (8, 128):
+        raise ValueError(f"the SpMV kernel takes 8x128 blocks, got "
+                         f"{bm}x{bn}")
+    if tuple(cols.shape) != (nbr, mb) or x.ndim != 1 or x.numel() % bn:
+        raise ValueError("block-ELL shapes disagree")
+    _need(blocks, "spmv blocks", torch.float32)
+    _need(cols, "spmv cols", torch.int32)
+    _need(x, "spmv x", torch.float32)
+    y = torch.empty((nbr, bm), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(y.device):
+        code = _lib("spmv").spmv_launch(
+            blocks.data_ptr(), cols.data_ptr(), x.data_ptr(), y.data_ptr(),
+            nbr, mb, x.numel() // bn, int(engine == "matrix"), _stream(y))
+    _check("spmv", code, f"spmv_{engine}")
+    return y
+
+
+#: Most stencil points the vector kernel's constant table holds (a 3-D
+#: box of radius 3).
+MAX_STENCIL_POINTS = 343
+MAX_RADIUS = 3
+
+
+def stencil(u: torch.Tensor, spec, *, steps: int, engine: str,
+            block_rows: int) -> torch.Tensor:
+    """Launch ``steps`` fused zero-boundary stencil steps of ``spec``."""
+    if u.ndim != spec.ndim or u.ndim not in (2, 3):
+        raise ValueError(f"stencil kernel takes 2-D or 3-D u matching the "
+                         f"spec, got {tuple(u.shape)} for {spec.ndim}-D")
+    if not 1 <= spec.radius <= MAX_RADIUS or not 1 <= steps <= 3:
+        raise ValueError(f"stencil kernel takes radius <= {MAX_RADIUS} and "
+                         f"1 <= steps <= 3, got r={spec.radius} t={steps}")
+    if spec.num_points > MAX_STENCIL_POINTS:
+        raise ValueError(f"too many stencil points: {spec.num_points}")
+    _need(u, "stencil u", torch.float32)
+    out = torch.empty_like(u)
+    dims = (ctypes.c_int * 3)(*([1] * (3 - u.ndim) + list(u.shape)))
+    offs = [0] * (3 * spec.num_points)
+    for p, off in enumerate(spec.offsets):
+        full = (0,) * (3 - u.ndim) + tuple(off)
+        offs[3 * p:3 * p + 3] = full
+    c_offs = (ctypes.c_int * len(offs))(*offs)
+    c_w = (ctypes.c_float * spec.num_points)(*spec.weights)
+    axw = [0.0] * (3 * (2 * MAX_RADIUS + 1))
+    for ax, w1d in enumerate(spec.axis_weights):
+        slot = ax + 3 - u.ndim
+        axw[slot * 7:slot * 7 + len(w1d)] = w1d
+    c_axw = (ctypes.c_float * len(axw))(*axw)
+    with torch.cuda.device(out.device):
+        code = _lib("stencil").stencil_launch(
+            u.data_ptr(), out.data_ptr(), dims, u.ndim, c_offs, c_w,
+            spec.num_points, c_axw, float(spec.center), spec.radius,
+            int(spec.kind == "box"), int(steps), int(block_rows),
+            int(engine == "matrix"), _stream(out))
+    _check("stencil", code, f"stencil_{engine}")
+    return out
