@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
 """Drive the PyTorch / H100 port's main path on one NVIDIA card.
 
-The paper's experiment end to end, through the port's public entry
-points: every §3 kernel family (SCALE, STREAM Triad, AXPY, block-ELL
-SpMV, Table-3 stencils) is classified by the §6 advisor, launched on the
-CUDA-core (vector) and the tensor-core (matrix) kernel, timed with CUDA
-events, and its measured matrix/vector time ratio printed beside the
-Eq. 23 ceiling.
+Two paths, through the port's public entry points.  The paper's
+experiment: every kernel family (SCALE, STREAM Triad, AXPY, block-ELL
+SpMV, Table-3 stencils, flash-decode attention) is classified by the §6
+advisor, launched on the CUDA-core (vector) and the tensor-core (matrix)
+kernel, timed with CUDA events, and its measured matrix/vector time
+ratio printed beside the Eq. 23 ceiling.  LM decode serving:
+Mistral-NeMo-12B at full width and depth (random float32 weights from a
+seed) answers a few requests, every layer's decode attention through the
+flash-decode kernel.
 
     python3 chip_smoke.py
 
@@ -18,7 +21,12 @@ Phases, each fatal on failure:
   4. the experiment at STREAM size (every array >= 4x the 50 MiB L2):
      launch counts reset before it and read after it, one JSON line per
      point and engine, then each output held against its plain version;
-  5. one JSON line of per-kernel numbers, then the result line.
+  5. library yardsticks (one PyTorch call computing the same function);
+  6. LM decode serving, once per flash-decode engine: launch counts reset
+     before the requests and read after them (exactly one launch per
+     layer and decode step), one teacher-forced decode step held against
+     the plain dense-attention path, prefill and per-step times;
+  7. one JSON line of per-kernel numbers, then the result line.
 
 Exits non-zero, printing no result, without a card or without the
 repository's sources beside this file.
@@ -36,23 +44,37 @@ ROOT = pathlib.Path(__file__).resolve().parent
 SEED = 0
 WARMUP, ITERS = 3, 20
 F32_TOL = 1e-4            # report/claims.py's float32 accuracy claim
+#: bfloat16 attention outputs are convex combinations of V rows, and some
+#: elements cancel to near zero, where float32 summation error exceeds a
+#: bf16 ulp of the element: the ulp there is taken at this fraction of the
+#: output's largest magnitude.
+ATTN_FLOOR = 1 / 256
 #: Non-tensor float32 peak of an H100 SXM (NVIDIA datasheet), for the
 #: operations side of each kernel's bound.
 PEAK_OPS = 67e12
 
+#: Float32 tolerance of the model phase's decode step against the plain
+#: dense-attention path: the reference's own model tier
+#: (tests/test_model_engine.py), elementwise |a - b| <= atol + rtol |b|.
+STEP_RTOL, STEP_ATOL = 1e-3, 1e-4
+
 #: (kernel family, engine) -> the TPU kernel it replaces (the function that
 #: reaches pl.pallas_call) and the CUDA source.
 REPLACES = {
-    "scale": "src/repro/core/dispatch.py:473",
-    "triad": "src/repro/core/dispatch.py:473",
-    "axpy": "src/repro/core/dispatch.py:473",
-    "spmv": "src/repro/kernels/spmv/spmv.py:59",
-    "stencil": "src/repro/kernels/stencil/stencil.py:135",
+    "scale": "src/repro/core/dispatch.py:475",
+    "triad": "src/repro/core/dispatch.py:475",
+    "axpy": "src/repro/core/dispatch.py:475",
+    "spmv": "src/repro/kernels/spmv/spmv.py:60",
+    "stencil": "src/repro/kernels/stencil/stencil.py:138",
+    "attention": "src/repro/kernels/attention/flash_decode.py:70",
 }
 SOURCE = {
     "scale": "elementwise", "triad": "elementwise", "axpy": "elementwise",
-    "spmv": "spmv", "stencil": "stencil",
+    "spmv": "spmv", "stencil": "stencil", "attention": "attention",
 }
+#: The LM decode phase: Mistral-NeMo-12B, full width and depth, float32.
+MODEL = "mistral-nemo-12b"
+MODEL_BATCH, PROMPT_LEN, MAX_GEN = 4, 496, 16
 
 
 class SmokeFailure(RuntimeError):
@@ -88,6 +110,9 @@ def main() -> int:
     from repro_torch.core.hw import spec_for_device_name
     from repro_torch.core.timing import time_fn
     from repro_torch.kernels import _ext, registry
+    from repro_torch.kernels.attention.flash_decode import flash_decode_plain
+    from repro_torch.kernels.attention.ops import (DEFAULT_BLOCK_S,
+                                                   _clamp_block_s)
     from repro_torch.kernels.spmv.ref import dense_to_bell
     from repro_torch.kernels.spmv.spmv import spmv_plain
     from repro_torch.kernels.stencil.defs import TABLE3_DEPTH, suite
@@ -132,23 +157,33 @@ def main() -> int:
             bell, x = args
             y = spmv_plain(bell.blocks, bell.cols, x, engine=engine)
             return y.reshape(-1)[:bell.shape[0]]
+        if name == "attention":
+            q, k, v, kv_len = args
+            bs = _clamp_block_s(k.shape[1], kw.get("block_s")
+                                or DEFAULT_BLOCK_S)
+            return flash_decode_plain(q, k, v, kv_len, block_s=bs,
+                                      engine=engine)
         u, spec = args
         return stencil_plain(u, spec, steps=kw["steps"], engine=engine)
 
-    def err_and_tol(got, want, tol_f32):
+    def err_and_tol(got, want, tol_f32, floor=0.0):
+        """max-abs error and whether it is within tolerance.  bfloat16:
+        one ulp of each element, with the ulp taken at ``floor`` times the
+        output's largest magnitude where the element is smaller."""
         err = (got.float() - want.float()).abs().max().item() \
             if got.numel() else 0.0
         if got.dtype == torch.bfloat16:
-            mag = want.float().abs().clamp_min(1e-30)
+            mag = want.float().abs()
+            mag = mag.clamp_min(max(floor * mag.max().item(), 1e-30))
             ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
             ok = bool(((got.float() - want.float()).abs() <= ulp).all())
         else:
             ok = err <= tol_f32
         return err, ok and got.shape == want.shape and got.dtype == want.dtype
 
-    def check(tag, got, want, tol_f32=F32_TOL):
+    def check(tag, got, want, tol_f32=F32_TOL, floor=0.0):
         torch.cuda.synchronize()
-        err, ok = err_and_tol(got, want, tol_f32)
+        err, ok = err_and_tol(got, want, tol_f32, floor)
         if not ok:
             failures.append(f"{tag}: max_abs_err {err}")
         return err
@@ -157,8 +192,9 @@ def main() -> int:
     # issues DMMA/HMMA, no vector kernel does
     sass = {}
     for symbol, ops in _ext.mma_instructions().items():
-        match = re.search(r"(elementwise|spmv|stencil)_(?:(vector|matrix)_)?"
-                          r"kernel(?:ILb[01]ELb[01]ELb([01])E|ILb([01])E)?",
+        match = re.search(r"(elementwise|spmv|stencil|attention)_"
+                          r"(?:(vector|matrix)_)?kernel"
+                          r"(?:ILb[01]ELb[01]ELb([01])E|ILb([01])E)?",
                           symbol)
         if match is None:
             continue
@@ -174,9 +210,9 @@ def main() -> int:
             failures.append(f"SASS of {symbol}: {ops} tensor-core "
                             f"instructions in a {key} kernel")
     print(json.dumps({"sass_mma": sass}), flush=True)
-    if len(sass) != 6:
-        failures.append(f"SASS audit found {sorted(sass)}, expected the six "
-                        f"family/engine kernels")
+    if len(sass) != 8:
+        failures.append(f"SASS audit found {sorted(sass)}, expected the "
+                        f"eight family/engine kernels")
 
     # -- 3. kernels against their plain versions on the card ---------------
     n_checks = 0
@@ -187,7 +223,8 @@ def main() -> int:
             for engine in ("vector", "matrix"):
                 check(f"{op.name}/{engine}/{dtype}@test_size",
                       op(*args, engine=engine, **kw),
-                      plain_of(op.name, args, kw, engine))
+                      plain_of(op.name, args, kw, engine),
+                      floor=ATTN_FLOOR if op.name == "attention" else 0.0)
                 n_checks += 1
             advice = op.advice(*args, **kw)
             before = _ext.LAUNCHES[f"{op.name}_vector"]
@@ -237,6 +274,30 @@ def main() -> int:
                                  block_rows=block_rows),
                       stencil_plain(u, spec, steps=steps, engine=engine))
                 n_checks += 1
+    attention_op = registry.get("attention")
+    # tests/test_flash_decode.py's shapes (b, s, kh, g, dh) at kv_len =
+    # S - 16, its unaligned serving lengths, and an all-masked cache
+    attn_cases = [(b, s, kh, g, dh, s - 16) for b, s, kh, g, dh in
+                  ((1, 512, 2, 4, 64), (2, 1024, 4, 8, 128),
+                   (1, 256, 1, 1, 32))]
+    attn_cases += [(2, s, 1, 2, 16, kv) for s, kv in ((12, 9), (24, 24),
+                                                      (56, 1))]
+    attn_cases += [(1, 512, 2, 4, 64, 0)]
+    for b, s, kh, g, dh, kv_len in attn_cases:
+        qkv = [torch.randn(shape, generator=gen).cuda() for shape in
+               ((b, kh, g, dh), (b, s, kh, dh), (b, s, kh, dh))]
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (t.to(dtype) for t in qkv)
+            for block_s in (128, 256, 512):
+                for engine in ("vector", "matrix"):
+                    check(f"attention/{engine}/{dtype}/b{b}s{s}kh{kh}g{g}"
+                          f"dh{dh}/kv_len={kv_len}/block_s={block_s}",
+                          attention_op(q, k, v, kv_len, engine=engine,
+                                       block_s=block_s),
+                          plain_of("attention", (q, k, v, kv_len),
+                                   {"block_s": block_s}, engine),
+                          floor=ATTN_FLOOR)
+                    n_checks += 1
     print(f"kernel checks: {n_checks} against the plain versions, "
           f"{len(failures)} failed", flush=True)
     if failures:
@@ -246,6 +307,7 @@ def main() -> int:
     # -- 4. the experiment at STREAM size ----------------------------------
     points = []
     rng = np.random.default_rng(SEED)
+    cgen = torch.Generator(device="cuda").manual_seed(SEED)
     for name in ("scale", "triad", "axpy"):
         op = registry.get(name)
         for dtype, n in (("float32", 2**26), ("bfloat16", 2**27)):
@@ -261,6 +323,18 @@ def main() -> int:
     points.append((stencil_op, "stencil/3d7pt/512^3", "float32",
                    (512, 512, 512), (u3, suite()["3d7pt"]),
                    {"steps": TABLE3_DEPTH["3d7pt"]}))
+    # flash-decode at Mistral-NeMo-12B's decode shape (G = 32 / 8 query
+    # heads per KV head, Dh = 128) over a long cache: K + V = 1 GiB in
+    # float32, 512 MiB in bfloat16
+    b, kh, g, dh, s = 4, 8, 4, 128, 32768
+    for dtype in ("float32", "bfloat16"):
+        q = torch.randn((b, kh, g, dh), generator=gen).to(
+            getattr(torch, dtype)).cuda()
+        k, v = (torch.randn((b, s, kh, dh), generator=cgen,
+                            device="cuda").to(getattr(torch, dtype))
+                for _ in range(2))
+        points.append((attention_op, f"attention/{dtype}/B{b}xS{s}", dtype,
+                       (b, s, kh, dh), (q, k, v, s - s // 8), {}))
     torch.cuda.synchronize()
 
     _ext.reset_launches()
@@ -302,11 +376,12 @@ def main() -> int:
             tol = 1e-5 * max(1.0, scale)
         else:
             tol = F32_TOL
+        floor = ATTN_FLOOR if op.name == "attention" else 0.0
         plain_t = {}
         for engine in ("vector", "matrix"):
             want = plain_of(op.name, args, kw, engine)
             err = check(f"{point}/{engine} at full size", outs[engine], want,
-                        tol)
+                        tol, floor)
             plain_t[engine] = time_fn(plain_of, op.name, args, kw, engine,
                                       warmup=1, iters=5)
             t = times[engine]
@@ -332,13 +407,22 @@ def main() -> int:
         check(f"{point}/auto at full size", outs["auto"],
               outs[advice.engine], 0.0)
 
-    # -- 5. library yardsticks and the per-kernel line ----------------------
+    # -- 5. library yardsticks -------------------------------------------
     library = {}
     for (op, point, dtype, shape, args, kw, *_rest) in results:
         library[point] = _library_ms(torch, F, op.name, args, kw, time_fn)
+    del points, results, args, kw, outs, times, want, traits, u3, q, k, v, \
+        bell, x, xg
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # -- 6. LM decode serving at full width ----------------------------------
+    model_launches = _model_phase(torch, hw, card, failures)
+
+    # -- 7. the per-kernel line ----------------------------------------------
     kernels = []
     for r in rows:
-        kernels.append({
+        entry = {
             "name": r["name"], "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{SOURCE[r['op']]}.cu",
             "replaces": REPLACES[r["op"]],
@@ -349,7 +433,12 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": library[r["point"]],
             "point": r["point"], "dtype": r["dtype"],
-        })
+        }
+        if r["op"] == "attention":
+            # flash-decode's own main path is LM decode serving (phase 6)
+            entry["experiment_launches"] = entry["launches"]
+            entry["launches"] = model_launches[r["name"]]
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     if failures:
         print("\n".join(failures), file=sys.stderr)
@@ -361,9 +450,154 @@ def main() -> int:
     return 0
 
 
+def _model_phase(torch, hw, card, failures):
+    """Mistral-NeMo-12B serves requests, once per flash-decode engine.
+
+    Full width and depth (40 layers, d_model 5120, 32 query heads over 8
+    KV heads), random float32 weights from SEED: about 49 GB on the card.
+    Returns the flash-decode launches of the request run, per kernel.
+    """
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import _ext
+    from repro_torch.models.advisor_map import step_traits
+    from repro_torch.models.engine import DecodeEngine
+    from repro_torch.serving.lm import LMDecodeExecutor
+    from repro_torch.serving.requests import LM_DECODE, Request
+
+    cfg = get_arch(MODEL)
+    steps = MAX_GEN - 1                 # decode steps per generation
+    per_gen = cfg.n_layers * steps      # flash-decode launches per generation
+    max_len = PROMPT_LEN + MAX_GEN
+    step_bytes = step_traits(cfg, MODEL_BATCH, max_len,
+                             dtype_bytes=4).traffic_bytes
+    step_bound_ms = step_bytes / hw.mem_bw * 1e3
+    print(f"model: {cfg.name} at full width and depth ({cfg.n_layers} layers,"
+          f" d_model {cfg.d_model}, {cfg.n_heads} query / {cfg.n_kv_heads} KV"
+          f" heads, head_dim {cfg.head_dim}, {cfg.param_count() / 1e9:.2f} B"
+          f" float32 parameters), batch {MODEL_BATCH}, prompt {PROMPT_LEN}, "
+          f"{MAX_GEN} tokens, cache {max_len}", flush=True)
+    requests = [Request(rid=i, kernel=LM_DECODE, arrival_s=0.0, size=MAX_GEN)
+                for i in range(7)]
+    launches, tokens = {}, {}
+    for engine in ("vector", "matrix"):
+        other = "matrix" if engine == "vector" else "vector"
+        t0 = time.perf_counter()
+        ex = LMDecodeExecutor(cfg, max_batch=MODEL_BATCH,
+                              prompt_len=PROMPT_LEN, max_gen=MAX_GEN,
+                              dtype=torch.float32, seed=SEED, engine=engine)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        mem_gb = torch.cuda.memory_allocated() / 1e9
+        # the main path: two formed batches, 4 requests and 3 padded to 4;
+        # the first execute also runs one untimed warm-up generation
+        _ext.reset_launches()
+        labels = [ex.execute(requests[:4]).engine]
+        first = _ext.LAUNCHES[f"attention_{engine}"]
+        labels.append(ex.execute(requests[4:]).engine)
+        torch.cuda.synchronize()
+        counts = dict(_ext.LAUNCHES)
+        launches[f"attention_{engine}"] = counts.get(f"attention_{engine}", 0)
+        launches.setdefault(f"attention_{other}", 0)
+        if first != 2 * per_gen or \
+                launches[f"attention_{engine}"] != 3 * per_gen:
+            failures.append(
+                f"model/{engine}: {first} then "
+                f"{launches[f'attention_{engine}']} flash-decode launches, "
+                f"expected {2 * per_gen} then {3 * per_gen} (one per layer "
+                f"and decode step)")
+        if counts.get(f"attention_{other}", 0):
+            failures.append(f"model/{engine}: the {other} kernel ran "
+                            f"{counts[f'attention_{other}']} times")
+        if labels != [engine, engine]:
+            failures.append(f"model/{engine}: batches report {labels}")
+        extras = ex.record_extras()["phases"]
+        per_step_ms = extras["per_step_ms"]
+        prefill_ms = extras["prefill_ms"] / extras["launches"]
+
+        # greedy tokens of the main path's prompt batch
+        eng = ex.engine
+        batch = eng.make_prompt_batch(seed=SEED)
+        result = eng.generate(batch)
+        tokens[engine] = result.tokens.cpu()
+        if tuple(result.tokens.shape) != (MODEL_BATCH, MAX_GEN) or \
+                not bool(torch.isfinite(result.logits).all()):
+            failures.append(f"model/{engine}: tokens "
+                            f"{tuple(result.tokens.shape)}, finite logits "
+                            f"{bool(torch.isfinite(result.logits).all())}")
+        del result
+
+        # one teacher-forced step through the kernel against the plain
+        # dense-attention path: same weights, caches and token
+        logits, caches = eng.prefill(batch)
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        twin = {"attn": {n: t.clone() for n, t in caches["attn"].items()}}
+        got, _ = eng.decode_step(tok, caches, PROMPT_LEN)
+        dense = DecodeEngine(cfg, max_batch=MODEL_BATCH,
+                             prompt_len=PROMPT_LEN, max_gen=MAX_GEN,
+                             dtype=torch.float32, engine=engine,
+                             attention_impl="dense", params=eng.params)
+        want, _ = dense.decode_step(tok, twin, PROMPT_LEN)
+        step_err = (got - want).abs().max().item()
+        if not torch.allclose(got, want, rtol=STEP_RTOL, atol=STEP_ATOL):
+            failures.append(f"model/{engine}: decode step differs from the "
+                            f"dense path by {step_err}")
+
+        # where a decode step's time goes: one more step under
+        # torch.profiler, device time summed by kernel
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng.decode_step(torch.argmax(got[:, 0], dim=-1)[:, None], caches,
+                            PROMPT_LEN + 1)
+            torch.cuda.synchronize()
+            profiled_ms = (time.perf_counter() - t0) * 1e3
+        kernel_us = {}
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                kernel_us[e.key] = kernel_us.get(e.key, 0.0) + \
+                    e.self_device_time_total
+        device_ms = sum(kernel_us.values()) / 1e3
+        attn_ms = sum(t for n, t in kernel_us.items()
+                      if "attention_" in n) / 1e3
+        top = sorted(kernel_us.items(), key=lambda kv: -kv[1])[:6]
+        print(json.dumps({"phase": "model_profile", "engine": engine,
+                          "profiled_step_ms": profiled_ms,
+                          "device_ms": device_ms,
+                          "top_kernels_ms": [[n[:90], t / 1e3]
+                                             for n, t in top]}), flush=True)
+        measured = device_ms > 0
+        line = {
+            "phase": "model", "model": cfg.name, "engine": engine,
+            "layers": cfg.n_layers, "batch": MODEL_BATCH,
+            "prompt_len": PROMPT_LEN, "max_gen": MAX_GEN,
+            "init_s": init_s, "weights_gb": mem_gb,
+            "prefill_ms": prefill_ms, "per_step_ms": per_step_ms,
+            "step_bytes": step_bytes, "step_bound_ms": step_bound_ms,
+            "step_bound_share": step_bound_ms / per_step_ms,
+            "device_busy_share": (device_ms / profiled_ms if measured
+                                  else "not measured"),
+            "attention_ms_per_step": attn_ms if measured else "not measured",
+            "attention_share_of_step": (attn_ms / per_step_ms if measured
+                                        else "not measured"),
+            "flash_decode_launches": launches[f"attention_{engine}"],
+            "decode_step_max_abs_err_vs_dense": step_err,
+            "card": card,
+        }
+        print(json.dumps(line), flush=True)
+        del ex, eng, dense, batch, logits, caches, twin, got, want, tok, prof
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    agree = (tokens["vector"] == tokens["matrix"]).float().mean().item()
+    print(f"model: greedy tokens agree between the vector and matrix "
+          f"flash-decode engines on {agree:.1%} of {tokens['vector'].numel()} "
+          f"positions", flush=True)
+    return launches
+
+
 def _library_ms(torch, F, name, args, kw, time_fn):
-    """One PyTorch call computing the same function, timed; None if there is
-    none for this input (the reason is printed)."""
+    """One PyTorch call computing the same function, timed (ms): a
+    yardstick only, which the port never calls."""
     if name == "scale":
         b, q = args
         fn = (torch.mul, b, q)
@@ -375,23 +609,27 @@ def _library_ms(torch, F, name, args, kw, time_fn):
         fn = (lambda: torch.add(y, x, alpha=a),)
     elif name == "spmv":
         bell, x = args
-        nbr, mb, bm, bn = bell.blocks.shape
-        cols = bell.cols.long()
-        if bool((cols[:, 1:] <= cols[:, :-1]).any()):
-            print("library spmv: zero-padded slots repeat a column id, which "
-                  "a BSR tensor cannot hold", flush=True)
-            return None
-        crow = torch.arange(0, nbr * mb + 1, mb, device=x.device)
-        try:
-            bsr = torch.sparse_bsr_tensor(crow, cols.reshape(-1),
-                                          bell.blocks.reshape(-1, bm, bn),
-                                          size=bell.shape)
-            bsr @ x[:, None]
-        except (RuntimeError, NotImplementedError, ValueError) as exc:
-            print(f"library spmv: torch's BSR matvec refuses "
-                  f"{bm}x{bn} blocks: {str(exc).splitlines()[0]}", flush=True)
-            return None
-        fn = (lambda: bsr @ x[:, None],)
+        # torch.sparse_bsr_tensor is not used: its matvec refuses the
+        # 8x128 blocks.  A CSR tensor of the same matrix (built here,
+        # outside the timed call) goes to cuSPARSE's SpMV.
+        csr = bell.todense().to_sparse_csr()
+        fn = (torch.mv, csr, x)
+    elif name == "attention":
+        q, k, v, kv_len = args
+        b, kh, g, dh = q.shape
+        # SDPA's layout, and only the kv_len valid positions (7/8 of the
+        # cache), arranged outside the timed call
+        qs = q.reshape(b, kh * g, 1, dh)
+        ks = k[:, :kv_len].permute(0, 2, 1, 3).contiguous()
+        vs = v[:, :kv_len].permute(0, 2, 1, 3).contiguous()
+        major, minor = (int(x) for x in torch.__version__.split(".")[:2])
+        if (major, minor) >= (2, 5):
+            fn = (lambda: F.scaled_dot_product_attention(qs, ks, vs,
+                                                         enable_gqa=True),)
+        else:
+            ks = ks.repeat_interleave(g, dim=1)
+            vs = vs.repeat_interleave(g, dim=1)
+            fn = (F.scaled_dot_product_attention, qs, ks, vs)
     else:
         u, spec = args
         steps = kw["steps"]

@@ -1,12 +1,13 @@
-"""Carry the reference's call arguments, given as numpy arrays, into the port.
+"""Carry the reference's data and weights, given as numpy arrays, into the port.
 
-This system has no weights; what crosses between the JAX reference and
-the port is data.  ``from_numpy`` turns one reference call's arguments
+``from_numpy`` turns one reference call's arguments
 into the port's: arrays become tensors (bfloat16 crosses as its bit
 pattern, never re-rounded), a block-ELL matrix becomes the port's
 ``BlockEll``, a stencil spec is rebuilt field by field into the port's
 own frozen ``StencilSpec``, and scalars pass through.  Objects are
 recognised by their fields, so nothing of the reference is imported.
+``params_from_numpy`` turns the reference's LM parameter pytree into the
+port's ``lm.LM`` bit for bit, and ``params_to_numpy`` turns it back.
 """
 from __future__ import annotations
 
@@ -16,7 +17,8 @@ from typing import Any
 import numpy as np
 import torch
 
-__all__ = ["cast", "from_numpy", "tensor"]
+__all__ = ["cast", "from_numpy", "params_from_numpy", "params_to_numpy",
+           "tensor"]
 
 
 def tensor(a: Any, device: str = "cuda") -> torch.Tensor:
@@ -58,3 +60,57 @@ def from_numpy(args: tuple, kwargs: dict, device: str = "cuda"):
     """One reference call's ``(args, kwargs)`` as the port's."""
     return (tuple(_carry(a, device) for a in args),
             {k: _carry(v, device) for k, v in kwargs.items()})
+
+
+# --------------------------------------------------------------------------
+# model weights
+# --------------------------------------------------------------------------
+
+def params_from_numpy(tree: dict, cfg, device: str = "cuda"):
+    """The reference's LM parameter pytree as the port's ``lm.LM``.
+
+    ``tree`` holds numpy arrays laid out as the reference keeps them:
+    ``(d_in, d_out)`` weights for ``x @ W``, and one stacked leading layer
+    axis under ``"layers"``.  Layer ``i`` of ``layers/attn/wq`` becomes
+    ``layers.<i>.attn.wq``; every value crosses bit for bit.
+    """
+    from .models.lm import LM
+    flat = {}
+    for key, val in tree.items():
+        if key != "layers":
+            flat[key] = tensor(val, device)
+    for path, leaf in _leaves(tree["layers"]):
+        arr = np.asarray(leaf)
+        for i in range(arr.shape[0]):
+            flat[f"layers.{i}.{path}"] = tensor(arr[i], device)
+    return LM(cfg, flat)
+
+
+def params_to_numpy(p) -> dict:
+    """The inverse of ``params_from_numpy``: the reference's pytree."""
+    tree: dict = {}
+    layers: dict = {}
+    for key, val in p.state_dict().items():
+        arr = val.detach().cpu().numpy()
+        if not key.startswith("layers."):
+            tree[key] = arr
+            continue
+        i, path = key[len("layers."):].split(".", 1)
+        layers.setdefault(path, {})[int(i)] = arr
+    nested: dict = {}
+    for path, per_layer in layers.items():
+        node = nested
+        *parents, leaf = path.split(".")
+        for name in parents:
+            node = node.setdefault(name, {})
+        node[leaf] = np.stack([per_layer[i] for i in sorted(per_layer)])
+    tree["layers"] = nested
+    return tree
+
+
+def _leaves(tree: dict, prefix: str = ""):
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            yield from _leaves(val, f"{prefix}{key}.")
+        else:
+            yield f"{prefix}{key}", val

@@ -1,0 +1,8 @@
+"""Qwen1.5-32B: dense MHA (kv=40) with QKV bias [hf:Qwen/Qwen1.5-32B]."""
+from ..models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen1.5-32b", family="dense",
+    n_layers=64, d_model=5120, n_heads=40, n_kv_heads=40, head_dim=128,
+    d_ff=27392, vocab=152064, qkv_bias=True, rope_theta=1e6,
+)

@@ -23,15 +23,17 @@ import subprocess
 import threading
 from typing import Dict, Optional, Sequence
 
+import numpy as np
 import torch
 
-__all__ = ["LAUNCHES", "build", "elementwise", "mma_instructions",
-           "reset_launches", "spmv", "stencil"]
+__all__ = ["LAUNCHES", "attention", "attention_split", "build",
+           "elementwise", "mma_instructions", "reset_launches", "spmv",
+           "stencil"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_ext"
-SOURCES = ("elementwise", "spmv", "stencil")
+SOURCES = ("attention", "elementwise", "spmv", "stencil")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -139,6 +141,10 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     if name == "elementwise":
         fn = lib.elementwise_launch
         fn.argtypes = [_P, _P, _P, _LL, _I, _F, _I, _I, _LL, _P]
+    elif name == "attention":
+        fn = lib.attention_launch
+        fn.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                       _I, _F, _I, _I, _P]
     elif name == "spmv":
         fn = lib.spmv_launch
         fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
@@ -267,4 +273,73 @@ def stencil(u: torch.Tensor, spec, *, steps: int, engine: str,
             int(spec.kind == "box"), int(steps), int(block_rows),
             int(engine == "matrix"), _stream(out))
     _check("stencil", code, f"stencil_{engine}")
+    return out
+
+
+#: Query heads per KV head the attention kernels take (the matrix kernel's
+#: MMA N).
+MAX_GROUP = 8
+#: Head dims the attention kernels are instantiated for.
+HEAD_DIMS = (16, 32, 64, 128)
+
+
+def attention_split(s: int, block_s: int, pairs: int, sms: int):
+    """``(rows, nsplit)``: how many cache positions one CTA streams.
+
+    Each CTA takes one reference KV block of ``block_s`` positions, as one
+    Pallas grid step did, as long as that gives at least two CTAs per SM.
+    Where ``pairs = B * KH`` and ``S / block_s`` are too few for that, the
+    cache is cut into shorter ranges (a multiple of 64 positions).
+    """
+    if s <= 0 or block_s <= 0 or s % block_s:
+        raise ValueError(f"block_s={block_s} must divide S={s}")
+    rows = block_s
+    want = 2 * sms
+    if pairs * (s // block_s) < want:
+        rows = -(-s // -(-want // pairs))
+        rows = -(-rows // 64) * 64
+    return rows, -(-s // rows)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              kv_len: int, *, block_s: int, engine: str) -> torch.Tensor:
+    """Launch flash-decode: q (B, KH, G, Dh) over k, v (B, S, KH, Dh)."""
+    b, kh, g, dh = q.shape
+    s = k.shape[1]
+    if k.ndim != 4 or tuple(k.shape) != (b, s, kh, dh) or \
+            v.shape != k.shape:
+        raise ValueError(f"flash-decode shapes disagree: q {tuple(q.shape)},"
+                         f" k {tuple(k.shape)}, v {tuple(v.shape)}")
+    dtype = q.dtype
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"flash-decode takes float32/bfloat16, got {dtype}")
+    if not 1 <= g <= MAX_GROUP:
+        raise ValueError(f"flash-decode takes 1..{MAX_GROUP} query heads per "
+                         f"KV head, got {g}")
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"flash-decode takes head dim in {HEAD_DIMS}, got "
+                         f"{dh}")
+    for t, what in ((q, "q"), (k, "k"), (v, "v")):
+        _need(t, f"flash-decode {what}", dtype)
+    pairs = b * kh
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    rows, nsplit = attention_split(s, block_s, pairs, sms)
+    out = torch.empty_like(q)
+    part_ml = part_acc = None
+    if nsplit > 1:
+        part_ml = torch.empty(pairs * nsplit * g * 2, dtype=torch.float32,
+                              device=q.device)
+        part_acc = torch.empty(pairs * nsplit * g * dh, dtype=torch.float32,
+                               device=q.device)
+    # 1 / sqrt(Dh) rounded as the reference rounds it: both in float32
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(dh)))
+    with torch.cuda.device(out.device):
+        code = _lib("attention").attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if part_ml is None else part_ml.data_ptr(),
+            None if part_acc is None else part_acc.data_ptr(),
+            b, kh, g, s, dh, int(kv_len), rows, nsplit, scale,
+            int(dtype == torch.bfloat16), int(engine == "matrix"),
+            _stream(out))
+    _check("attention", code, f"attention_{engine}")
     return out

@@ -1,0 +1,23 @@
+"""Model layer: the dense GQA LM family over the port's kernel stack.
+
+* :mod:`repro_torch.models.config` — the reference's frozen
+  :class:`ModelConfig` schema (copied, pure Python).
+* :mod:`repro_torch.models.lm` — one module per layer and a Python layer
+  loop: forward / prefill / decode_step for the dense family.
+* :mod:`repro_torch.models.engine` — the :class:`DecodeEngine` serving
+  entry point: prefill + greedy decode with every layer's decode
+  attention through the hand-written flash-decode kernel, and a measured
+  prefill/decode phase split.
+* :mod:`repro_torch.models.advisor_map` — per-op Eq. 2 traits for one
+  decode step and the model-scale verdict.
+"""
+from .advisor_map import (ModelVerdict, OpVerdict, decode_op_traits,
+                          model_verdict, step_traits, verdict_payload)
+from .config import ModelConfig
+from .engine import DecodeEngine, GenerationResult
+
+__all__ = [
+    "DecodeEngine", "GenerationResult", "ModelConfig", "ModelVerdict",
+    "OpVerdict", "decode_op_traits", "model_verdict", "step_traits",
+    "verdict_payload",
+]

@@ -1,0 +1,221 @@
+"""Attention: GQA with chunked (flash-style) softmax and KV caches.
+
+Grouped-query attention never materializes repeated KV heads: scores are
+computed with the (kv_head, group) factorization, query head
+``kv_head * G + g``.  Long prompts go through a chunked online-softmax
+loop (q-chunks outer, kv-chunks inner) so memory stays tile-sized.
+
+Single-token decode goes through the registered flash-decode op when
+``cfg.decode_attention_impl == "registry"``: the hand-written kernel on
+the card, its plain version on the CPU.  The KV cache is updated in
+place (``cache["k"][:, idx] = k``), where the reference builds a new one
+with ``dynamic_update_slice``.
+
+Not ported yet, each raising ``NotImplementedError``: MLA, cross-
+attention and the int8 KV cache (see ``lm.WAITING``).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from .config import ModelConfig
+from .layers import apply_mrope, apply_rope
+
+__all__ = ["attention", "make_cache", "sdpa"]
+
+NEG_INF = -1e30
+
+
+def _waits(what: str) -> NotImplementedError:
+    from .lm import WAITING
+    return NotImplementedError(f"not ported yet: {WAITING[what]}")
+
+
+# --------------------------------------------------------------------------
+# core attention math
+# --------------------------------------------------------------------------
+
+def _scale(dh: int, device) -> torch.Tensor:
+    return (torch.tensor(1.0) / torch.sqrt(torch.tensor(float(dh)))).to(device)
+
+
+def _gqa_scores(q, k):
+    """q: (B,Sq,KH,G,Dh), k: (B,Skv,KH,Dh) -> (B,KH,G,Sq,Skv)."""
+    return torch.einsum("bqhgd,bkhd->bhgqk", q, k)
+
+
+def _gqa_out(w, v):
+    """w: (B,KH,G,Sq,Skv), v: (B,Skv,KH,Dh) -> (B,Sq,KH,G,Dh)."""
+    return torch.einsum("bhgqk,bkhd->bqhgd", w, v)
+
+
+def _sdpa_dense(q, k, v, q_pos, kv_pos, causal: bool, kv_len=None):
+    """Unchunked softmax attention with GQA factorization.
+
+    q: (B,Sq,KH,G,Dh); k,v: (B,Skv,KH,Dh); positions broadcast (B,S)."""
+    s = _gqa_scores(q, k).float() * _scale(q.shape[-1], q.device)
+    mask = torch.ones(s.shape[-2:], dtype=torch.bool, device=s.device)
+    if causal:
+        mask = kv_pos[:, None, :] <= q_pos[:, :, None]       # (B,Sq,Skv)
+        mask = mask[:, None, None]
+    if kv_len is not None:
+        valid = (torch.arange(k.shape[1], device=k.device)[None, :]
+                 < kv_len[:, None])
+        mask = mask & valid[:, None, None, None, :]
+    s = torch.where(mask, s, torch.tensor(NEG_INF, device=s.device))
+    w = torch.softmax(s, dim=-1).to(q.dtype)
+    return _gqa_out(w, v)
+
+
+def _sdpa_flash(q, k, v, q_pos, kv_pos, causal: bool, q_chunk: int,
+                kv_chunk: int):
+    """Chunked online-softmax attention (memory = tiles)."""
+    b, sq, kh, g, dh = q.shape
+    skv = k.shape[1]
+    if sq % q_chunk or skv % kv_chunk:
+        raise ValueError(f"chunks {q_chunk}/{kv_chunk} must divide "
+                         f"{sq}/{skv}")
+    scale = _scale(dh, q.device)
+    outs = []
+    for i in range(sq // q_chunk):
+        qi = q[:, i * q_chunk:(i + 1) * q_chunk]
+        qpi = q_pos[:, i * q_chunk:(i + 1) * q_chunk]
+        acc = torch.zeros((b, kh, g, q_chunk, dh), device=q.device)
+        m = torch.full((b, kh, g, q_chunk), NEG_INF, device=q.device)
+        length = torch.zeros((b, kh, g, q_chunk), device=q.device)
+        for j in range(skv // kv_chunk):
+            ki = k[:, j * kv_chunk:(j + 1) * kv_chunk]
+            vi = v[:, j * kv_chunk:(j + 1) * kv_chunk]
+            kpi = kv_pos[:, j * kv_chunk:(j + 1) * kv_chunk]
+            s = _gqa_scores(qi, ki).float() * scale
+            if causal:
+                mask = kpi[:, None, :] <= qpi[:, :, None]
+                s = torch.where(mask[:, None, None], s,
+                                torch.tensor(NEG_INF, device=s.device))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            length = length * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + _gqa_out(
+                p.to(qi.dtype), vi).float().permute(0, 2, 3, 1, 4)
+            m = m_new
+        out = (acc / torch.clamp_min(length, 1e-30)[..., None]).permute(
+            0, 3, 1, 2, 4)
+        outs.append(out.to(q.dtype))
+    return torch.cat(outs, dim=1)
+
+
+def sdpa(q, k, v, q_pos, kv_pos, *, causal: bool, kv_len=None,
+         q_chunk: int = 512, kv_chunk: int = 1024):
+    """Dispatch dense vs flash by size; shapes as in ``_sdpa_dense``."""
+    sq, skv = q.shape[1], k.shape[1]
+    if (sq > q_chunk and sq % q_chunk == 0 and skv % kv_chunk == 0
+            and kv_len is None):
+        return _sdpa_flash(q, k, v, q_pos, kv_pos, causal, q_chunk, kv_chunk)
+    return _sdpa_dense(q, k, v, q_pos, kv_pos, causal, kv_len)
+
+
+# --------------------------------------------------------------------------
+# GQA attention layer
+# --------------------------------------------------------------------------
+
+def _project_qkv(p, x, kv_x, cfg: ModelConfig):
+    q = x @ p.wq
+    k = kv_x @ p.wk
+    v = kv_x @ p.wv
+    if "bq" in p:
+        q = q + p.bq
+        k = k + p.bk
+        v = v + p.bv
+    b, sq = x.shape[:2]
+    skv = kv_x.shape[1]
+    q = q.reshape(b, sq, cfg.n_heads, cfg.head_dim)
+    k = k.reshape(b, skv, cfg.n_kv_heads, cfg.head_dim)
+    v = v.reshape(b, skv, cfg.n_kv_heads, cfg.head_dim)
+    return q, k, v
+
+
+def _rope_qk(q, k, q_pos, kv_pos, cfg: ModelConfig):
+    if cfg.rope_kind == "none":
+        return q, k
+    if cfg.rope_kind == "mrope":
+        return (apply_mrope(q, q_pos, cfg.rope_theta, cfg.mrope_sections),
+                apply_mrope(k, kv_pos, cfg.rope_theta, cfg.mrope_sections))
+    return (apply_rope(q, q_pos, cfg.rope_theta),
+            apply_rope(k, kv_pos, cfg.rope_theta))
+
+
+def _scalar_pos(positions, cfg: ModelConfig):
+    """The (B,S) stream used for causal masking (mrope uses temporal)."""
+    return positions[0] if cfg.rope_kind == "mrope" else positions
+
+
+def attention(p, x, cfg: ModelConfig, *, positions,
+              cache: Optional[Dict] = None, cache_index: Optional[int] = None,
+              kv_x=None, kv_positions=None, causal: bool = True
+              ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Attention in train/prefill and decode mode.
+
+    train/prefill: cache=None -> full self-attention; returns the fresh
+      cache ``{"k", "v"}``.
+    decode: cache given + cache_index (a Python int) -> one-step attention
+      against the cache, which is updated in place and returned.
+    """
+    if cfg.use_mla:
+        raise _waits("mla")
+    if kv_x is not None:
+        raise _waits("enc_dec")
+    del kv_positions
+    b, sq, _ = x.shape
+    group = cfg.n_heads // cfg.n_kv_heads
+    q, k, v = _project_qkv(p, x, x, cfg)
+    q, k = _rope_qk(q, k, positions, positions, cfg)
+    if cache is None:                                        # train / prefill
+        new_cache = {"k": k, "v": v}
+        q = q.reshape(b, sq, cfg.n_kv_heads, group, cfg.head_dim)
+        qpos = _scalar_pos(positions, cfg)
+        out = sdpa(q, k, v, qpos, qpos, causal=causal)
+        out = out.reshape(b, sq, cfg.n_heads * cfg.head_dim)
+        return out @ p.wo, new_cache
+    if cache["k"].dtype == torch.int8:
+        raise _waits("int8")
+    # decode: write the new rows into the cache in place
+    cache["k"][:, cache_index:cache_index + sq] = k.to(cache["k"].dtype)
+    cache["v"][:, cache_index:cache_index + sq] = v.to(cache["v"].dtype)
+    ck = cache["k"].to(x.dtype)
+    cv = cache["v"].to(x.dtype)
+    q = q.reshape(b, sq, cfg.n_kv_heads, group, cfg.head_dim)
+    if cfg.decode_attention_impl == "registry" and sq == 1:
+        # single-token decode through the registered flash-decode op:
+        # the dispatcher's memoized Advice routes engine='auto' (vector on
+        # this memory-bound shape); the kernel on the card, its plain
+        # version on the CPU
+        from ..kernels.attention.ops import decode_attention
+        out = decode_attention(q[:, 0], ck, cv, cache_index + sq,
+                               engine=cfg.decode_attention_engine,
+                               backend="cuda" if q.is_cuda else "plain")
+        out = out[:, None]
+    else:
+        kv_len = torch.full((b,), cache_index + sq, dtype=torch.int32,
+                            device=x.device)
+        kv_pos = torch.arange(ck.shape[1], device=x.device)[None].expand(
+            b, ck.shape[1])
+        qpos = _scalar_pos(positions, cfg)
+        out = _sdpa_dense(q, ck, cv, qpos, kv_pos, causal=True,
+                          kv_len=kv_len)
+    out = out.reshape(b, sq, cfg.n_heads * cfg.head_dim)
+    return out @ p.wo, cache
+
+
+def make_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device="cuda") -> Dict:
+    """Zero ``(B, max_len, KH, Dh)`` k and v caches for one layer."""
+    if cfg.use_mla:
+        raise _waits("mla")
+    if dtype == torch.int8:
+        raise _waits("int8")
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}

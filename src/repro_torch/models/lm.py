@@ -1,0 +1,320 @@
+"""Causal LM, dense GQA family: one module per layer, a Python layer loop.
+
+The reference scans a stacked parameter pytree with ``lax.scan``; here
+each layer is an ``nn.Module`` in an ``nn.ModuleList`` and the layer loop
+is a Python loop (PyTorch runs eagerly, so there is nothing to compile).
+The weight names and layouts are the reference's: ``(d_in, d_out)`` for
+``x @ W``, ``state_dict`` keys ``layers.<i>.attn.wq`` for the pytree's
+``layers/attn/wq[i]``.
+
+Modes:
+  forward      -- full-sequence pass (logits, optional KV caches)
+  prefill      -- prompt pass returning last-position logits + caches
+  decode_step  -- one token against the caches, updated in place
+
+Only the dense family is ported so far.  The others raise
+``NotImplementedError`` naming the ROADMAP.md item that ports them.
+"""
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import torch
+from torch import nn
+
+from .attention import attention, make_cache
+from .config import ModelConfig
+from .layers import dense_init, init_mlp, mlp, rmsnorm
+
+__all__ = ["Block", "DenseLayer", "LM", "cast_params", "check_family",
+           "decode_step", "forward", "init_caches", "init_params",
+           "loss_fn", "pad_caches", "prefill"]
+
+#: The families and features that wait, with the ROADMAP.md item that
+#: ports each (Queue 1 item 10, in order).
+WAITING = {
+    "moe": "MoE layers (models/moe.py): ROADMAP.md Queue 1 item 10.1",
+    "mla": "MLA attention: ROADMAP.md Queue 1 item 10.2",
+    "ssm": "SSM layers (models/ssm.py): ROADMAP.md Queue 1 item 10.3",
+    "hybrid": "the hybrid SSM + shared-attention family: ROADMAP.md "
+              "Queue 1 item 10.4",
+    "enc_dec": "the encoder-decoder family and cross-attention: ROADMAP.md "
+               "Queue 1 item 10.5",
+    "vision": "the M-RoPE / vision frontend: ROADMAP.md Queue 1 item 10.6",
+    "int8": "the int8 KV cache: ROADMAP.md Queue 1 item 10.7",
+    "train": "loss_fn and training: ROADMAP.md Queue 1 item 10.8",
+}
+
+
+def _waits(what: str) -> NotImplementedError:
+    return NotImplementedError(f"not ported yet: {WAITING[what]}")
+
+
+def check_family(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` unless the port runs ``cfg``."""
+    if cfg.family == "ssm":
+        raise _waits("ssm")
+    if cfg.family == "hybrid":
+        raise _waits("hybrid")
+    if cfg.n_experts or cfg.first_dense_layers:
+        raise _waits("moe")
+    if cfg.use_mla:
+        raise _waits("mla")
+    if cfg.enc_dec:
+        raise _waits("enc_dec")
+    if cfg.frontend or cfg.rope_kind == "mrope":
+        raise _waits("vision")
+
+
+# --------------------------------------------------------------------------
+# modules
+# --------------------------------------------------------------------------
+
+class Block(nn.Module):
+    """A named group of weights: one node of the reference's pytree.
+
+    ``"bq" in block`` tests for an optional weight, as ``"bq" in p`` does
+    on the reference's dicts.
+    """
+
+    def __init__(self, tensors: Mapping[str, torch.Tensor]):
+        super().__init__()
+        for name, t in tensors.items():
+            self.register_parameter(name, nn.Parameter(t, requires_grad=False))
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters
+
+
+class DenseLayer(nn.Module):
+    """Pre-norm attention + SwiGLU block of the dense family."""
+
+    def __init__(self, tensors: Mapping[str, torch.Tensor]):
+        super().__init__()
+        self.ln1 = nn.Parameter(tensors["ln1"], requires_grad=False)
+        self.ln2 = nn.Parameter(tensors["ln2"], requires_grad=False)
+        self.attn = Block({k[5:]: v for k, v in tensors.items()
+                           if k.startswith("attn.")})
+        self.mlp = Block({k[4:]: v for k, v in tensors.items()
+                          if k.startswith("mlp.")})
+
+
+class LM(nn.Module):
+    """Embedding, the layer stack and the LM head of one ``ModelConfig``.
+
+    ``tensors`` maps ``state_dict`` names (``embed``, ``final_norm``,
+    ``head``, ``layers.<i>.ln1``, ``layers.<i>.attn.wq``, ...) to the
+    weights, which the module takes over without copying.
+    """
+
+    def __init__(self, cfg: ModelConfig,
+                 tensors: Mapping[str, torch.Tensor]):
+        super().__init__()
+        check_family(cfg)
+        self.cfg = cfg
+        self.embed = nn.Parameter(tensors["embed"], requires_grad=False)
+        self.final_norm = nn.Parameter(tensors["final_norm"],
+                                       requires_grad=False)
+        if not cfg.tie_embeddings:
+            self.head = nn.Parameter(tensors["head"], requires_grad=False)
+        layers = []
+        for i in range(cfg.n_layers):
+            pre = f"layers.{i}."
+            layers.append(DenseLayer({k[len(pre):]: v
+                                      for k, v in tensors.items()
+                                      if k.startswith(pre)}))
+        self.layers = nn.ModuleList(layers)
+
+
+#: Parameters that stay float32 whatever the compute dtype: the reference
+#: applies them in float32 (``rmsnorm``) and never casts them.
+_NORMS = ("ln1", "ln2", "final_norm")
+
+
+def cast_params(p: LM, dtype: torch.dtype) -> LM:
+    """``p`` with every matmul weight, embedding and bias in ``dtype``.
+
+    Done once, where the reference casts at every use (``.astype(dtype)``
+    before each matmul): the same rounding, without streaming the
+    float32 weights a second time each step.  Norm weights stay float32.
+    A float32 ``dtype`` returns ``p`` itself.
+    """
+    if dtype == torch.float32:
+        return p
+    tensors = {k: (v if k.split(".")[-1] in _NORMS else v.to(dtype))
+               for k, v in p.state_dict().items()}
+    return LM(p.cfg, tensors)
+
+
+# --------------------------------------------------------------------------
+# init
+# --------------------------------------------------------------------------
+
+def _init_dense_layer(gen: torch.Generator, cfg: ModelConfig, device
+                      ) -> Dict[str, torch.Tensor]:
+    d = cfg.d_model
+    t = {"ln1": torch.ones(d, device=device),
+         "attn.wq": dense_init(gen, d, cfg.q_dim, device=device),
+         "attn.wk": dense_init(gen, d, cfg.kv_dim, device=device),
+         "attn.wv": dense_init(gen, d, cfg.kv_dim, device=device),
+         "attn.wo": dense_init(gen, cfg.n_heads * cfg.head_dim, d,
+                               device=device),
+         "ln2": torch.ones(d, device=device)}
+    if cfg.qkv_bias:
+        t["attn.bq"] = torch.zeros(cfg.q_dim, device=device)
+        t["attn.bk"] = torch.zeros(cfg.kv_dim, device=device)
+        t["attn.bv"] = torch.zeros(cfg.kv_dim, device=device)
+    for k, v in init_mlp(gen, d, cfg.d_ff, device=device).items():
+        t[f"mlp.{k}"] = v
+    return t
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> LM:
+    """Seeded random float32 weights, drawn on ``device``.
+
+    The reference's distributions (N(0, 1/d_in) matmul weights, 0.02
+    embedding and head, unit norms, zero biases) from a
+    ``torch.Generator``: not the reference's numbers, which come from
+    ``jax.random`` (carry them with ``carry.params_from_numpy``).
+    """
+    check_family(cfg)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    d = cfg.d_model
+    t = {"embed": torch.randn((cfg.vocab_padded, d), generator=gen,
+                              device=device).mul_(0.02),
+         "final_norm": torch.ones(d, device=device)}
+    if not cfg.tie_embeddings:
+        t["head"] = dense_init(gen, d, cfg.vocab_padded, scale=0.02,
+                               device=device)
+    for i in range(cfg.n_layers):
+        for k, v in _init_dense_layer(gen, cfg, device).items():
+            t[f"layers.{i}.{k}"] = v
+    return LM(cfg, t)
+
+
+# --------------------------------------------------------------------------
+# embedding / head
+# --------------------------------------------------------------------------
+
+def _logits(p: LM, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    head = p.embed.T if cfg.tie_embeddings else p.head
+    return x @ head.to(x.dtype)
+
+
+def _positions(batch: Dict, b: int, s: int, device) -> torch.Tensor:
+    if "positions" in batch:
+        return batch["positions"]
+    return torch.arange(s, dtype=torch.int32, device=device)[None].expand(b, s)
+
+
+def _dense_block(p: DenseLayer, x, cfg: ModelConfig, *, positions, cache,
+                 cache_index, causal=True):
+    h, new_cache = attention(p.attn, rmsnorm(p.ln1, x, cfg.norm_eps), cfg,
+                             positions=positions, cache=cache,
+                             cache_index=cache_index, causal=causal)
+    x = x + h
+    return x + mlp(p.mlp, rmsnorm(p.ln2, x, cfg.norm_eps)), new_cache
+
+
+# --------------------------------------------------------------------------
+# forward (prefill)
+# --------------------------------------------------------------------------
+
+def forward(p: LM, cfg: ModelConfig, batch: Dict, *,
+            dtype=torch.bfloat16, want_cache: bool = False,
+            return_hidden: bool = False):
+    """Full-sequence pass.  Returns (logits, caches|None, aux).
+
+    ``caches`` is ``{"attn": {"k": (L, B, S, KH, Dh), "v": ...}}``, the
+    reference's stacked layout; ``aux`` holds the MoE losses, zero for
+    the dense family.  ``return_hidden`` skips the LM head.
+    """
+    check_family(cfg)
+    x = p.embed[batch["tokens"].long()].to(dtype)
+    b, s, _ = x.shape
+    positions = _positions(batch, b, s, x.device)
+    ks, vs = [], []
+    for layer in p.layers:
+        x, kv = _dense_block(layer, x, cfg, positions=positions, cache=None,
+                             cache_index=None)
+        if want_cache:
+            ks.append(kv["k"])
+            vs.append(kv["v"])
+    x = rmsnorm(p.final_norm, x, cfg.norm_eps)
+    caches = ({"attn": {"k": torch.stack(ks), "v": torch.stack(vs)}}
+              if want_cache else None)
+    zero = torch.zeros((), device=x.device)
+    aux = {"aux_loss": zero, "z_loss": zero}
+    if return_hidden:
+        return x, caches, aux
+    return _logits(p, cfg, x), caches, aux
+
+
+def loss_fn(*args, **kwargs):
+    """Training loss: waits for the training slice."""
+    raise _waits("train")
+
+
+# --------------------------------------------------------------------------
+# caches / decode
+# --------------------------------------------------------------------------
+
+def init_caches(cfg: ModelConfig, batch: int, max_len: int,
+                dtype=torch.bfloat16, device="cuda") -> Dict:
+    """Zero KV caches, ``(L, B, max_len, KH, Dh)`` per k and v."""
+    check_family(cfg)
+    base = make_cache(cfg, batch, max_len, dtype, device)
+    return {"attn": {k: torch.zeros((cfg.n_layers, *v.shape), dtype=v.dtype,
+                                    device=v.device)
+                     for k, v in base.items()}}
+
+
+def pad_caches(caches: Dict, max_len: int) -> Dict:
+    """Grow prefill caches (seq = prompt len) to the serving max_len."""
+    def pad(name, x):
+        if name in ("k", "v", "latent", "k_rope"):
+            axis = x.ndim - (3 if name in ("latent", "k_rope") else 4) + 1
+            if max_len > x.shape[axis]:
+                shape = list(x.shape)
+                shape[axis] = max_len
+                out = torch.zeros(shape, dtype=x.dtype, device=x.device)
+                out.narrow(axis, 0, x.shape[axis]).copy_(x)
+                return out
+        return x
+
+    def walk(tree):
+        return {k: walk(v) if isinstance(v, dict) else pad(k, v)
+                for k, v in tree.items()}
+    return walk(caches)
+
+
+def decode_step(p: LM, cfg: ModelConfig, tokens: torch.Tensor, caches: Dict,
+                cache_index: int, *, dtype=torch.bfloat16):
+    """One decode step.  tokens: (B, 1); cache_index: a Python int.
+
+    The KV caches are updated in place (position ``cache_index`` of every
+    layer) and returned, where the reference returns new ones.
+    """
+    check_family(cfg)
+    x = p.embed[tokens.long()].to(dtype)
+    b = tokens.shape[0]
+    pos = torch.full((b, 1), cache_index, dtype=torch.int32, device=x.device)
+    kc, vc = caches["attn"]["k"], caches["attn"]["v"]
+    for i, layer in enumerate(p.layers):
+        x, _ = _dense_block(layer, x, cfg, positions=pos,
+                            cache={"k": kc[i], "v": vc[i]},
+                            cache_index=cache_index)
+    x = rmsnorm(p.final_norm, x, cfg.norm_eps)
+    return _logits(p, cfg, x), caches
+
+
+def prefill(p: LM, cfg: ModelConfig, batch: Dict, *, dtype=torch.bfloat16):
+    """Prompt pass: last-position logits (B, 1, V) + caches.
+
+    The LM head runs on the last position only: the reference computes
+    every position's logits and keeps the last.
+    """
+    x, caches, _ = forward(p, cfg, batch, dtype=dtype, want_cache=True,
+                           return_hidden=True)
+    return _logits(p, cfg, x[:, -1:]), caches
+

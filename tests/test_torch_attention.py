@@ -1,0 +1,190 @@
+"""Flash-decode parity: the port's plain version against the JAX kernel.
+
+The same seeded numpy inputs go through the reference's ``flash_decode``
+(Pallas in interpret mode, as ``tests/test_flash_decode.py`` runs it)
+and through the port's ``flash_decode`` with ``backend="plain"`` on CPU
+tensors, the plain PyTorch version of the hand-written CUDA kernels.
+Tolerances: float32 rtol = atol = 1e-5 (summation order); bfloat16
+within one bfloat16 ulp.  Outputs are convex combinations of V rows, so
+some elements cancel to near zero; there float32 summation error exceeds
+a bf16 ulp of the element itself, and the ulp is taken at a floor of
+1/256 of the output's largest magnitude.
+
+Tests marked ``gpu`` hold both CUDA kernels against the plain version on
+the card; they skip where there is none.
+"""
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+# the suite runs in several worker processes on shared cores: one
+# intra-op thread each keeps these CPU tests from crowding the others
+torch.set_num_threads(1)
+
+from repro.kernels.attention.flash_decode import flash_decode as j_flash  # noqa: E402
+from repro.kernels.attention.ref import decode_attention_ref as j_ref  # noqa: E402
+
+from repro_torch.carry import tensor  # noqa: E402
+from repro_torch.kernels._ext import attention_split  # noqa: E402
+from repro_torch.kernels.attention.flash_decode import (  # noqa: E402
+    flash_decode, flash_decode_plain)
+from repro_torch.kernels.attention.ops import (  # noqa: E402
+    _clamp_block_s, decode_attention)
+from repro_torch.kernels.attention.ref import decode_attention_ref  # noqa: E402
+
+ENGINES = ("vector", "matrix")
+DTYPES = ("float32", "bfloat16")
+#: (b, s, kh, g, dh, block_s): tests/test_flash_decode.py's sweep
+SHAPES = [(1, 512, 2, 4, 64, 128), (2, 1024, 4, 8, 128, 256),
+          (1, 256, 1, 1, 32, 64)]
+#: unaligned serving cache lengths (S, kv_len), on (2, S, 1, 2, 16)
+SERVING = [(12, 9), (24, 24), (56, 1)]
+
+
+def _mk(b, s, kh, g, dh, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    return [jnp.asarray(rng.standard_normal(shape), dtype)
+            for shape in ((b, kh, g, dh), (b, s, kh, dh), (b, s, kh, dh))]
+
+
+def _port(arrays):
+    return [tensor(np.asarray(a), "cpu") for a in arrays]
+
+
+def _assert_close(got, want, dtype):
+    g = got.float().numpy()
+    w = np.asarray(want, np.float32)
+    assert g.shape == w.shape
+    if dtype == "bfloat16":
+        assert got.dtype == torch.bfloat16
+        mag = np.maximum(np.abs(w), np.abs(w).max() / 256)
+        ulp = np.exp2(np.floor(np.log2(np.maximum(mag, 1e-30))) - 7)
+        assert np.all(np.abs(g - w) <= ulp), np.abs(g - w).max()
+    else:
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5)
+
+
+def _check(b, s, kh, g, dh, block, kv_len, dtype, engine, seed=0):
+    arrays = _mk(b, s, kh, g, dh, dtype, seed)
+    want = j_flash(*arrays, kv_len, block_s=block, engine=engine,
+                   interpret=True)
+    got = flash_decode(*_port(arrays), kv_len, block_s=block, engine=engine,
+                       backend="plain")
+    _assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,s,kh,g,dh,block", SHAPES)
+def test_plain_matches_reference_kernel(b, s, kh, g, dh, block, dtype,
+                                        engine):
+    _check(b, s, kh, g, dh, block, s - 16, dtype, engine)
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("s,kv_len", SERVING)
+def test_plain_matches_reference_at_serving_lengths(s, kv_len, dtype, engine):
+    _check(2, s, 1, 2, 16, _clamp_block_s(s, 512), kv_len, dtype, engine,
+           seed=s)
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kv_len", [0, 1, 512])
+def test_plain_matches_reference_at_kv_len_edges(kv_len, dtype, engine):
+    """kv_len = 0 is the mean of V (an all-masked block gives p = 1 at
+    the -1e30 mask), 1 a single position, S the whole cache."""
+    _check(1, 512, 2, 4, 64, 128, kv_len, dtype, engine)
+
+
+def test_kv_len_zero_is_the_mean_of_v():
+    q, k, v = _port(_mk(1, 64, 2, 2, 16, "float32", 3))
+    got = flash_decode(q, k, v, 0, block_s=16, backend="plain")
+    want = v.mean(dim=1)[:, :, None, :].expand_as(got)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+@pytest.mark.parametrize("kv_len,seed", [(1, 0), (100, 1), (128, 2),
+                                         (300, 3), (511, 4), (512, 5)])
+def test_masked_tail_never_influences_the_result(kv_len, seed, engine):
+    """tests/test_flash_decode.py's property: poison the masked tail."""
+    q, k, v = _port(_mk(1, 512, 2, 2, 64, "float32", seed))
+    got = flash_decode(q, k, v, kv_len, block_s=128, engine=engine,
+                       backend="plain")
+    k2, v2 = k.clone(), v.clone()
+    k2[:, kv_len:] = 1e6
+    v2[:, kv_len:] = -1e6
+    got2 = flash_decode(q, k2, v2, kv_len, block_s=128, engine=engine,
+                        backend="plain")
+    torch.testing.assert_close(got, got2, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_oracle_matches_reference_oracle(dtype):
+    arrays = _mk(2, 96, 2, 4, 32, dtype, 9)
+    want = j_ref(*arrays, 70)
+    got = decode_attention_ref(*_port(arrays), 70)
+    _assert_close(got, want, dtype)
+
+
+def test_registry_route_clamps_block_to_a_divisor():
+    """decode_attention with the default block on an unaligned cache."""
+    q, k, v = _port(_mk(2, 12, 1, 2, 16, "float32", 12))
+    got = decode_attention(q, k, v, 9, backend="plain")
+    want = decode_attention_ref(q, k, v, 9)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("s,block_s,pairs,rows,nsplit", [
+    (32768, 512, 32, 512, 64),   # long cache: one reference block per CTA
+    (512, 512, 32, 64, 8),       # the model's cache: cut to fill the SMs
+    (12, 12, 2, 64, 1),          # short serving cache: one range
+    (1024, 256, 8, 64, 16),
+])
+def test_split_covers_the_cache(s, block_s, pairs, rows, nsplit):
+    assert attention_split(s, block_s, pairs, 132) == (rows, nsplit)
+    assert rows * nsplit >= s > rows * (nsplit - 1)
+
+
+def test_split_rejects_a_block_that_does_not_divide_s():
+    with pytest.raises(ValueError, match="divide"):
+        attention_split(100, 64, 1, 132)
+    q, k, v = _port(_mk(1, 100, 1, 1, 16, "float32"))
+    with pytest.raises(ValueError, match="divide"):
+        flash_decode(q, k, v, 50, block_s=64, backend="plain")
+
+
+# --------------------------------------------------------------------------
+# on the card: both CUDA kernels against the plain version
+# --------------------------------------------------------------------------
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card and nvcc (CUDA kernels have no "
+                    "CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("engine", ENGINES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_card_flash_decode_matches_plain(card, dtype, engine):
+    cases = [(b, s, kh, g, dh, s - 16) for b, s, kh, g, dh, _ in SHAPES]
+    cases += [(2, s, 1, 2, 16, kv) for s, kv in SERVING]
+    cases += [(1, 512, 2, 4, 64, 0)]
+    for b, s, kh, g, dh, kv_len in cases:
+        q, k, v = [t.to(dtype).to(card) for t in
+                   _port(_mk(b, s, kh, g, dh, "float32", s))]
+        for block in sorted({math.gcd(s, bs) for bs in (128, 256, 512)}):
+            got = flash_decode(q, k, v, kv_len, block_s=block, engine=engine)
+            want = flash_decode_plain(q, k, v, kv_len, block_s=block,
+                                      engine=engine)
+            _assert_close(got.cpu(), want.float().cpu().numpy(),
+                          "bfloat16" if dtype == torch.bfloat16
+                          else "float32")

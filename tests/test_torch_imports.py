@@ -38,7 +38,7 @@ def test_fresh_interpreter_loads_no_jax_or_reference():
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "from repro_torch.kernels import registry\n"
-        "assert len(registry.all_ops()) == 5\n"
+        "assert len(registry.all_ops()) == 6\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
@@ -67,7 +67,8 @@ def test_source_imports_no_jax_or_reference(path):
 
 
 @pytest.mark.parametrize("engine", ["vector", "matrix", "auto"])
-@pytest.mark.parametrize("name", ["axpy", "scale", "spmv", "stencil", "triad"])
+@pytest.mark.parametrize("name", ["attention", "axpy", "scale", "spmv", "stencil",
+                                  "triad"])
 def test_cuda_backend_on_cpu_tensors_raises(name, engine):
     op = registry.get(name)
     args, kw = op.make_inputs(np.random.default_rng(0), op.test_size,
@@ -76,7 +77,8 @@ def test_cuda_backend_on_cpu_tensors_raises(name, engine):
         op(*args, engine=engine, **kw)  # backend defaults to "cuda"
 
 
-@pytest.mark.parametrize("name", ["axpy", "scale", "spmv", "stencil", "triad"])
+@pytest.mark.parametrize("name", ["attention", "axpy", "scale", "spmv", "stencil",
+                                  "triad"])
 def test_default_device_raises_without_card(name):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid here")

@@ -1,0 +1,449 @@
+"""The LM decode slice: configs, verdict, layers, weights, engine, executor.
+
+The reference runs as its own tests run it (``jax_platform_name=cpu``,
+Pallas flash-decode in interpret mode); the port runs on the CPU with
+the kernels' plain versions.  Inputs are numpy draws from a seed, and the
+JAX model's weights are carried into the port bit for bit.
+
+Tolerances: rmsnorm 1e-6, RoPE and SwiGLU 1e-5 (float32 summation order,
+and cos/sin/pow that differ in the last bit between libraries); the
+engine's prefill and per-step logits atol 1e-4 and rtol 1e-3, the
+reference's own tier (``tests/test_model_engine.py``); greedy tokens
+exactly equal.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+# the suite runs in several worker processes on shared cores: one
+# intra-op thread each keeps these CPU tests from crowding the others
+torch.set_num_threads(1)
+
+from repro import configs as j_configs  # noqa: E402
+from repro.core import advisor as j_advisor  # noqa: E402
+from repro.core import hw as j_hw  # noqa: E402
+from repro.core.dispatch import Dispatcher as JDispatcher  # noqa: E402
+from repro.models import advisor_map as j_map  # noqa: E402
+from repro.models import layers as j_layers  # noqa: E402
+from repro.models.engine import DecodeEngine as JEngine  # noqa: E402
+from repro.serving.lm import LMDecodeExecutor as JExecutor  # noqa: E402
+from repro.serving.requests import Request as JRequest  # noqa: E402
+
+from repro_torch import configs as p_configs  # noqa: E402
+from repro_torch.carry import params_from_numpy, params_to_numpy  # noqa: E402
+from repro_torch.core import advisor as p_advisor  # noqa: E402
+from repro_torch.core import hw as p_hw  # noqa: E402
+from repro_torch.core.dispatch import Dispatcher as PDispatcher  # noqa: E402
+from repro_torch.models import advisor_map as p_map  # noqa: E402
+from repro_torch.models import layers as p_layers  # noqa: E402
+from repro_torch.models import lm as p_lm  # noqa: E402
+from repro_torch.models.attention import make_cache  # noqa: E402
+from repro_torch.models.engine import DecodeEngine as PEngine  # noqa: E402
+from repro_torch.serving.lm import LMDecodeExecutor as PExecutor  # noqa: E402
+from repro_torch.serving.requests import Request as PRequest  # noqa: E402
+
+jax.config.update("jax_platform_name", "cpu")
+
+ARCH_NAMES = sorted(j_configs.ARCHS)
+DENSE = ("deepseek-7b", "mistral-nemo-12b", "qwen1.5-32b", "stablelm-12b")
+WAITING = sorted(set(ARCH_NAMES) - set(DENSE))
+ENGINE_KW = dict(max_batch=2, prompt_len=6, max_gen=4, seed=0)
+
+
+def _pair(name):
+    return j_configs.get_arch(name), p_configs.get_arch(name)
+
+
+def _smoke_pair(n_kv_heads=None):
+    """reduced(mistral-nemo-12b) (G = 1), or its GQA variant."""
+    j, p = (j_configs.reduced(c) for c in _pair("mistral-nemo-12b"))
+    if n_kv_heads is not None:
+        j = dataclasses.replace(j, n_kv_heads=n_kv_heads)
+        p = dataclasses.replace(p, n_kv_heads=n_kv_heads)
+    return j, p
+
+
+def _np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+# --------------------------------------------------------------------------
+# configs and the verdict
+# --------------------------------------------------------------------------
+
+def test_arch_registry_matches_reference():
+    assert sorted(p_configs.ARCHS) == ARCH_NAMES
+
+
+@pytest.mark.parametrize("name", ARCH_NAMES)
+def test_config_and_reduced_match_reference(name):
+    j, p = _pair(name)
+    assert dataclasses.asdict(p) == dataclasses.asdict(j)
+    assert dataclasses.asdict(p_configs.reduced(p)) == \
+        dataclasses.asdict(j_configs.reduced(j))
+    assert p.param_count() == j.param_count()
+    assert p.active_param_count() == j.active_param_count()
+    assert p.vocab_padded == j.vocab_padded
+
+
+def test_unknown_arch_raises():
+    with pytest.raises(KeyError, match="unknown arch"):
+        p_configs.get_arch("no-such-model")
+
+
+def _dispatchers(platform):
+    spec = p_hw.get_platform(platform)
+    jspec = j_hw.HardwareSpec(
+        name=spec.name, mem_bw=spec.mem_bw, l2_bytes=spec.l2_bytes,
+        link_bw=spec.link_bw, chips=spec.chips,
+        engines={k: j_hw.Engine(e.name, e.peak_flops, e.dtype)
+                 for k, e in spec.engines.items()})
+    return (JDispatcher(advisor=j_advisor.EngineAdvisor(jspec)),
+            PDispatcher(advisor=p_advisor.EngineAdvisor(spec)))
+
+
+@pytest.mark.parametrize("batch,cache_len", [(4, 32), (128, 32768)])
+@pytest.mark.parametrize("name", ARCH_NAMES)
+def test_verdict_matches_reference(name, batch, cache_len):
+    j, p = _pair(name)
+    jd, pd = _dispatchers("h100")
+    for dtype_bytes in (2, 4):
+        jt = j_map.step_traits(j, batch, cache_len, dtype_bytes=dtype_bytes)
+        pt = p_map.step_traits(p, batch, cache_len, dtype_bytes=dtype_bytes)
+        assert dataclasses.asdict(pt) == dataclasses.asdict(jt)
+        jv = j_map.model_verdict(j, batch, cache_len,
+                                 dtype_bytes=dtype_bytes, dispatcher=jd)
+        pv = p_map.model_verdict(p, batch, cache_len,
+                                 dtype_bytes=dtype_bytes, dispatcher=pd)
+        assert dataclasses.asdict(pv) == dataclasses.asdict(jv)
+        assert p_map.verdict_payload(pv, 12.5) == \
+            j_map.verdict_payload(jv, 12.5)
+
+
+# --------------------------------------------------------------------------
+# layers
+# --------------------------------------------------------------------------
+
+def _draw(*shape, seed=0):
+    return np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32)
+
+
+def test_rmsnorm_matches_reference():
+    w, x = _draw(32, seed=1), _draw(3, 5, 32, seed=2)
+    want = j_layers.rmsnorm(jnp.asarray(w), jnp.asarray(x), 1e-5)
+    got = p_layers.rmsnorm(torch.from_numpy(w), torch.from_numpy(x), 1e-5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("theta", [1e4, 1e6])
+def test_apply_rope_matches_reference(theta):
+    x = _draw(2, 7, 4, 32, seed=3)
+    pos = np.tile(np.arange(100, 107, dtype=np.int32), (2, 1))
+    want = j_layers.apply_rope(jnp.asarray(x), jnp.asarray(pos), theta)
+    got = p_layers.apply_rope(torch.from_numpy(x), torch.from_numpy(pos),
+                              theta)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_apply_mrope_matches_reference():
+    x = _draw(2, 5, 4, 32, seed=4)
+    pos = np.stack([np.tile(np.arange(5, dtype=np.int32) * (i + 1), (2, 1))
+                    for i in range(3)])
+    want = j_layers.apply_mrope(jnp.asarray(x), jnp.asarray(pos), 1e4,
+                                (4, 6, 6))
+    got = p_layers.apply_mrope(torch.from_numpy(x), torch.from_numpy(pos),
+                               1e4, (4, 6, 6))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_mlp_matches_reference():
+    wg, wu, wd = _draw(16, 48, seed=5), _draw(16, 48, seed=6), \
+        _draw(48, 16, seed=7)
+    x = _draw(2, 3, 16, seed=8)
+    want = j_layers.mlp({"w_gate": jnp.asarray(wg), "w_up": jnp.asarray(wu),
+                         "w_down": jnp.asarray(wd)}, jnp.asarray(x))
+    block = p_lm.Block({"w_gate": torch.from_numpy(wg),
+                        "w_up": torch.from_numpy(wu),
+                        "w_down": torch.from_numpy(wd)})
+    got = p_layers.mlp(block, torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-6)
+
+
+# --------------------------------------------------------------------------
+# weights
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", DENSE)
+def test_params_round_trip_bit_for_bit(name):
+    from repro.models import lm as j_lm
+    j, p = (j_configs.reduced(c) for c in _pair(name))
+    tree = _np(j_lm.init_params(j, jax.random.key(3)))
+    port = params_from_numpy(tree, p, device="cpu")
+    assert len(port.layers) == p.n_layers
+    back = params_to_numpy(port)
+    assert jax.tree.structure(back) == jax.tree.structure(tree)
+    for a, b in zip(jax.tree.leaves(tree), jax.tree.leaves(back)):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    assert sum(t.numel() for t in port.parameters()) == p.param_count()
+
+
+def test_init_params_is_seeded_and_sized():
+    _, p = _smoke_pair()
+    a = p_lm.init_params(p, seed=1, device="cpu")
+    b = p_lm.init_params(p, seed=1, device="cpu")
+    for (ka, ta), (kb, tb) in zip(a.state_dict().items(),
+                                  b.state_dict().items()):
+        assert ka == kb and torch.equal(ta, tb)
+    assert sum(t.numel() for t in a.parameters()) == p.param_count()
+    assert a.embed.shape == (p.vocab_padded, p.d_model)
+
+
+def test_cast_params_keeps_norms_in_float32():
+    _, p = _smoke_pair()
+    params = p_lm.init_params(p, seed=0, device="cpu")
+    cast = p_lm.cast_params(params, torch.bfloat16)
+    for k, v in cast.state_dict().items():
+        want = torch.float32 if k.split(".")[-1] in (
+            "ln1", "ln2", "final_norm") else torch.bfloat16
+        assert v.dtype == want, k
+    assert p_lm.cast_params(params, torch.float32) is params
+
+
+# --------------------------------------------------------------------------
+# the slice as a whole: DecodeEngine, JAX against the port
+# --------------------------------------------------------------------------
+
+_ENGINES = {}
+
+
+def _engines(n_kv_heads, engine, impl):
+    """A JAX engine and the port's engine on its carried weights."""
+    key = (n_kv_heads, engine, impl)
+    if key not in _ENGINES:
+        j, p = _smoke_pair(n_kv_heads)
+        je = JEngine(j, dtype=jnp.float32, engine=engine,
+                     attention_impl=impl, **ENGINE_KW)
+        params = params_from_numpy(_np(je.params), p, device="cpu")
+        pe = PEngine(p, dtype=torch.float32, engine=engine,
+                     attention_impl=impl, params=params, device="cpu",
+                     **ENGINE_KW)
+        _ENGINES[key] = (je, pe)
+    return _ENGINES[key]
+
+
+def _close(got, want):
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                               rtol=1e-3)
+
+
+SLICE = [(kv, e, impl) for kv in (None, 2) for e in ("vector", "matrix")
+         for impl in ("registry", "dense")]
+SLICE_IDS = [f"{'G2' if kv else 'G1'}-{e}-{impl}" for kv, e, impl in SLICE]
+
+
+@pytest.mark.parametrize("n_kv_heads,engine,impl", SLICE, ids=SLICE_IDS)
+def test_engine_matches_reference_step_by_step(n_kv_heads, engine, impl):
+    """Prefill logits, then every teacher-forced decode step's logits."""
+    je, pe = _engines(n_kv_heads, engine, impl)
+    jb, pb = je.make_prompt_batch(seed=1), pe.make_prompt_batch(seed=1)
+    assert np.array_equal(np.asarray(jb["tokens"]), pb["tokens"].numpy())
+    jl, jc = je.prefill(jb)
+    pl, pc = pe.prefill(pb)
+    assert tuple(pl.shape) == jl.shape
+    _close(pl, jl)
+    for k in ("k", "v"):
+        assert tuple(pc["attn"][k].shape) == jc["attn"][k].shape
+    tok = np.array(jnp.argmax(jl[:, -1], axis=-1))[:, None]
+    for i in range(je.prompt_len, je.max_len - 1):
+        jl, jc = je.decode_step(jnp.asarray(tok), jc, i)
+        pl, pc = pe.decode_step(torch.from_numpy(tok), pc, i)
+        _close(pl, jl)
+        tok = np.array(jnp.argmax(jl[:, 0], axis=-1))[:, None]
+    for k in ("k", "v"):
+        _close(pc["attn"][k], jc["attn"][k])
+
+
+@pytest.mark.parametrize("n_kv_heads,engine,impl", SLICE, ids=SLICE_IDS)
+def test_engine_greedy_tokens_match_reference(n_kv_heads, engine, impl):
+    je, pe = _engines(n_kv_heads, engine, impl)
+    jr = je.generate(je.make_prompt_batch(seed=2))
+    pr = pe.generate(pe.make_prompt_batch(seed=2))
+    assert np.array_equal(pr.tokens.numpy(), np.asarray(jr.tokens))
+    _close(pr.logits, jr.logits)
+    assert pr.decode_steps == jr.decode_steps == je.max_gen - 1
+    assert pr.per_step_s > 0
+
+
+def test_forward_matches_reference():
+    from repro.models import lm as j_lm
+    je, pe = _engines(2, "vector", "registry")
+    tokens = np.random.default_rng(4).integers(0, 512, (2, 9), np.int32)
+    want, _, _ = j_lm.forward(je.params, je.cfg,
+                              {"tokens": jnp.asarray(tokens)},
+                              dtype=jnp.float32, remat=False)
+    got, caches, aux = p_lm.forward(pe.params, pe.cfg,
+                                    {"tokens": torch.from_numpy(tokens)},
+                                    dtype=torch.float32)
+    _close(got, want)
+    assert caches is None and float(aux["aux_loss"]) == 0.0
+
+
+def test_chunked_prefill_matches_dense_path():
+    """sdpa's chunked online-softmax loop (long prompts) == dense."""
+    from repro_torch.models.attention import _sdpa_dense, _sdpa_flash
+    rng = np.random.default_rng(5)
+    q = torch.from_numpy(rng.standard_normal((2, 8, 2, 2, 16)).astype(
+        np.float32))
+    k = torch.from_numpy(rng.standard_normal((2, 8, 2, 16)).astype(
+        np.float32))
+    v = torch.from_numpy(rng.standard_normal((2, 8, 2, 16)).astype(
+        np.float32))
+    pos = torch.arange(8)[None].expand(2, 8)
+    want = _sdpa_dense(q, k, v, pos, pos, causal=True)
+    got = _sdpa_flash(q, k, v, pos, pos, True, 4, 2)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+def test_decode_attention_goes_through_the_registry_op(monkeypatch):
+    from repro_torch.kernels.attention import ops
+    calls = []
+    original = ops.ATTENTION_OP.engines["vector"]
+
+    def spy(*args, **kwargs):
+        calls.append(kwargs["backend"])
+        return original(*args, **kwargs)
+    monkeypatch.setitem(ops.ATTENTION_OP.engines, "vector", spy)
+    _, pe = _engines(2, "vector", "registry")
+    pe.generate(pe.make_prompt_batch(seed=6))
+    steps = pe.max_gen - 1
+    assert calls == ["plain"] * (steps * pe.cfg.n_layers)
+
+
+def test_cache_state_round_trip():
+    _, pe = _engines(None, "vector", "registry")
+    _, caches = pe.prefill(pe.make_prompt_batch(seed=7))
+    state = pe.cache_state(caches)
+    back = pe.load_cache_state(caches, state)
+    assert torch.equal(back["attn"]["k"], caches["attn"]["k"])
+    bad = {"attn": {"k": caches["attn"]["k"][:, :1], "v": caches["attn"]["v"]}}
+    with pytest.raises(ValueError, match="mismatch"):
+        pe.load_cache_state(caches, bad)
+
+
+def test_init_and_pad_caches_match_reference():
+    from repro.models import lm as j_lm
+    j, p = _smoke_pair(2)
+    jc = j_lm.init_caches(j, 2, 8, jnp.float32)
+    pc = p_lm.init_caches(p, 2, 8, torch.float32, "cpu")
+    for k in ("k", "v"):
+        assert tuple(pc["attn"][k].shape) == jc["attn"][k].shape
+        assert not pc["attn"][k].any()
+    short = {"attn": {k: torch.ones((p.n_layers, 2, 5, 2, 32))
+                      for k in ("k", "v")}}
+    padded = p_lm.pad_caches(short, 8)["attn"]["k"]
+    want = j_lm.pad_caches({"attn": {k: jnp.ones((p.n_layers, 2, 5, 2, 32))
+                                     for k in ("k", "v")}}, 8)["attn"]["k"]
+    assert np.array_equal(padded.numpy(), np.asarray(want))
+
+
+def test_bfloat16_engine_runs_on_cast_weights():
+    _, p = _smoke_pair(2)
+    eng = PEngine(p, dtype=torch.bfloat16, device="cpu", **ENGINE_KW)
+    assert eng.params.layers[0].attn.wq.dtype == torch.bfloat16
+    assert eng.params.layers[0].ln1.dtype == torch.float32
+    out = eng.generate(eng.make_prompt_batch(seed=8))
+    assert out.logits.dtype == torch.bfloat16
+    assert out.caches["attn"]["k"].dtype == torch.bfloat16
+    assert torch.isfinite(out.logits.float()).all()
+    assert eng.dtype_bytes == 2 and eng.traits().traffic_bytes > 0
+
+
+# --------------------------------------------------------------------------
+# the executor
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("engine", ["auto", "vector", "matrix"])
+def test_executor_matches_reference(engine):
+    j, p = _smoke_pair(2)
+    jfull, pfull = _pair("mistral-nemo-12b")
+    je = JExecutor(j, max_batch=2, prompt_len=6, max_gen=4,
+                   dtype=jnp.float32, engine=engine, verdict_cfg=jfull)
+    pe = PExecutor(p, max_batch=2, prompt_len=6, max_gen=4,
+                   dtype=torch.float32, engine=engine, verdict_cfg=pfull,
+                   device="cpu")
+    jreqs = [JRequest(rid=i, kernel="lm-decode", arrival_s=0.0, size=4)
+             for i in range(2)]
+    preqs = [PRequest(rid=i, kernel="lm-decode", arrival_s=0.0, size=4)
+             for i in range(2)]
+    for _ in range(2):
+        jx, px = je.execute(jreqs), pe.execute(preqs[:1])
+        assert px.engine == jx.engine and px.shards == jx.shards
+        assert px.compute_s > 0
+    jr, pr = je.record_extras(), pe.record_extras()
+    assert pr.keys() == jr.keys() and pr["model"] == jr["model"]
+    assert pr["phases"].keys() == jr["phases"].keys()
+    assert pr["phases"]["decode_steps"] == jr["phases"]["decode_steps"]
+    assert pr["phases"]["launches"] == jr["phases"]["launches"]
+
+    def static(payload):
+        drop = ("step_time_ms", "time_ms")
+        out = {k: v for k, v in payload.items() if k not in drop}
+        out["ops"] = [{k: v for k, v in o.items() if k not in drop}
+                      for o in payload["ops"]]
+        return out
+    assert static(pr["verdict"]) == static(jr["verdict"])
+    # the default advisors model other cards (H100 here, v5e there): the
+    # decode step is memory-bound on both
+    pa = pe.advice_for("lm-decode", 4, "float32")
+    ja = je.advice_for("lm-decode", 4, "float32")
+    assert (pa.engine, pa.memory_bound, pa.intensity) == \
+        (ja.engine, ja.memory_bound, ja.intensity)
+
+
+# --------------------------------------------------------------------------
+# what waits, and no card
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", WAITING)
+def test_waiting_families_raise(name):
+    cfg = p_configs.reduced(p_configs.get_arch(name))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        PEngine(cfg, device="cpu", **ENGINE_KW)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        p_lm.init_params(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("name", DENSE)
+def test_dense_families_run(name):
+    cfg = p_configs.reduced(p_configs.get_arch(name))
+    eng = PEngine(cfg, device="cpu", **ENGINE_KW)
+    out = eng.generate(eng.make_prompt_batch())
+    assert tuple(out.tokens.shape) == (2, 4)
+    assert torch.isfinite(out.logits).all()
+
+
+def test_training_and_int8_cache_wait():
+    _, p = _smoke_pair()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        p_lm.loss_fn(None, p, {})
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        make_cache(p, 1, 8, torch.int8, "cpu")
+
+
+def test_default_device_raises_without_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    _, p = _smoke_pair()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PEngine(p, **ENGINE_KW)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PExecutor(p)
