@@ -17,11 +17,17 @@ Phases, each fatal on failure:
   1. device line (nvidia-smi name and power limit, HardwareSpec chosen);
   2. build of the hand-written kernels from src/repro_torch/kernels/csrc;
   3. each kernel against its plain PyTorch version on the card at small
-     and odd shapes (float32 max-abs <= 1e-4, bfloat16 within one ulp);
+     and odd shapes (float32 max-abs <= 1e-4, bfloat16 within one ulp):
+     SpMV with slot counts off the ring depth and warp count, repeated and
+     out-of-range ids; flash-decode at kv_len edges where whole ranges lie
+     past kv_len, each also bit for bit against reading every position;
   4. the experiment at STREAM size (every array >= 4x the 50 MiB L2):
      launch counts reset before it and read after it, one JSON line per
-     point and engine, then each output held against its plain version;
-  5. library yardsticks (one PyTorch call computing the same function);
+     point and engine (SpMV and flash-decode also with the host's enqueue
+     time and torch.profiler's device time per call), then each output
+     held against its plain version;
+  5. library yardsticks (one PyTorch call computing the same function),
+     and SpMV's byte bound in CSR;
   6. LM decode serving, once per flash-decode engine: launch counts reset
      before the requests and read after them (exactly one launch per
      layer and decode step), one teacher-forced decode step held against
@@ -68,6 +74,10 @@ REPLACES = {
     "stencil": "src/repro/kernels/stencil/stencil.py:138",
     "attention": "src/repro/kernels/attention/flash_decode.py:70",
 }
+#: Kernel families whose points also print the host's enqueue time and
+#: torch.profiler's device time: their kernels take 0.15-0.2 ms, near the
+#: host's own time per call.
+REDESIGNED = ("spmv", "attention")
 SOURCE = {
     "scale": "elementwise", "triad": "elementwise", "axpy": "elementwise",
     "spmv": "spmv", "stencil": "stencil", "attention": "attention",
@@ -114,7 +124,7 @@ def main() -> int:
     from repro_torch.kernels.attention.ops import (DEFAULT_BLOCK_S,
                                                    _clamp_block_s)
     from repro_torch.kernels.spmv.ref import dense_to_bell
-    from repro_torch.kernels.spmv.spmv import spmv_plain
+    from repro_torch.kernels.spmv.spmv import bell_spmv, spmv_plain
     from repro_torch.kernels.stencil.defs import TABLE3_DEPTH, suite
     from repro_torch.kernels.stencil.stencil import stencil_plain
 
@@ -260,6 +270,27 @@ def main() -> int:
                   spmv_op(bell, x, engine=engine),
                   plain_of("spmv", (bell, x), {}, engine))
             n_checks += 1
+    # block rows whose slot count is no multiple of the matrix kernel's ring
+    # depth (3) or of the four warps, one block row, repeated column ids and
+    # out-of-range ids (which contribute nothing: the plain version gets
+    # those slots as zero blocks at column 0)
+    for nbr, mb, ncb in ((1, 1, 1), (1, 7, 3), (5, 13, 4), (3, 2, 2)):
+        blocks = torch.randn((nbr, mb, 8, 128), generator=gen).cuda()
+        cols = torch.randint(0, ncb, (nbr, mb), generator=gen,
+                             dtype=torch.int32).cuda()
+        if mb > 1:
+            cols[:, 1] = cols[:, 0]                        # a repeated id
+        x = torch.randn(ncb * 128, generator=gen).cuda()
+        bad = torch.zeros((nbr, mb), dtype=torch.bool, device="cuda")
+        if mb > 2:
+            cols[0, 2], cols[-1, mb - 1] = ncb, -1         # out of range
+            bad[0, 2] = bad[-1, mb - 1] = True
+        for engine in ("vector", "matrix"):
+            check(f"spmv/{engine}/blocks{nbr}x{mb}/ncb{ncb}",
+                  bell_spmv(blocks, cols, x, engine=engine),
+                  spmv_plain(blocks.masked_fill(bad[:, :, None, None], 0.0),
+                             cols.masked_fill(bad, 0), x, engine=engine))
+            n_checks += 1
     stencil_op = registry.get("stencil")
     for name, spec in sorted(suite().items()):
         shape = (1000, 1000) if spec.ndim == 2 else (96, 96, 96)
@@ -297,6 +328,37 @@ def main() -> int:
                           plain_of("attention", (q, k, v, kv_len),
                                    {"block_s": block_s}, engine),
                           floor=ATTN_FLOOR)
+                    n_checks += 1
+    # flash-decode where whole ranges lie past kv_len: (b, s, kh, g, dh) =
+    # (2, 1024, 2, 4, 128) cuts the cache into ranges of 64 positions. Each
+    # kv_len >= 1 is also held bit for bit against the same kernel reading
+    # every range and position (end = S), as the reference does.
+    b, s, kh, g, dh, block_s = 2, 1024, 2, 4, 128, 128
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    qkv = [torch.randn(shape, generator=gen).cuda() for shape in
+           ((b, kh, g, dh), (b, s, kh, dh), (b, s, kh, dh))]
+    for kv_len in (0, 1, 15, 16, 17, 63, 64, 65, s - 1, s):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (t.to(dtype) for t in qkv)
+            rows = _ext.attention_ranges(s, block_s, b * kh, sms, kv_len,
+                                         dtype)[0]
+            for engine in ("vector", "matrix"):
+                tag = (f"attention/{engine}/{dtype}/kv_len={kv_len} of {s} "
+                       f"in ranges of {rows}")
+                got = attention_op(q, k, v, kv_len, engine=engine,
+                                   block_s=block_s)
+                check(tag, got, plain_of("attention", (q, k, v, kv_len),
+                                         {"block_s": block_s}, engine),
+                      floor=ATTN_FLOOR)
+                n_checks += 1
+                if kv_len >= 1:
+                    full = _ext.attention_launch(q, k, v, kv_len, rows=rows,
+                                                 nsplit=-(-s // rows), end=s,
+                                                 engine=engine)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, full):
+                        failures.append(f"{tag}: differs from the full read "
+                                        f"by {(got - full).abs().max()}")
                     n_checks += 1
     print(f"kernel checks: {n_checks} against the plain versions, "
           f"{len(failures)} failed", flush=True)
@@ -362,9 +424,12 @@ def main() -> int:
     for (op, point, dtype, shape, args, kw, advice, traits, outs,
          times) in results:
         ratio = times["matrix"].median_us / times["vector"].median_us
-        bytes_s = traits.traffic_bytes / hw.mem_bw
-        ops_s = traits.work_flops / PEAK_OPS
+        traffic, work = _bound_work(op.name, args, traits)
+        bytes_s = traffic / hw.mem_bw
+        ops_s = work / PEAK_OPS
         bound_ms = max(bytes_s, ops_s) * 1e3
+        # the advisor's bound, over every stored block or cache position
+        traits_ms = traits.traffic_bytes / hw.mem_bw * 1e3
         bound_by = "bytes" if bytes_s >= ops_s else "operations"
         if op.name == "spmv":
             # float32 sums of ~16k products per row: hold the error to
@@ -390,20 +455,29 @@ def main() -> int:
                 "dtype": dtype, "shape": list(shape),
                 "median_us": t.median_us, "iqr_us": t.iqr_us,
                 "iters": t.iters,
-                "GB/s": traits.traffic_bytes / t.median_us / 1e3,
-                "bw_share": traits.traffic_bytes / (t.median_us * 1e-6)
-                / hw.mem_bw,
+                "GB/s": traffic / t.median_us / 1e3,
+                "bw_share": traffic / (t.median_us * 1e-6) / hw.mem_bw,
                 "engine_auto": advice.engine,
                 "max_speedup_matrix": advice.max_speedup_matrix,
                 "matrix_over_vector_time": ratio,
                 "eq23_ceiling": ceiling,
                 "card": card,
             }
+            if op.name == "attention":
+                line["bound_all_positions_ms"] = traits_ms
+            if op.name in REDESIGNED:
+                # the host's enqueue time per call beside the CUDA-event
+                # median, and the kernels' device time from torch.profiler
+                host_us, device_us = _host_and_device_us(
+                    torch, lambda: op(*args, engine=engine, **kw))
+                line["host_enqueue_us"] = host_us
+                line["profiler_device_us"] = device_us
             print(json.dumps(line), flush=True)
             rows.append({"name": f"{op.name}_{engine}", "point": point,
                          "dtype": dtype, "err": err, "t": t,
                          "plain": plain_t[engine], "bound_ms": bound_ms,
-                         "bound_by": bound_by, "op": op.name})
+                         "bound_by": bound_by, "op": op.name,
+                         "traits_ms": traits_ms})
         check(f"{point}/auto at full size", outs["auto"],
               outs[advice.engine], 0.0)
 
@@ -411,6 +485,13 @@ def main() -> int:
     library = {}
     for (op, point, dtype, shape, args, kw, *_rest) in results:
         library[point] = _library_ms(torch, F, op.name, args, kw, time_fn)
+        if op.name == "spmv":
+            # the same matrix in CSR: the bytes a CSR SpMV must move
+            bell, x = args
+            csr_ms = _csr_bytes(bell, x) / hw.mem_bw * 1e3
+            print(json.dumps({"point": point, "library_ms": library[point],
+                              "csr_bound_ms": csr_ms, "card": card}),
+                  flush=True)
     del points, results, args, kw, outs, times, want, traits, u3, q, k, v, \
         bell, x, xg
     torch.cuda.synchronize()
@@ -434,6 +515,10 @@ def main() -> int:
             "library_ms": library[r["point"]],
             "point": r["point"], "dtype": r["dtype"],
         }
+        if r["op"] == "spmv":
+            entry["csr_bound_ms"] = csr_ms
+        if r["op"] == "attention":
+            entry["bound_all_positions_ms"] = r["traits_ms"]
         if r["op"] == "attention":
             # flash-decode's own main path is LM decode serving (phase 6)
             entry["experiment_launches"] = entry["launches"]
@@ -458,6 +543,7 @@ def _model_phase(torch, hw, card, failures):
     Returns the flash-decode launches of the request run, per kernel.
     """
     from repro_torch.configs import get_arch
+    from repro_torch.core.timing import busy_us
     from repro_torch.kernels import _ext
     from repro_torch.models.advisor_map import step_traits
     from repro_torch.models.engine import DecodeEngine
@@ -557,9 +643,14 @@ def _model_phase(torch, hw, card, failures):
             if e.device_type == torch.autograd.DeviceType.CUDA:
                 kernel_us[e.key] = kernel_us.get(e.key, 0.0) + \
                     e.self_device_time_total
-        device_ms = sum(kernel_us.values()) / 1e3
-        attn_ms = sum(t for n, t in kernel_us.items()
-                      if "attention_" in n) / 1e3
+        # busy time: the union of the kernels' intervals, since the
+        # flash-decode merge is launched before the range kernel ends
+        spans = [(e.name, e.time_range.start, e.time_range.end)
+                 for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        device_ms = busy_us((a, b) for _, a, b in spans) / 1e3
+        attn_ms = busy_us((a, b) for n, a, b in spans
+                          if "attention_" in n) / 1e3
         top = sorted(kernel_us.items(), key=lambda kv: -kv[1])[:6]
         print(json.dumps({"phase": "model_profile", "engine": engine,
                           "profiled_step_ms": profiled_ms,
@@ -593,6 +684,47 @@ def _model_phase(torch, hw, card, failures):
           f"flash-decode engines on {agree:.1%} of {tokens['vector'].numel()} "
           f"positions", flush=True)
     return launches
+
+
+def _bound_work(name, args, traits):
+    """(bytes, operations) the function needs on these inputs.
+
+    Flash-decode reads the K and V rows of min(kv_len, S) positions (all S
+    when kv_len <= 0, where the output is the mean of V), q once and writes
+    the output once: the advisor's traits count every cache position.
+    Every other kernel: the advisor's traits."""
+    if name != "attention":
+        return traits.traffic_bytes, traits.work_flops
+    q, k, v, kv_len = args
+    b, kh, g, dh = q.shape
+    s = k.shape[1]
+    used = min(kv_len, s) if kv_len >= 1 else s
+    esize = k.element_size()
+    traffic = (2 * b * used * kh * dh + 2 * q.numel()) * esize
+    return traffic, 4.0 * b * kh * g * used * dh
+
+
+def _csr_bytes(bell, x):
+    """Bytes of y = A x with A in CSR: the float32 values and int32 column
+    ids of the nonzeros, the m + 1 row pointers, x and y."""
+    m, n = bell.shape
+    nnz = int((bell.blocks != 0).sum())
+    return nnz * 8 + (m + 1) * 4 + n * x.element_size() + m * 4
+
+
+def _host_and_device_us(torch, fn, calls=50):
+    """Host enqueue time per call (no synchronisation inside the window),
+    and the device time per call from torch.profiler (the union of the
+    intervals in which the call's kernels run)."""
+    from repro_torch.core.timing import device_busy_us
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host_us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    device_us = device_busy_us(fn, calls=calls)
+    return host_us, (device_us if device_us > 0 else "not measured")
 
 
 def _library_ms(torch, F, name, args, kw, time_fn):

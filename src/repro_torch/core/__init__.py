@@ -25,6 +25,6 @@ from .intensity import (KernelTraits, axpy, gemv, paper_table, scale,
                         temporal_depth_to_compute_bound, triad)
 from .roofline import (RooflinePoint, attainable, operational_intensity,
                        place, roofline_table)
-from .timing import Timing, time_fn
+from .timing import Timing, busy_us, device_busy_us, time_fn
 
 __all__ = [n for n in dir() if not n.startswith("_")]

@@ -14,7 +14,7 @@ from typing import Any, Callable, List, NamedTuple, Tuple
 
 import torch
 
-__all__ = ["Timing", "time_fn"]
+__all__ = ["Timing", "busy_us", "device_busy_us", "time_fn"]
 
 
 class Timing(NamedTuple):
@@ -70,3 +70,35 @@ def time_fn(fn: Callable, *args, warmup: int = 2, iters: int = 5,
     return Timing(median_us=_quantile(times, 0.5),
                   iqr_us=_quantile(times, 0.75) - _quantile(times, 0.25),
                   iters=iters, samples_us=tuple(samples))
+
+
+def busy_us(spans) -> float:
+    """Length of the union of ``(start, end)`` intervals: the time in which
+    at least one of them runs, overlaps counted once."""
+    busy, end = 0.0, float("-inf")
+    for start, stop in sorted(spans):
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    return busy
+
+
+def device_busy_us(fn: Callable, *args, calls: int = 20, **kwargs) -> float:
+    """Device time per call of ``fn`` on the card, from torch.profiler.
+
+    The union of the intervals in which any kernel that the calls launch
+    runs, over ``calls`` back-to-back calls, divided by ``calls``: kernels
+    that overlap (a dependent launched before its predecessor ends) count
+    once, and the gaps between calls not at all.  0.0 if the profiler saw
+    no kernel.
+    """
+    fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn(*args, **kwargs)
+        torch.cuda.synchronize()
+    return busy_us((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / calls

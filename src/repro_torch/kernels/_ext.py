@@ -26,7 +26,8 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
-__all__ = ["LAUNCHES", "attention", "attention_split", "build",
+__all__ = ["CTAS_PER_SM", "LAUNCHES", "attention", "attention_launch",
+           "attention_ranges", "attention_split", "build",
            "elementwise", "mma_instructions", "reset_launches", "spmv",
            "stencil"]
 
@@ -144,10 +145,10 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     elif name == "attention":
         fn = lib.attention_launch
         fn.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                       _I, _F, _I, _I, _P]
+                       _I, _I, _F, _I, _I, _P]
     elif name == "spmv":
         fn = lib.spmv_launch
-        fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
+        fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
     else:
         fn = lib.stencil_launch
         fn.argtypes = [_P, _P, _P, _I, _P, _P, _I, _P, _F, _I, _I, _I, _I,
@@ -227,10 +228,15 @@ def spmv(blocks: torch.Tensor, cols: torch.Tensor, x: torch.Tensor, *,
     _need(cols, "spmv cols", torch.int32)
     _need(x, "spmv x", torch.float32)
     y = torch.empty((nbr, bm), dtype=torch.float32, device=x.device)
+    matrix = engine == "matrix"
+    # the matrix kernel's copy of x in double (its DMMA's B operand)
+    xd = torch.empty(x.numel(), dtype=torch.float64, device=x.device) \
+        if matrix else None
     with torch.cuda.device(y.device):
         code = _lib("spmv").spmv_launch(
-            blocks.data_ptr(), cols.data_ptr(), x.data_ptr(), y.data_ptr(),
-            nbr, mb, x.numel() // bn, int(engine == "matrix"), _stream(y))
+            blocks.data_ptr(), cols.data_ptr(), x.data_ptr(),
+            None if xd is None else xd.data_ptr(), y.data_ptr(),
+            nbr, mb, x.numel() // bn, int(matrix), _stream(y))
     _check("spmv", code, f"spmv_{engine}")
     return y
 
@@ -283,22 +289,51 @@ MAX_GROUP = 8
 HEAD_DIMS = (16, 32, 64, 128)
 
 
-def attention_split(s: int, block_s: int, pairs: int, sms: int):
-    """``(rows, nsplit)``: how many cache positions one CTA streams.
+#: CTAs per SM that keep HBM busy, by dtype: the bfloat16 kernels stage two
+#: tiles ahead per warp, so one CTA of four warps per SM suffices and runs
+#: best as one long range; the float32 kernels load straight from global
+#: memory and need two CTAs per SM.
+CTAS_PER_SM = {torch.bfloat16: 1, torch.float32: 2}
 
-    Each CTA takes one reference KV block of ``block_s`` positions, as one
-    Pallas grid step did, as long as that gives at least two CTAs per SM.
-    Where ``pairs = B * KH`` and ``S / block_s`` are too few for that, the
-    cache is cut into shorter ranges (a multiple of 64 positions).
+
+def attention_split(s: int, block_s: int, pairs: int, slots: int,
+                    end: Optional[int] = None):
+    """``(rows, nsplit)``: positions ``[0, end)`` (default all of S) cut into
+    ``nsplit`` ranges of ``rows``, one CTA each.
+
+    Where the ``pairs = B * KH`` leave some of the card's ``slots`` CTA
+    slots free, each pair's positions are cut into as many equal ranges (a
+    multiple of 64 positions) as fill the slots once: one long range per
+    CTA, so a CTA's start (its first tiles' latency) and end are paid once
+    per slot.  Where the pairs alone fill the slots, each CTA takes one
+    reference KV block of ``block_s`` positions, as one Pallas grid step
+    did, and the many short CTAs balance across the waves.
     """
     if s <= 0 or block_s <= 0 or s % block_s:
         raise ValueError(f"block_s={block_s} must divide S={s}")
-    rows = block_s
-    want = 2 * sms
-    if pairs * (s // block_s) < want:
-        rows = -(-s // -(-want // pairs))
+    end = s if end is None else end
+    if pairs > slots:
+        rows = block_s
+    else:
+        rows = -(-end // (slots // pairs))
         rows = -(-rows // 64) * 64
-    return rows, -(-s // rows)
+    return rows, -(-end // rows)
+
+
+def attention_ranges(s: int, block_s: int, pairs: int, sms: int,
+                     kv_len: int, dtype: torch.dtype):
+    """``(rows, nsplit, end)``: the CTAs one flash-decode call launches.
+
+    The kernels read cache positions ``[0, end)``: ``end = min(kv_len, S)``
+    for ``kv_len >= 1``, and all of S for ``kv_len <= 0``, where the output
+    is the mean of V.  A range wholly past ``kv_len`` would enter the merge
+    with weight ``e^(-1e30 - m*) = 0``, so reading every position with the
+    same ``rows`` (``end = S``) changes no bit of the result.
+    """
+    end = min(kv_len, s) if kv_len >= 1 else s
+    rows, nsplit = attention_split(s, block_s, pairs, CTAS_PER_SM[dtype] * sms,
+                                   end)
+    return rows, nsplit, end
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -321,9 +356,26 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{dh}")
     for t, what in ((q, "q"), (k, "k"), (v, "v")):
         _need(t, f"flash-decode {what}", dtype)
-    pairs = b * kh
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    rows, nsplit = attention_split(s, block_s, pairs, sms)
+    rows, nsplit, end = attention_ranges(s, block_s, b * kh, sms,
+                                         int(kv_len), dtype)
+    return attention_launch(q, k, v, int(kv_len), rows=rows, nsplit=nsplit,
+                            end=end, engine=engine)
+
+
+def attention_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     kv_len: int, *, rows: int, nsplit: int, end: int,
+                     engine: str) -> torch.Tensor:
+    """Launch flash-decode over positions ``[0, end)`` cut into ``nsplit``
+    ranges of ``rows``, on inputs that ``attention`` has checked.
+
+    ``attention`` passes ``attention_ranges``' schedule; a check may pass
+    the same ``rows`` with ``end = S`` and ``nsplit = ceil(S / rows)``, to
+    read each position, masked or not.
+    """
+    b, kh, g, dh = q.shape
+    s = k.shape[1]
+    pairs = b * kh
     out = torch.empty_like(q)
     part_ml = part_acc = None
     if nsplit > 1:
@@ -338,8 +390,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if part_ml is None else part_ml.data_ptr(),
             None if part_acc is None else part_acc.data_ptr(),
-            b, kh, g, s, dh, int(kv_len), rows, nsplit, scale,
-            int(dtype == torch.bfloat16), int(engine == "matrix"),
+            b, kh, g, s, dh, kv_len, end, rows, nsplit, scale,
+            int(q.dtype == torch.bfloat16), int(engine == "matrix"),
             _stream(out))
     _check("attention", code, f"attention_{engine}")
     return out

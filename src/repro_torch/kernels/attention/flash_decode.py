@@ -5,8 +5,9 @@ memory-bound (I ~ 2G/D flop/byte against a machine balance in the
 hundreds).  The only lever is streaming the cache once.  On the card
 both engines are hand-written kernels in ``csrc/attention.cu``: the
 vector kernel on the CUDA cores (FFMA and warp shuffles), the matrix
-kernel on the tensor cores (q.K^T in DMMA for float32 and HMMA for
-bfloat16, p.V in DMMA).  ``flash_decode_plain`` repeats the reference
+kernel on the tensor cores (float32: q.K^T and p.V in DMMA; bfloat16: both
+in HMMA, p split into two bfloat16 terms for p.V).  Both read only the
+cache positions below kv_len (all of them for kv_len <= 0).  ``flash_decode_plain`` repeats the reference
 kernel's arithmetic in PyTorch: one online-softmax pass over KV blocks
 of ``block_s`` positions.
 """

@@ -23,7 +23,8 @@ __all__ = ["ATTENTION_OP", "decode_attention"]
 #: Static KV-block length (what untuned dispatch uses, capped at S).
 DEFAULT_BLOCK_S = 512
 
-#: KV-block lengths a tuner may try: how many positions one CTA streams.
+#: KV-block lengths a tuner may try: the reference kernel's block, and how
+#: many positions one CTA streams where the B * KH pairs fill the card.
 ATTENTION_TILE_SPACE = {"block_s": (128, 256, 512)}
 
 

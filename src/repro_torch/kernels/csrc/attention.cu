@@ -11,43 +11,67 @@
 // q is (B, KH, G, Dh); k and v are (B, S, KH, Dh); all math is float32 or
 // wider.
 //
-// Bound: bytes.  The whole cache is streamed once, 2 * B * S * KH * Dh *
-// sizeof(T) bytes over the H100's 3.35 TB/s (every position, masked or not,
-// as the reference reads and counts it), for 4 * G flops per cache element:
-// far below the card's balance.  The TPU walked the S axis in order on one core carrying
-// (m, l, acc) across grid steps; here S is cut into contiguous ranges, one
-// CTA each (one reference KV block per CTA where that fills the card,
-// shorter ranges where B * KH pairs alone would leave SMs idle), so enough
-// loads are in flight to cover HBM latency.  Each CTA streams its range
-// exactly once, keeps its online softmax state in registers, merges its
-// warps' states in shared memory, and writes one float32 partial
-// (m, l, acc); a second small kernel merges the partials of a pair:
+// Bound: bytes.  The positions the function needs are streamed once:
+// 2 * B * L * KH * Dh * sizeof(T) bytes over the H100's 3.35 TB/s, with
+// L = min(kv_len, S) (all S when kv_len <= 0), for 4 * G flops per cache
+// element: far below the card's balance.  The TPU walked the S axis in
+// order on one core carrying (m, l, acc) across grid steps; here the L
+// positions are cut into contiguous ranges, one CTA each, so enough loads
+// are in flight to cover HBM latency (kernels/_ext.py::attention_split:
+// where the B * KH pairs leave CTA slots free, as many long ranges per pair
+// as fill the slots once, since a CTA's start and end cost HBM time;
+// otherwise one reference KV block per CTA).  No warp reads a tile that
+// starts at or past `end` = L.  For kv_len >= 1 that is bit-identical to
+// reading everything with the same ranges: a skipped tile would add p = 0
+// with corr = 1, a skipped warp or range would be weighed by
+// e^(-1e30 - m*) = 0.  Each CTA keeps its online softmax state in
+// registers, merges its warps' states in shared memory, and writes one
+// float32 partial (m, l, acc); a second small kernel merges the partials of
+// a pair:
 //     m* = max m_i,  l* = sum l_i e^(m_i - m*),  acc* = sum acc_i e^(m_i - m*),
 //     out = acc* / max(l*, 1e-30).
 // With one range per pair the first kernel writes the output itself.
 //
 // Both engines share everything but the two contractions, as the
 // reference's two kernel bodies do: a warp takes 16 cache positions per
-// tile; lane (g, t) (g = lane / 4, t = lane % 4) loads elements
-// [t*Dh/4, (t+1)*Dh/4) of K rows g and g + 8, and elements
-// [g*Dh/8, (g+1)*Dh/8) of V rows; it keeps the online-softmax state of query
-// heads 2t and 2t+1 and their output elements [g*Dh/8, (g+1)*Dh/8).  The
-// heads are padded to 8, so G of the 8 head columns do useful work: 4 of 8
-// at the Mistral-NeMo shape.
-//   Matrix engine, on tensor cores:
-//     q.K^T puts the cache positions on M and the heads on N.
-//       float32:  DMMA m8n8k4 on values converted to double (two 8-row
-//                 halves), products exact, rounded once to float32.
-//       bfloat16: HMMA m16n8k16 with a float32 accumulator.
-//     p.V: DMMA m8n8k4 with V^T on M (8 of Dh per MMA), the heads on N and 4
-//     positions on K, accumulated in double.  p is a float32 value; rounding
-//     it to bf16 for an HMMA would break the one-ulp tolerance, so p.V takes
-//     the FP64 tensor cores for both types.
-//   Vector engine, on the CUDA cores: the same products as FFMAs in
-//   float32.  Each lane takes partial dots over its K span for every head
-//   (q staged in shared memory), and a reduce-scatter over the four t lanes
-//   (12 shuffles per tile) leaves it the full scores of heads 2t and 2t+1;
-//   p.V walks the tile's 16 V rows, each lane its own span.
+// tile; lane (g, t) (g = lane / 4, t = lane % 4) keeps the online-softmax
+// state of query heads 2t and 2t+1 over the tile's positions g and g + 8.
+// The heads are padded to 8, the MMA's N, so G of the 8 head columns do
+// useful work: 4 of 8 at the Mistral-NeMo shape.
+//
+// float32: each lane loads elements [t*Dh/4, (t+1)*Dh/4) of K rows g and
+// g + 8 and elements [g*Dh/8, (g+1)*Dh/8) of V rows straight from global
+// memory.
+//   Matrix: q.K^T and p.V on DMMA m8n8k4 on values converted to double
+//   (q.K^T with positions on M and heads on N; p.V with V^T on M, heads on
+//   N, 4 positions on K), products exact.
+//   Vector: the same products as FFMAs; each lane takes partial dots over
+//   its K span for every head (q staged in shared memory), and a
+//   reduce-scatter over the four t lanes (12 shuffles per tile) leaves it
+//   the full scores of heads 2t and 2t+1; p.V walks the tile's 16 V rows,
+//   each lane its own span.
+// bfloat16: a tile of K and V is 8 KiB at Dh = 128, about 640 SM clocks at
+// the datasheet HBM rate, half of float32's budget for the same
+// instructions per element.  So the tiles are staged: each warp streams its
+// tiles through a ring of kRing stages in shared memory with cp.async, two
+// tiles ahead of the one it computes, and no load sits in a lane's
+// dependency chain.
+//   Matrix: q.K^T on HMMA m16n8k16 (K tile from ldmatrix as A, q as B in
+//   registers).  p.V on HMMA as well: p is split into two bfloat16 terms,
+//   p_hi = bf16(p) and p_lo = bf16(p - p_hi), |p - p_hi - p_lo| <= 2^-16 p,
+//   and each 16 positions x 16 of Dh take two HMMAs (V^T from ldmatrix.trans
+//   as A, p_hi then p_lo as B) into one float32 accumulator; V's products
+//   are exact.  This replaces 64 DMMAs, ~2176 conversions to double and 32
+//   double rescales per warp tile by 16 HMMAs and 32 float rescales.
+//   Vector: scores as in float32 but read from the stage (one shift or mask
+//   per bfloat16 value), for NH heads, G rounded up to a power of two, each
+//   head's FFMAs unrolled and independent of the others; p.V gives each
+//   lane 4 elements of Dh for those heads (none padded at G = 4) over its
+//   share of the tile's positions, each V element read from the stage by
+//   one lane only.  q stays staged in shared memory: the eight g lanes read
+//   the same words, one broadcast per load.
+// The merge of the ranges is launched as a programmatic dependent of the
+// range kernel, so it is scheduled while the range kernel's last CTAs run.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -64,6 +88,7 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr float kNegInf = -1e30f;  // the reference's mask value
 constexpr int kMaxHeads = 8;       // query heads per KV head (MMA N)
 constexpr int kTile = 16;          // cache positions per warp tile
+constexpr int kRing = 3;           // bfloat16: tiles in a warp's ring
 
 struct Shape {
   int kh;       // KV heads
@@ -71,41 +96,11 @@ struct Shape {
   int s;        // cache length
   int dh;       // head dim
   int kv_len;   // positions >= kv_len are masked
+  int end;      // positions >= end are never read
   int rows;     // cache positions per CTA
   int nsplit;   // CTAs per (b, h) pair
   float scale;  // 1 / sqrt(Dh), rounded as the reference rounds it
 };
-
-__device__ __forceinline__ void unpack2(uint32_t w, float& lo, float& hi) {
-  lo = bf16_bits_to_float(w & 0xffffu);
-  hi = bf16_bits_to_float(w >> 16);
-}
-
-// N consecutive bfloat16 values at p as raw 32-bit words (N even), with the
-// widest load the span allows (p is aligned to the span's byte size).
-template <int N>
-__device__ __forceinline__ void load_words(const __nv_bfloat16* p,
-                                           uint32_t (&w)[N / 2]) {
-  constexpr int W = N / 2;
-  if constexpr (W % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < W / 4; ++i) {
-      const uint4 x = __ldg(reinterpret_cast<const uint4*>(p) + i);
-      w[4 * i] = x.x, w[4 * i + 1] = x.y, w[4 * i + 2] = x.z,
-      w[4 * i + 3] = x.w;
-    }
-  } else if constexpr (W % 2 == 0) {
-#pragma unroll
-    for (int i = 0; i < W / 2; ++i) {
-      const uint2 x = __ldg(reinterpret_cast<const uint2*>(p) + i);
-      w[2 * i] = x.x, w[2 * i + 1] = x.y;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < W; ++i)
-      w[i] = __ldg(reinterpret_cast<const unsigned int*>(p) + i);
-  }
-}
 
 // N consecutive values at p as float32, zero where the row is out of range.
 template <int N>
@@ -128,25 +123,6 @@ __device__ __forceinline__ void load_span(const float* p, bool ok,
       o[2 * i] = x.x, o[2 * i + 1] = x.y;
     }
   }
-}
-
-template <int N>
-__device__ __forceinline__ void load_span(const __nv_bfloat16* p, bool ok,
-                                          float (&o)[N]) {
-  uint32_t w[N / 2];
-  if (ok) {
-    load_words<N>(p, w);
-  } else {
-#pragma unroll
-    for (int i = 0; i < N / 2; ++i) w[i] = 0u;
-  }
-#pragma unroll
-  for (int i = 0; i < N / 2; ++i) unpack2(w[i], o[2 * i], o[2 * i + 1]);
-}
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
 }
 
 template <typename T>
@@ -188,29 +164,12 @@ __device__ __forceinline__ void score_mma(const float (&k0)[DH / 4],
       s[hf][i] = __double2float_rn(c[hf][0][i] + c[hf][1][i]);
 }
 
-// Matrix, bfloat16: one HMMA m16n8k16 per 16 elements of Dh.  K-slots 2t,
-// 2t+1, 2t+8, 2t+9 of step kk are elements t*DH/4 + 4kk + 0..3: words 2kk
-// and 2kk+1 of the lane's span.
-template <int DH>
-__device__ __forceinline__ void score_mma(const uint32_t (&k0)[DH / 8],
-                                          const uint32_t (&k1)[DH / 8],
-                                          const uint32_t (&qs)[DH / 8],
-                                          float (&s)[2][2]) {
-  float c[2][4] = {};  // two accumulator chains
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) {
-    const uint32_t a[4] = {k0[2 * kk], k1[2 * kk], k0[2 * kk + 1],
-                           k1[2 * kk + 1]};
-    hmma_16816_bf16(c[kk & 1], a, qs[2 * kk], qs[2 * kk + 1], c[kk & 1]);
-  }
-  s[0][0] = c[0][0] + c[1][0], s[0][1] = c[0][1] + c[1][1];
-  s[1][0] = c[0][2] + c[1][2], s[1][1] = c[0][3] + c[1][3];
-}
-
-// Vector: partial dots over the lane's span for every head, q read from
+// Vector: partial dots over the lane's span for the first min(NH, heads)
+// heads, q read from
 // shared memory (sq: [head][t][DH/4 + 4], padded so that the four t lanes
-// hit different banks), then a reduce-scatter over the four t lanes.
-template <int DH>
+// hit different banks; the eight g lanes read the same words, one
+// broadcast), then a reduce-scatter over the four t lanes.
+template <int DH, int NH>
 __device__ __forceinline__ void score_fma(const float (&k0)[DH / 4],
                                           const float (&k1)[DH / 4],
                                           const float* sq, int heads, int t,
@@ -220,7 +179,7 @@ __device__ __forceinline__ void score_fma(const float (&k0)[DH / 4],
 #pragma unroll
   for (int h = 0; h < kMaxHeads; ++h) {
     part[0][h] = part[1][h] = 0.f;
-    if (h < heads) {
+    if (h < NH && h < heads) {
       const float4* q4 = reinterpret_cast<const float4*>(sq + (h * 4 + t) * QS);
 #pragma unroll
       for (int j = 0; j < KS / 4; ++j) {
@@ -255,36 +214,86 @@ __device__ __forceinline__ void score_fma(const float (&k0)[DH / 4],
   }
 }
 
-// The lane's span of K as the score product takes it: raw bf16 words for
-// the HMMA, float32 otherwise.
-template <typename T, int DH, bool kMMA>
-struct KSpan {
-  float v[DH / 4];
-  __device__ __forceinline__ void load(const T* p, bool ok) {
-    load_span<DH / 4>(p, ok, v);
-  }
-};
-template <int DH>
-struct KSpan<__nv_bfloat16, DH, true> {
-  uint32_t v[DH / 8];
-  __device__ __forceinline__ void load(const __nv_bfloat16* p, bool ok) {
-    if (ok) {
-      load_words<DH / 4>(p, v);
-    } else {
+// The online-softmax step shared by every path: scale and mask the tile's
+// scores s (positions rows[hf], heads 2t+i), update (m, l), and return the
+// probabilities p and the old state's factor corr.
+__device__ __forceinline__ void softmax_step(float (&s)[2][2],
+                                             const int (&rows)[2],
+                                             const bool (&in)[2],
+                                             const Shape& sh, float (&m)[2],
+                                             float (&l)[2], float (&p)[2][2],
+                                             float (&corr)[2]) {
 #pragma unroll
-      for (int j = 0; j < DH / 8; ++j) v[j] = 0u;
+  for (int i = 0; i < 2; ++i) {
+    float mx = m[i];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      s[hf][i] = rows[hf] < sh.kv_len ? s[hf][i] * sh.scale : kNegInf;
+      if (in[hf]) mx = fmaxf(mx, s[hf][i]);
+    }
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
+    corr[i] = expf(m[i] - mx);
+    float psum = 0.f;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      p[hf][i] = in[hf] ? expf(s[hf][i] - mx) : 0.f;
+      psum += p[hf][i];
+    }
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1)
+      psum += __shfl_xor_sync(kFull, psum, off);
+    l[i] = fmaf(l[i], corr[i], psum);
+    m[i] = mx;
+  }
+}
+
+// Merge the CTA's warps' states (sm_m, sm_l: [warp][head]; sm_acc:
+// [warp][head][DH]); store the output (one range per pair) or this range's
+// float32 partial.
+template <typename T, int DH>
+__device__ __forceinline__ void merge_warps(const float* sm_m,
+                                            const float* sm_l,
+                                            const float* sm_acc,
+                                            T* __restrict__ out,
+                                            float* __restrict__ part_ml,
+                                            float* __restrict__ part_acc,
+                                            const Shape& sh) {
+  const int pair = blockIdx.x, split = blockIdx.y;
+  for (int idx = threadIdx.x; idx < sh.g * DH; idx += kThreads) {
+    const int hh = idx / DH, d = idx - hh * DH;
+    float mx = sm_m[hh];
+    for (int w = 1; w < kWarps; ++w)
+      mx = fmaxf(mx, sm_m[w * kMaxHeads + hh]);
+    float lsum = 0.f, asum = 0.f;
+    for (int w = 0; w < kWarps; ++w) {
+      const float wt = expf(sm_m[w * kMaxHeads + hh] - mx);
+      lsum = fmaf(sm_l[w * kMaxHeads + hh], wt, lsum);
+      asum = fmaf(sm_acc[(w * kMaxHeads + hh) * DH + d], wt, asum);
+    }
+    if (sh.nsplit == 1) {
+      out[(static_cast<size_t>(pair) * sh.g + hh) * DH + d] =
+          from_float<T>(asum / fmaxf(lsum, 1e-30f));
+    } else {
+      const size_t slot = static_cast<size_t>(pair) * sh.nsplit + split;
+      part_acc[(slot * sh.g + hh) * DH + d] = asum;
+      if (d == 0) {
+        part_ml[(slot * sh.g + hh) * 2] = mx;
+        part_ml[(slot * sh.g + hh) * 2 + 1] = lsum;
+      }
     }
   }
-};
+}
 
 // ---------------------------------------------------------------------------
-// the tile loop, one per engine
+// float32: the tile loop with direct loads, one per engine
 // ---------------------------------------------------------------------------
 
-template <typename T, int DH, bool kMMA>
-__device__ __forceinline__ void attention_tiles(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, T* __restrict__ out,
+template <int DH, bool kMMA>
+__device__ __forceinline__ void attention_tiles_f32(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ out,
     float* __restrict__ part_ml, float* __restrict__ part_acc,
     const Shape& sh) {
   constexpr int KS = DH / 4;  // a lane's span of a K row
@@ -301,21 +310,21 @@ __device__ __forceinline__ void attention_tiles(
   const int g = lane >> 2, t = lane & 3;
   const int s0 = blockIdx.y * sh.rows;
   const int s1 = min(sh.s, s0 + sh.rows);
+  const int e1 = min(s1, sh.end);  // no tile starts at or past `end`
   const size_t stride = static_cast<size_t>(sh.kh) * DH;
   const size_t head0 = (static_cast<size_t>(b) * sh.s * sh.kh + h) * DH;
-  const T* kb = k + head0 + t * KS;
-  const T* vb = v + head0 + g * VS;
-  const T* qp = q + static_cast<size_t>(pair) * sh.g * DH;
+  const float* kb = k + head0 + t * KS;
+  const float* vb = v + head0 + g * VS;
+  const float* qp = q + static_cast<size_t>(pair) * sh.g * DH;
 
   // the matrix engine's B fragment: head g's span [t*KS, (t+1)*KS) of q
-  KSpan<T, DH, kMMA> qs;
+  float qs[KS];
   if constexpr (kMMA) {
-    qs.load(qp + static_cast<size_t>(g) * DH + t * KS, g < sh.g);
+    load_span<KS>(qp + static_cast<size_t>(g) * DH + t * KS, g < sh.g, qs);
   } else {
     for (int i = threadIdx.x; i < kMaxHeads * DH; i += kThreads) {
       const int hh = i / DH, d = i - hh * DH;
-      sm_q[(hh * 4 + d / KS) * QS + d % KS] =
-          hh < sh.g ? to_float(qp[i]) : 0.f;
+      sm_q[(hh * 4 + d / KS) * QS + d % KS] = hh < sh.g ? qp[i] : 0.f;
     }
     __syncthreads();
   }
@@ -326,45 +335,24 @@ __device__ __forceinline__ void attention_tiles(
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};  // heads 2t, 2t+1
 
   // tile0 is uniform across the warp, as mma.sync and the shuffles need
-  for (int tile0 = s0 + warp * kTile; tile0 < s1; tile0 += kWarps * kTile) {
+  for (int tile0 = s0 + warp * kTile; tile0 < e1; tile0 += kWarps * kTile) {
     const int rows[2] = {tile0 + g, tile0 + 8 + g};
     const bool in[2] = {rows[0] < s1, rows[1] < s1};
-    KSpan<T, DH, kMMA> k0, k1;
-    k0.load(kb + rows[0] * stride, in[0]);
-    k1.load(kb + rows[1] * stride, in[1]);
+    float k0[KS], k1[KS];
+    load_span<KS>(kb + rows[0] * stride, in[0], k0);
+    load_span<KS>(kb + rows[1] * stride, in[1], k1);
     float s[2][2];
     if constexpr (kMMA) {
-      score_mma<DH>(k0.v, k1.v, qs.v, s);
+      score_mma<DH>(k0, k1, qs, s);
     } else {
-      score_fma<DH>(k0.v, k1.v, sm_q, sh.g, t, s);
+      score_fma<DH, kMaxHeads>(k0, k1, sm_q, sh.g, t, s);
     }
     float p[2][2], corr[2];
+    softmax_step(s, rows, in, sh, m, l, p, corr);
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      float mx = m[i];
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        s[hf][i] = rows[hf] < sh.kv_len ? s[hf][i] * sh.scale : kNegInf;
-        if (in[hf]) mx = fmaxf(mx, s[hf][i]);
-      }
-#pragma unroll
-      for (int off = 4; off < 32; off <<= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
-      corr[i] = expf(m[i] - mx);
-      float psum = 0.f;
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        p[hf][i] = in[hf] ? expf(s[hf][i] - mx) : 0.f;
-        psum += p[hf][i];
-      }
-#pragma unroll
-      for (int off = 4; off < 32; off <<= 1)
-        psum += __shfl_xor_sync(kFull, psum, off);
-      l[i] = fmaf(l[i], corr[i], psum);
-      m[i] = mx;
+    for (int i = 0; i < 2; ++i)
 #pragma unroll
       for (int c = 0; c < VS; ++c) acc[c][i] *= static_cast<Acc>(corr[i]);
-    }
     // p (16 positions x 8 heads) through shared memory to the lanes that
     // multiply it into V
 #pragma unroll
@@ -422,33 +410,323 @@ __device__ __forceinline__ void attention_tiles(
       sm_acc[(warp * kMaxHeads + 2 * t + i) * DH + g * VS + c] =
           static_cast<float>(acc[c][i]);
   __syncthreads();
+  merge_warps<float, DH>(sm_m, sm_l, sm_acc, out, part_ml, part_acc, sh);
+}
 
-  // merge the warps' states; store the output (one range per pair) or this
-  // range's float32 partial
-  const int split = blockIdx.y;
-  for (int idx = threadIdx.x; idx < sh.g * DH; idx += kThreads) {
-    const int hh = idx / DH, d = idx - hh * DH;
-    float mx = sm_m[hh];
-    for (int w = 1; w < kWarps; ++w)
-      mx = fmaxf(mx, sm_m[w * kMaxHeads + hh]);
-    float lsum = 0.f, asum = 0.f;
-    for (int w = 0; w < kWarps; ++w) {
-      const float wt = expf(sm_m[w * kMaxHeads + hh] - mx);
-      lsum = fmaf(sm_l[w * kMaxHeads + hh], wt, lsum);
-      asum = fmaf(sm_acc[(w * kMaxHeads + hh) * DH + d], wt, asum);
+// ---------------------------------------------------------------------------
+// bfloat16: K and V staged through a ring in shared memory
+// ---------------------------------------------------------------------------
+
+// One stage: the K and V rows of a 16-position tile.  The 16-byte chunk c of
+// row r sits at r * CH + (c ^ (r % SW)), so that the eight row addresses of
+// an ldmatrix phase (eight rows, one chunk) fall in eight bank groups.
+template <int DH>
+struct KVTile {
+  static constexpr int CH = DH / 8;           // 16-byte chunks per row
+  static constexpr int SW = CH < 8 ? CH : 8;  // swizzle period
+  uint4 k[kTile * CH];
+  uint4 v[kTile * CH];
+  static __device__ __forceinline__ int at(int r, int c) {
+    return r * CH + (c ^ (r & (SW - 1)));
+  }
+};
+
+// The rest of the bfloat16 kernels' shared memory, after the ring: p^T
+// (heads x positions) per warp, the warps' (m, l), and q staged as float32
+// (vector engine; [head][t][DH/4 + 4]).  After the tile loop sm_acc reuses
+// the ring.
+template <int DH>
+struct Aux {
+  float p[kWarps][kMaxHeads][kTile];
+  float m[kWarps * kMaxHeads], l[kWarps * kMaxHeads];
+  float q[kMaxHeads * 4 * (DH / 4 + 4)];
+};
+
+template <int DH>
+__host__ __device__ constexpr int ring_bytes() {
+  return kWarps * kRing * static_cast<int>(sizeof(KVTile<DH>));
+}
+template <int DH>
+__host__ __device__ constexpr int smem_bytes() {
+  return ring_bytes<DH>() + static_cast<int>(sizeof(Aux<DH>));
+}
+
+// cp.async of tile rows tile0 .. tile0 + 15 of K and V into a stage; rows at
+// or past s1 (a range's ragged end) are zero-filled, not fetched.
+template <int DH>
+__device__ __forceinline__ void stage_tile(KVTile<DH>& st,
+                                           const __nv_bfloat16* kb,
+                                           const __nv_bfloat16* vb,
+                                           size_t stride, int tile0, int s1,
+                                           int lane) {
+  constexpr int CH = KVTile<DH>::CH;
+#pragma unroll
+  for (int i = 0; i < CH / 2; ++i) {
+    const int idx = lane + 32 * i, r = idx / CH, c = idx % CH;
+    const bool ok = tile0 + r < s1;
+    const size_t off = static_cast<size_t>(ok ? tile0 + r : tile0) * stride +
+                       c * 8;
+    cp_async16(&st.k[KVTile<DH>::at(r, c)], kb + off, ok);
+    cp_async16(&st.v[KVTile<DH>::at(r, c)], vb + off, ok);
+  }
+}
+
+__device__ __forceinline__ float bf16_lo(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+// Vector engine: the lane's span [t*DH/4, (t+1)*DH/4) of staged K row r.
+template <int DH>
+__device__ __forceinline__ void k_span(const KVTile<DH>& st, int r, int t,
+                                       float (&o)[DH / 4]) {
+  using Tile = KVTile<DH>;
+  uint32_t w[DH / 8];
+  if constexpr (DH >= 32) {
+    constexpr int KC = DH / 32;  // chunks per span
+#pragma unroll
+    for (int j = 0; j < KC; ++j) {
+      const uint4 x = st.k[Tile::at(r, t * KC + j)];
+      w[4 * j] = x.x, w[4 * j + 1] = x.y, w[4 * j + 2] = x.z,
+      w[4 * j + 3] = x.w;
     }
-    if (sh.nsplit == 1) {
-      out[(static_cast<size_t>(pair) * sh.g + hh) * DH + d] =
-          from_float<T>(asum / fmaxf(lsum, 1e-30f));
+  } else {  // half a chunk
+    const uint2 x =
+        reinterpret_cast<const uint2*>(&st.k[Tile::at(r, t >> 1)])[t & 1];
+    w[0] = x.x, w[1] = x.y;
+  }
+#pragma unroll
+  for (int j = 0; j < DH / 8; ++j)
+    o[2 * j] = bf16_lo(w[j]), o[2 * j + 1] = bf16_hi(w[j]);
+}
+
+// p as two bfloat16 terms, packed in pairs as an HMMA B register takes them.
+__device__ __forceinline__ void split_bf16(float2 p, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(p.x, p.y);
+  hi = reinterpret_cast<const uint32_t&>(h);
+  const __nv_bfloat162 r =
+      __floats2bfloat162_rn(p.x - bf16_lo(hi), p.y - bf16_hi(hi));
+  lo = reinterpret_cast<const uint32_t&>(r);
+}
+
+// NH: the vector engine's heads, a power of two >= G (the matrix engine
+// always takes 8, the MMA's N)
+template <int DH, bool kMMA, int NH>
+__device__ __forceinline__ void attention_tiles_bf16(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ part_ml, float* __restrict__ part_acc,
+    const Shape& sh) {
+  using Tile = KVTile<DH>;
+  constexpr int KS = DH / 4;       // vector scores: a lane's span of a K row
+  constexpr int QS = KS + 4;       // padded row of the staged q
+  constexpr int LR = DH / 4;       // vector p.V: lanes per V row, 4 each
+  constexpr int NP = kTile * LR / 32;  // its positions per lane and tile
+  extern __shared__ __align__(16) unsigned char smem[];
+  Aux<DH>& aux = *reinterpret_cast<Aux<DH>*>(smem + ring_bytes<DH>());
+  auto& sm_p = aux.p;
+  float* sm_m = aux.m;
+  float* sm_l = aux.l;
+  float* sm_q = aux.q;
+
+  const int pair = blockIdx.x;
+  const int b = pair / sh.kh, h = pair - b * sh.kh;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int s0 = blockIdx.y * sh.rows;
+  const int s1 = min(sh.s, s0 + sh.rows);
+  const int e1 = min(s1, sh.end);  // no tile starts at or past `end`
+  const size_t stride = static_cast<size_t>(sh.kh) * DH;
+  const size_t head0 = (static_cast<size_t>(b) * sh.s * sh.kh + h) * DH;
+  const __nv_bfloat16* qp = q + static_cast<size_t>(pair) * sh.g * DH;
+  Tile* ring = reinterpret_cast<Tile*>(smem) + warp * kRing;
+
+  // matrix: acc[dc] is the HMMA C fragment of Dh rows 16dc + g (+ 8) and
+  // heads 2t, 2t+1; vector: acc[e][head] for Dh element 4 * (lane % LR) + e
+  float acc[kMMA ? DH / 16 : 4][kMMA ? 4 : kMaxHeads] = {};
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};  // heads 2t, 2t+1
+
+  // this warp's tiles start at first + i * kWarps * kTile, i < n (uniform
+  // across the warp, as mma.sync and the shuffles need)
+  const int first = s0 + warp * kTile;
+  const int n = first < e1 ? (e1 - first + kWarps * kTile - 1) /
+                                 (kWarps * kTile)
+                           : 0;
+  auto issue = [&](int i) {
+    stage_tile<DH>(ring[i % kRing], k + head0, v + head0, stride,
+                   first + i * kWarps * kTile, s1, lane);
+  };
+#pragma unroll
+  for (int i = 0; i < kRing - 1; ++i) {
+    if (i < n) issue(i);
+    cp_async_commit();
+  }
+  // with the first tiles in flight: q as the score HMMA's B fragments
+  // (matrix; (2t, 2t+1) and (2t+8, 2t+9) of head g's 16-element step kk), or
+  // staged in shared memory as float32 (vector)
+  uint32_t qf[kMMA ? DH / 16 : 1][2];
+  if constexpr (kMMA) {
+    const unsigned int* q32 = reinterpret_cast<const unsigned int*>(
+        qp + static_cast<size_t>(g) * DH + 2 * t);
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      qf[kk][0] = g < sh.g ? __ldg(q32 + 8 * kk) : 0u;
+      qf[kk][1] = g < sh.g ? __ldg(q32 + 8 * kk + 4) : 0u;
+    }
+  } else {
+    for (int i = threadIdx.x; i < kMaxHeads * DH; i += kThreads) {
+      const int hh = i / DH, d = i - hh * DH;
+      sm_q[(hh * 4 + d / KS) * QS + d % KS] =
+          hh < sh.g ? __bfloat162float(qp[i]) : 0.f;
+    }
+    __syncthreads();
+  }
+
+  for (int i = 0; i < n; ++i) {
+    if (i + kRing - 1 < n) issue(i + kRing - 1);
+    cp_async_commit();
+    cp_async_wait<kRing - 1>();  // this lane's copies of tile i landed
+    __syncwarp();                // and every other lane's
+    const Tile& st = ring[i % kRing];
+    const int tile0 = first + i * kWarps * kTile;
+    const int rows[2] = {tile0 + g, tile0 + 8 + g};
+    const bool in[2] = {rows[0] < s1, rows[1] < s1};
+    float s[2][2];
+    if constexpr (kMMA) {
+      // A: positions on M from ldmatrix (matrix j: rows 8(j & 1) + 0..7,
+      // chunk 2kk + j / 2); two accumulator chains
+      const int r = (lane & 7) + 8 * ((lane >> 3) & 1), hc = lane >> 4;
+      float c[2][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        uint32_t a[4];
+        ldmatrix_x4(a, &st.k[Tile::at(r, 2 * kk + hc)]);
+        hmma_16816_bf16(c[kk & 1], a, qf[kk][0], qf[kk][1], c[kk & 1]);
+      }
+      s[0][0] = c[0][0] + c[1][0], s[0][1] = c[0][1] + c[1][1];
+      s[1][0] = c[0][2] + c[1][2], s[1][1] = c[0][3] + c[1][3];
     } else {
-      const size_t slot = static_cast<size_t>(pair) * sh.nsplit + split;
-      part_acc[(slot * sh.g + hh) * DH + d] = asum;
-      if (d == 0) {
-        part_ml[(slot * sh.g + hh) * 2] = mx;
-        part_ml[(slot * sh.g + hh) * 2 + 1] = lsum;
+      float k0[KS], k1[KS];
+      k_span<DH>(st, g, t, k0);
+      k_span<DH>(st, g + 8, t, k1);
+      score_fma<DH, NH>(k0, k1, sm_q, NH, t, s);
+    }
+    float p[2][2], corr[2];
+    softmax_step(s, rows, in, sh, m, l, p, corr);
+    // p^T (8 heads x 16 positions) through shared memory to the lanes that
+    // multiply it into V
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int i2 = 0; i2 < 2; ++i2)
+        sm_p[warp][2 * t + i2][8 * hf + g] = p[hf][i2];
+    __syncwarp();
+    if constexpr (kMMA) {
+#pragma unroll
+      for (int dc = 0; dc < DH / 16; ++dc)
+#pragma unroll
+        for (int i2 = 0; i2 < 2; ++i2) {
+          acc[dc][i2] *= corr[i2];
+          acc[dc][2 + i2] *= corr[i2];
+        }
+      // B: p[positions 2t, 2t+1 (+ 8)][head g], split in two bf16 terms
+      uint32_t ph[2], pl[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        split_bf16(*reinterpret_cast<const float2*>(
+                       &sm_p[warp][g][2 * t + 8 * j]),
+                   ph[j], pl[j]);
+      // A: V^T from ldmatrix.trans (matrix j: positions 8(j / 2) + 0..7,
+      // chunk 2dc + (j & 1))
+      const int r = (lane & 7) + 8 * (lane >> 4), hc = (lane >> 3) & 1;
+#pragma unroll
+      for (int dc = 0; dc < DH / 16; ++dc) {
+        uint32_t a[4];
+        ldmatrix_x4_trans(a, &st.v[Tile::at(r, 2 * dc + hc)]);
+        hmma_16816_bf16(acc[dc], a, ph[0], ph[1], acc[dc]);
+        hmma_16816_bf16(acc[dc], a, pl[0], pl[1], acc[dc]);
+      }
+    } else {
+      // lane = rg * LR + dl owns Dh elements 4dl .. 4dl + 3 of positions
+      // rg * NP .. rg * NP + NP - 1, for heads 0 .. NH - 1
+      const int rg = lane / LR, dl = lane % LR;
+      float vv[NP][4];
+#pragma unroll
+      for (int j = 0; j < NP; ++j) {
+        const uint2 w = reinterpret_cast<const uint2*>(
+            &st.v[Tile::at(rg * NP + j, dl >> 1)])[dl & 1];
+        vv[j][0] = bf16_lo(w.x), vv[j][1] = bf16_hi(w.x);
+        vv[j][2] = bf16_lo(w.y), vv[j][3] = bf16_hi(w.y);
+      }
+#pragma unroll
+      for (int hh = 0; hh < NH; ++hh) {
+        const float ch = __shfl_sync(kFull, corr[hh & 1], hh >> 1);
+        float pv[NP];
+        const float* ps = &sm_p[warp][hh][rg * NP];
+        if constexpr (NP % 4 == 0) {
+#pragma unroll
+          for (int j = 0; j < NP; j += 4) {
+            const float4 x = reinterpret_cast<const float4*>(ps)[j / 4];
+            pv[j] = x.x, pv[j + 1] = x.y, pv[j + 2] = x.z, pv[j + 3] = x.w;
+          }
+        } else {
+          const float2 x = *reinterpret_cast<const float2*>(ps);
+          pv[0] = x.x, pv[1] = x.y;
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc[e][hh] *= ch;
+#pragma unroll
+          for (int j = 0; j < NP; ++j)
+            acc[e][hh] = fmaf(pv[j], vv[j][e], acc[e][hh]);
+        }
       }
     }
+    __syncwarp();  // sm_p and the stage are rewritten after this
   }
+
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with its ring: sm_acc reuses it
+  float* sm_acc = reinterpret_cast<float*>(smem);
+  if (g == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      sm_m[warp * kMaxHeads + 2 * t + i] = m[i];
+      sm_l[warp * kMaxHeads + 2 * t + i] = l[i];
+    }
+  }
+  if constexpr (kMMA) {
+#pragma unroll
+    for (int dc = 0; dc < DH / 16; ++dc)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          sm_acc[(warp * kMaxHeads + 2 * t + i) * DH + 16 * dc + 8 * hf + g] =
+              acc[dc][2 * hf + i];
+  } else {
+    // add the position groups' sums: lanes dl, dl + LR, ...
+#pragma unroll
+    for (int off = LR; off < 32; off <<= 1)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int hh = 0; hh < NH; ++hh)
+          acc[e][hh] += __shfl_xor_sync(kFull, acc[e][hh], off);
+    if (lane < LR) {
+#pragma unroll
+      for (int hh = 0; hh < kMaxHeads; ++hh)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sm_acc[(warp * kMaxHeads + hh) * DH + 4 * lane + e] = acc[e][hh];
+    }
+  }
+  __syncthreads();
+  merge_warps<__nv_bfloat16, DH>(sm_m, sm_l, sm_acc, out, part_ml, part_acc,
+                                 sh);
 }
 
 template <typename T, int DH>
@@ -457,7 +735,18 @@ __global__ void __launch_bounds__(kThreads)
                             const T* __restrict__ v, T* __restrict__ out,
                             float* __restrict__ part_ml,
                             float* __restrict__ part_acc, Shape sh) {
-  attention_tiles<T, DH, false>(q, k, v, out, part_ml, part_acc, sh);
+  // the combine kernel may be scheduled now; it waits for this grid
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  if constexpr (std::is_same<T, float>::value)
+    attention_tiles_f32<DH, false>(q, k, v, out, part_ml, part_acc, sh);
+  else if (sh.g <= 1)
+    attention_tiles_bf16<DH, false, 1>(q, k, v, out, part_ml, part_acc, sh);
+  else if (sh.g <= 2)
+    attention_tiles_bf16<DH, false, 2>(q, k, v, out, part_ml, part_acc, sh);
+  else if (sh.g <= 4)
+    attention_tiles_bf16<DH, false, 4>(q, k, v, out, part_ml, part_acc, sh);
+  else
+    attention_tiles_bf16<DH, false, 8>(q, k, v, out, part_ml, part_acc, sh);
 }
 
 template <typename T, int DH>
@@ -466,34 +755,114 @@ __global__ void __launch_bounds__(kThreads)
                             const T* __restrict__ v, T* __restrict__ out,
                             float* __restrict__ part_ml,
                             float* __restrict__ part_acc, Shape sh) {
-  attention_tiles<T, DH, true>(q, k, v, out, part_ml, part_acc, sh);
+  // the combine kernel may be scheduled now; it waits for this grid
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  if constexpr (std::is_same<T, float>::value)
+    attention_tiles_f32<DH, true>(q, k, v, out, part_ml, part_acc, sh);
+  else
+    attention_tiles_bf16<DH, true, kMaxHeads>(q, k, v, out, part_ml,
+                                              part_acc, sh);
 }
 
 // ---------------------------------------------------------------------------
-// merge of the ranges of one (b, h) pair: grid (pairs, G), one thread per d
+// merge of the ranges of one (b, h) pair: grid (pairs, G), kWarps warps.
+// Warp w sums the ranges w, w + kWarps, ... in order, lane l elements
+// l, l + 32, ... of Dh, so that many ranges' loads are in flight at once;
+// the warps' sums are then added in warp order.
 // ---------------------------------------------------------------------------
 
 template <typename T>
-__global__ void attention_combine_kernel(const float* __restrict__ part_ml,
-                                         const float* __restrict__ part_acc,
-                                         T* __restrict__ out, Shape sh) {
+__global__ void __launch_bounds__(kThreads)
+    attention_combine_kernel(const float* __restrict__ part_ml,
+                             const float* __restrict__ part_acc,
+                             T* __restrict__ out, Shape sh) {
+  constexpr int E = 128 / 32;  // elements per lane at the largest Dh
+  __shared__ float sm_acc[kWarps][E * 32], sm_l[kWarps], sm_max[kWarps];
+  // launched as a programmatic dependent of the range kernel: wait until
+  // that grid has finished and its partials are visible
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
   const int pair = blockIdx.x, g = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const float* ml = part_ml + static_cast<size_t>(pair) * sh.nsplit * sh.g * 2;
   const float* ac = part_acc + static_cast<size_t>(pair) * sh.nsplit * sh.g *
                                    sh.dh;
-  for (int d = threadIdx.x; d < sh.dh; d += blockDim.x) {
-    float mx = ml[g * 2];
-    for (int i = 1; i < sh.nsplit; ++i)
-      mx = fmaxf(mx, ml[(i * sh.g + g) * 2]);
-    float l = 0.f, acc = 0.f;
-    for (int i = 0; i < sh.nsplit; ++i) {
-      const float w = expf(ml[(i * sh.g + g) * 2] - mx);
-      l = fmaf(ml[(i * sh.g + g) * 2 + 1], w, l);
-      acc = fmaf(ac[(static_cast<size_t>(i) * sh.g + g) * sh.dh + d], w, acc);
+  // kBatch of the warp's ranges at a time, every load of a batch issued
+  // before the first is used; the first batch's loads are in flight while
+  // the maximum over all ranges is taken
+  constexpr int kBatch = 16;
+  float mv[kBatch], lv[kBatch], av[kBatch][E];
+  auto load = [&](int i0) {
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = i0 + kWarps * u;
+      const bool ok = i < sh.nsplit;
+      mv[u] = ok ? __ldg(ml + (i * sh.g + g) * 2) : 0.f;
+      lv[u] = ok ? __ldg(ml + (i * sh.g + g) * 2 + 1) : 0.f;
+      const float* a = ac + (static_cast<size_t>(ok ? i : 0) * sh.g + g) *
+                                sh.dh;
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        av[u][e] = ok && lane + 32 * e < sh.dh ? __ldg(a + lane + 32 * e)
+                                               : 0.f;
+    }
+  };
+  load(warp);
+  float mx = ml[g * 2];
+  for (int i = threadIdx.x; i < sh.nsplit; i += kThreads)
+    mx = fmaxf(mx, ml[(i * sh.g + g) * 2]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
+  if (lane == 0) sm_max[warp] = mx;
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm_max[w]);
+  float l = 0.f, acc[E] = {};
+  for (int i0 = warp;;) {
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      if (i0 + kWarps * u < sh.nsplit) {
+        const float w = expf(mv[u] - mx);
+        l = fmaf(lv[u], w, l);
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[e] = fmaf(av[u][e], w, acc[e]);
+      }
+    }
+    i0 += kWarps * kBatch;
+    if (i0 >= sh.nsplit) break;
+    load(i0);
+  }
+#pragma unroll
+  for (int e = 0; e < E; ++e) sm_acc[warp][lane + 32 * e] = acc[e];
+  if (lane == 0) sm_l[warp] = l;
+  __syncthreads();
+  for (int d = threadIdx.x; d < sh.dh; d += kThreads) {
+    float lsum = 0.f, asum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      lsum += sm_l[w];
+      asum += sm_acc[w][d];
     }
     out[(static_cast<size_t>(pair) * sh.g + g) * sh.dh + d] =
-        from_float<T>(acc / fmaxf(l, 1e-30f));
+        from_float<T>(asum / fmaxf(lsum, 1e-30f));
   }
+}
+
+template <typename T, int DH>
+cudaError_t launch_tiles(const T* q, const T* k, const T* v, T* out,
+                         float* part_ml, float* part_acc, dim3 grid,
+                         const Shape& sh, int matrix, cudaStream_t s) {
+  auto kernel = matrix ? attention_matrix_kernel<T, DH>
+                       : attention_vector_kernel<T, DH>;
+  int smem = 0;
+  if constexpr (!std::is_same<T, float>::value) {
+    smem = smem_bytes<DH>();
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  kernel<<<grid, kThreads, smem, s>>>(q, k, v, out, part_ml, part_acc, sh);
+  return cudaGetLastError();
 }
 
 template <typename T>
@@ -506,15 +875,12 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v,
   const T* vt = static_cast<const T*>(v);
   T* ot = static_cast<T*>(out);
   const dim3 grid(pairs, sh.nsplit);
+  cudaError_t err;
   switch (sh.dh) {
-#define REPRO_ATTENTION(DH)                                             \
-  case DH:                                                              \
-    if (matrix)                                                         \
-      attention_matrix_kernel<T, DH><<<grid, kThreads, 0, s>>>(         \
-          qt, kt, vt, ot, part_ml, part_acc, sh);                       \
-    else                                                                \
-      attention_vector_kernel<T, DH><<<grid, kThreads, 0, s>>>(         \
-          qt, kt, vt, ot, part_ml, part_acc, sh);                       \
+#define REPRO_ATTENTION(DH)                                              \
+  case DH:                                                               \
+    err = launch_tiles<T, DH>(qt, kt, vt, ot, part_ml, part_acc, grid,   \
+                              sh, matrix, s);                            \
     break;
     REPRO_ATTENTION(16)
     REPRO_ATTENTION(32)
@@ -524,12 +890,21 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v,
     default:
       return cudaErrorInvalidValue;
   }
-  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || sh.nsplit == 1) return err;
-  const int threads = sh.dh < 32 ? 32 : sh.dh;
-  attention_combine_kernel<T><<<dim3(pairs, sh.g), threads, 0, s>>>(
-      part_ml, part_acc, ot, sh);
-  return cudaGetLastError();
+  // programmatic dependent launch: the merge is scheduled while the range
+  // kernel's last CTAs run, instead of after it
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(pairs, sh.g);
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, attention_combine_kernel<T>,
+                            static_cast<const float*>(part_ml),
+                            static_cast<const float*>(part_acc), ot, sh);
 }
 
 }  // namespace
@@ -537,24 +912,27 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v,
 REPRO_ERROR_STRING(attention)
 
 // out (B, KH, G, Dh) = flash-decode of q (B, KH, G, Dh) over k, v
-// (B, S, KH, Dh).  Each (b, h) pair's S positions are cut into nsplit ranges
-// of `rows` positions; with nsplit > 1, part_ml (pairs * nsplit * G * 2) and
-// part_acc (pairs * nsplit * G * Dh) float32 hold the ranges' partials.
-// Both kernels take G <= 8 and Dh in {16, 32, 64, 128}.  Returns the
+// (B, S, KH, Dh).  Positions [0, end) are read, end = min(kv_len, S) for
+// kv_len >= 1 and S otherwise (a caller may pass S to read every
+// position); they are cut into nsplit ranges of `rows` positions, one CTA
+// each.  With nsplit > 1, part_ml (pairs * nsplit * G * 2) and part_acc
+// (pairs * nsplit * G * Dh) float32 hold the ranges' partials.  Both
+// kernels take G <= 8 and Dh in {16, 32, 64, 128}.  Returns the
 // cudaError_t.
 extern "C" int attention_launch(const void* q, const void* k, const void* v,
                                 void* out, float* part_ml, float* part_acc,
                                 int batch, int kh, int g, int s, int dh,
-                                int kv_len, int rows, int nsplit, float scale,
-                                int bf16, int matrix, void* stream) {
+                                int kv_len, int end, int rows, int nsplit,
+                                float scale, int bf16, int matrix,
+                                void* stream) {
   if (batch < 0 || kh <= 0 || g <= 0 || g > kMaxHeads || s <= 0 ||
-      rows <= 0 || nsplit <= 0 ||
-      static_cast<long long>(rows) * nsplit < s ||
-      static_cast<long long>(rows) * (nsplit - 1) >= s ||
+      end <= 0 || end > s || rows <= 0 || nsplit <= 0 ||
+      static_cast<long long>(rows) * nsplit < end ||
+      static_cast<long long>(rows) * (nsplit - 1) >= end ||
       (nsplit > 1 && (part_ml == nullptr || part_acc == nullptr)))
     return cudaErrorInvalidValue;
   if (batch == 0) return cudaSuccess;
-  const Shape sh{kh, g, s, dh, kv_len, rows, nsplit, scale};
+  const Shape sh{kh, g, s, dh, kv_len, end, rows, nsplit, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       bf16 ? launch_typed<__nv_bfloat16>(q, k, v, out, part_ml, part_acc,

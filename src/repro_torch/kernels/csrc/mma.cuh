@@ -52,6 +52,54 @@ __device__ __forceinline__ uint32_t float_to_bf16_bits(float x) {
   return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(x)));
 }
 
+// 16-byte global -> shared copy that bypasses registers (cp.async, L2
+// only), and its group bookkeeping: commit the copies issued so far as one
+// group; wait until at most N groups are still in flight.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+// The same copy, writing 16 zero bytes instead when `read` is false.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool read) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(read ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 b16 matrices from shared memory: lane i gives the address of row
+// i % 8 of matrix i / 8; register j gets matrix j's row g, elements 2t and
+// 2t+1 (.trans: its elements (2t, g) and (2t+1, g)).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const void* row) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a)
+      : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* row) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a)
+      : "memory");
+}
+
 #define REPRO_ERROR_STRING(prefix)                                   \
   extern "C" const char* prefix##_error_string(int code) {           \
     return cudaGetErrorString(static_cast<cudaError_t>(code));       \

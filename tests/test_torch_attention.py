@@ -28,7 +28,8 @@ from repro.kernels.attention.flash_decode import flash_decode as j_flash  # noqa
 from repro.kernels.attention.ref import decode_attention_ref as j_ref  # noqa: E402
 
 from repro_torch.carry import tensor  # noqa: E402
-from repro_torch.kernels._ext import attention_split  # noqa: E402
+from repro_torch.kernels._ext import (  # noqa: E402
+    CTAS_PER_SM, attention_launch, attention_ranges, attention_split)
 from repro_torch.kernels.attention.flash_decode import (  # noqa: E402
     flash_decode, flash_decode_plain)
 from repro_torch.kernels.attention.ops import (  # noqa: E402
@@ -141,14 +142,54 @@ def test_registry_route_clamps_block_to_a_divisor():
 
 
 @pytest.mark.parametrize("s,block_s,pairs,rows,nsplit", [
-    (32768, 512, 32, 512, 64),   # long cache: one reference block per CTA
-    (512, 512, 32, 64, 8),       # the model's cache: cut to fill the SMs
+    (32768, 512, 32, 4096, 8),   # long cache: one long range per CTA slot
+    (512, 512, 32, 64, 8),       # the model's cache: cut to fill the slots
     (12, 12, 2, 64, 1),          # short serving cache: one range
     (1024, 256, 8, 64, 16),
+    (32768, 512, 512, 512, 64),  # the pairs fill the slots: block_s ranges
 ])
 def test_split_covers_the_cache(s, block_s, pairs, rows, nsplit):
-    assert attention_split(s, block_s, pairs, 132) == (rows, nsplit)
+    assert attention_split(s, block_s, pairs, 264) == (rows, nsplit)
     assert rows * nsplit >= s > rows * (nsplit - 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv_len", [-3, 0, 1, 15, 63, 64, 65, 511, 512,
+                                    1000, 1023, 1024, 40000])
+@pytest.mark.parametrize("s,block_s,pairs", [
+    (32768, 512, 32), (512, 512, 32), (12, 12, 2), (1024, 256, 8),
+    (32768, 512, 512)])
+def test_ranges_cover_the_positions_read(s, block_s, pairs, kv_len, dtype):
+    """The launched ranges cover exactly [0, min(kv_len, S)), all of S for
+    kv_len <= 0, in ranges of block_s or of a multiple of 64 positions,
+    no more CTAs than the card's slots unless the pairs alone exceed them;
+    reading all of S with the same ranges adds ranges only past kv_len."""
+    rows, nsplit, end = attention_ranges(s, block_s, pairs, 132, kv_len,
+                                         dtype)
+    slots = CTAS_PER_SM[dtype] * 132
+    assert end == (min(kv_len, s) if kv_len >= 1 else s)
+    assert rows * (nsplit - 1) < end <= rows * nsplit
+    assert rows == block_s or rows % 64 == 0
+    assert pairs * nsplit <= max(slots, pairs * -(-end // block_s))
+    assert -(-s // rows) >= nsplit
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kv_len", [1, 63, 64, 256])
+def test_blocks_past_kv_len_change_no_bit(kv_len, dtype, engine):
+    """Dropping the KV blocks that lie wholly past kv_len (p = 0, corr = 1
+    in each) gives the full pass bit for bit: at kv_len 1, block_s - 1,
+    block_s and S."""
+    block_s, s = 64, 256
+    q, k, v = _port(_mk(1, s, 2, 4, 32, dtype, kv_len))
+    full = flash_decode_plain(q, k, v, kv_len, block_s=block_s,
+                              engine=engine)
+    kept = -(-kv_len // block_s) * block_s
+    cut = flash_decode_plain(q, k[:, :kept].contiguous(),
+                             v[:, :kept].contiguous(), kv_len,
+                             block_s=block_s, engine=engine)
+    assert torch.equal(cut, full)
 
 
 def test_split_rejects_a_block_that_does_not_divide_s():
@@ -178,6 +219,10 @@ def test_card_flash_decode_matches_plain(card, dtype, engine):
     cases = [(b, s, kh, g, dh, s - 16) for b, s, kh, g, dh, _ in SHAPES]
     cases += [(2, s, 1, 2, 16, kv) for s, kv in SERVING]
     cases += [(1, 512, 2, 4, 64, 0)]
+    # 16 ranges of 64 positions at block_s 128: whole ranges past kv_len
+    cases += [(2, 1024, 2, 4, 128, kv) for kv in
+              (0, 1, 15, 16, 17, 63, 64, 65, 1023, 1024)]
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
     for b, s, kh, g, dh, kv_len in cases:
         q, k, v = [t.to(dtype).to(card) for t in
                    _port(_mk(b, s, kh, g, dh, "float32", s))]
@@ -188,3 +233,11 @@ def test_card_flash_decode_matches_plain(card, dtype, engine):
             _assert_close(got.cpu(), want.float().cpu().numpy(),
                           "bfloat16" if dtype == torch.bfloat16
                           else "float32")
+            if kv_len >= 1:
+                # bit for bit against reading every range and position
+                rows = attention_ranges(s, block, b * kh, sms, kv_len,
+                                        dtype)[0]
+                full = attention_launch(q, k, v, kv_len, rows=rows,
+                                        nsplit=-(-s // rows), end=s,
+                                        engine=engine)
+                assert torch.equal(got, full)

@@ -34,7 +34,7 @@ from repro_torch.core import roofline as p_roof  # noqa: E402
 from repro_torch.core.dispatch import Dispatcher as PDispatcher  # noqa: E402
 from repro_torch.core.dispatch import default_cache_key as p_key  # noqa: E402
 from repro_torch.core.dispatch import normalize_engine  # noqa: E402
-from repro_torch.core.timing import Timing, time_fn  # noqa: E402
+from repro_torch.core.timing import Timing, busy_us, time_fn  # noqa: E402
 from repro_torch.kernels import registry as p_registry  # noqa: E402
 
 SHARED = ("a100", "gh200", "v5e")
@@ -207,3 +207,14 @@ def test_time_fn_cpu():
     assert isinstance(t, Timing) and t.iters == 7
     assert len(t.samples_us) == 7 and t.median_us > 0 and t.iqr_us >= 0
     assert min(t.samples_us) <= t.median_us <= max(t.samples_us)
+
+
+@pytest.mark.parametrize("spans,busy", [
+    ([], 0.0),
+    ([(0.0, 5.0)], 5.0),
+    ([(0.0, 5.0), (7.0, 9.0)], 7.0),        # a gap counts for nothing
+    ([(3.0, 10.0), (0.0, 5.0)], 10.0),      # an overlap counts once
+    ([(0.0, 10.0), (2.0, 4.0)], 10.0),      # a span inside another
+])
+def test_busy_us_counts_overlaps_once(spans, busy):
+    assert busy_us(spans) == busy

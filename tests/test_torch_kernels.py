@@ -226,6 +226,26 @@ def test_card_spmv_kernel_matches_plain(card, engine):
         got = bell_spmv(bell.blocks, bell.cols, x, engine=engine)
         want = spmv_plain(bell.blocks, bell.cols, x, engine=engine)
         assert (got - want).abs().max().item() <= 1e-4
+    # slot counts off the matrix kernel's ring depth (3) and warp count (4),
+    # one block row, a repeated id, and out-of-range ids, which contribute
+    # nothing (the plain version gets zero blocks at column 0 there)
+    g = torch.Generator().manual_seed(6)
+    for nbr, mb, ncb in ((1, 1, 1), (1, 7, 3), (5, 13, 4), (3, 2, 2)):
+        blocks = torch.randn((nbr, mb, 8, 128), generator=g)
+        cols = torch.randint(0, ncb, (nbr, mb), generator=g,
+                             dtype=torch.int32)
+        bad = torch.zeros((nbr, mb), dtype=torch.bool)
+        if mb > 1:
+            cols[:, 1] = cols[:, 0]
+        if mb > 2:
+            cols[0, 2], cols[-1, mb - 1] = ncb, -1
+            bad[0, 2] = bad[-1, mb - 1] = True
+        x = torch.randn(ncb * 128, generator=g)
+        want = spmv_plain(blocks.masked_fill(bad[:, :, None, None], 0.0),
+                          cols.masked_fill(bad, 0), x, engine=engine)
+        got = bell_spmv(blocks.to(card), cols.to(card), x.to(card),
+                        engine=engine)
+        assert (got.cpu() - want).abs().max().item() <= 1e-4
 
 
 @pytest.mark.gpu

@@ -1,0 +1,145 @@
+#!/usr/bin/env python3
+"""Time block-ELL SpMV and flash-decode at chip_smoke.py's experiment points.
+
+    python3 tools/kernel_points.py [--root DIR] [--label NAME]
+
+Imports ``repro_torch`` from ``DIR/src`` (default: this checkout), builds
+that checkout's kernels, and prints one JSON line per point and engine: the
+CUDA-event median and IQR of 20 calls after 3 warm-ups, the host's enqueue
+time per call, the device time per call (torch.profiler: the union of the
+intervals in which the call's kernels run, and each kernel's own mean
+duration), and the card's name and power limit.  The points: SpMV on the
+8192 x 16384 matrix at 5% density, and flash-decode at Mistral-NeMo-12B's
+decode shape (B 4, KH 8, G 4, Dh 128) over S = 32768 with kv_len = 7S/8, in
+float32 and bfloat16.
+Yardsticks are timed beside them: ``torch.mv`` on the same matrix in CSR,
+and ``scaled_dot_product_attention`` on the kv_len valid positions.
+
+Two checkouts are compared on one card by running this once per checkout in
+turns within one command, e.g. ``A B B A``.  Needs an NVIDIA card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import re
+import subprocess
+import sys
+import time
+
+WARMUP, ITERS = 3, 20
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=str(pathlib.Path(__file__).resolve()
+                                          .parents[1]),
+                    help="checkout whose src/repro_torch is timed")
+    ap.add_argument("--label", default=None, help="name printed per line")
+    opts = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_points: no card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(pathlib.Path(opts.root) / "src"))
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch.core.timing import time_fn
+    from repro_torch.kernels import _ext, registry
+
+    label = opts.label or opts.root
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    t0 = time.perf_counter()
+    _ext.build()
+    build_s = time.perf_counter() - t0
+
+    def device_us(fn, calls=20):
+        """torch.profiler's device time per call: the union of the
+        intervals in which the calls' kernels run, over back-to-back calls
+        (a dependent kernel launched early counts once), and each kernel's
+        own mean duration (a dependent's includes its wait)."""
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        # repro_torch.core.timing.busy_us, repeated here: the checkout
+        # under --root may predate it
+        busy, end = 0.0, float("-inf")
+        for start, stop in sorted((e.time_range.start, e.time_range.end)
+                                  for e in events):
+            if stop > end:
+                busy += stop - max(start, end)
+                end = stop
+        per_kernel = {}
+        for e in events:
+            bare = re.sub(r"^void |\(anonymous namespace\)::", "", e.name)
+            name = re.split(r"[<(]", bare)[0]
+            per_kernel[name] = per_kernel.get(name, 0.0) + \
+                (e.time_range.end - e.time_range.start) / calls
+        return busy / calls, per_kernel
+
+    def host_us(fn, calls=50):
+        """The host's enqueue time per call, with no synchronisation."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        elapsed = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return elapsed / calls * 1e6
+
+    def emit(point, engine, fn):
+        t = time_fn(fn, warmup=WARMUP, iters=ITERS)
+        busy, per_kernel = device_us(fn)
+        print(json.dumps({"label": label, "point": point, "engine": engine,
+                          "median_us": t.median_us, "iqr_us": t.iqr_us,
+                          "host_enqueue_us": host_us(fn),
+                          "profiler_device_us": busy,
+                          "profiler_kernel_us": per_kernel,
+                          "card": card, "build_s": build_s}), flush=True)
+
+    spmv = registry.get("spmv")
+    (bell, x), kw = spmv.make_inputs(np.random.default_rng(0), 8192,
+                                     "float32")
+    for engine in ("vector", "matrix"):
+        emit("spmv/8192x16384", engine,
+             lambda: spmv(bell, x, engine=engine, **kw))
+    csr = bell.todense().to_sparse_csr()
+    emit("spmv/8192x16384", "library: torch.mv on CSR",
+         lambda: torch.mv(csr, x))
+    del bell, x, csr
+
+    attention = registry.get("attention")
+    b, kh, g, dh, s = 4, 8, 4, 128, 32768
+    kv_len = s - s // 8
+    gen = torch.Generator().manual_seed(0)
+    cgen = torch.Generator(device="cuda").manual_seed(0)
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.randn((b, kh, g, dh), generator=gen).to(dtype).cuda()
+        k, v = (torch.randn((b, s, kh, dh), generator=cgen,
+                            device="cuda").to(dtype) for _ in range(2))
+        point = f"attention/{str(dtype)[6:]}/B{b}xS{s}"
+        for engine in ("vector", "matrix"):
+            emit(point, engine,
+                 lambda: attention(q, k, v, kv_len, engine=engine))
+        qs = q.reshape(b, kh * g, 1, dh)
+        ks = k[:, :kv_len].permute(0, 2, 1, 3).contiguous()
+        vs = v[:, :kv_len].permute(0, 2, 1, 3).contiguous()
+        emit(point, "library: scaled_dot_product_attention",
+             lambda: F.scaled_dot_product_attention(qs, ks, vs,
+                                                    enable_gqa=True))
+        del q, k, v, qs, ks, vs
+        torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
