@@ -18,12 +18,15 @@ Phases, each fatal on failure:
   2. build of the hand-written kernels from src/repro_torch/kernels/csrc;
   3. each kernel against its plain PyTorch version on the card at small
      and odd shapes (float32 max-abs <= 1e-4, bfloat16 within one ulp):
-     SpMV with slot counts off the ring depth and warp count, repeated and
+     the elementwise kernels bit for bit at the edges of their grid (one
+     CTA's elements -/+ 1, one full wave of resident CTAs and 8 elements
+     more) for every tile of the space, and from a 16-byte offset; SpMV with
+     slot counts off the ring depth and warp count, repeated and
      out-of-range ids; flash-decode at kv_len edges where whole ranges lie
      past kv_len, each also bit for bit against reading every position;
   4. the experiment at STREAM size (every array >= 4x the 50 MiB L2):
      launch counts reset before it and read after it, one JSON line per
-     point and engine (SpMV and flash-decode also with the host's enqueue
+     point and engine (all but the stencils also with the host's enqueue
      time and torch.profiler's device time per call), then each output
      held against its plain version;
   5. library yardsticks (one PyTorch call computing the same function),
@@ -75,9 +78,9 @@ REPLACES = {
     "attention": "src/repro/kernels/attention/flash_decode.py:70",
 }
 #: Kernel families whose points also print the host's enqueue time and
-#: torch.profiler's device time: their kernels take 0.15-0.2 ms, near the
+#: torch.profiler's device time: their kernels take 0.15-0.3 ms, near the
 #: host's own time per call.
-REDESIGNED = ("spmv", "attention")
+REDESIGNED = ("scale", "triad", "axpy", "spmv", "attention")
 SOURCE = {
     "scale": "elementwise", "triad": "elementwise", "axpy": "elementwise",
     "spmv": "spmv", "stencil": "stencil", "attention": "attention",
@@ -120,6 +123,7 @@ def main() -> int:
     from repro_torch.core.hw import spec_for_device_name
     from repro_torch.core.timing import time_fn
     from repro_torch.kernels import _ext, registry
+    from repro_torch.kernels.elementwise_tuning import ELEMENTWISE_TILE_SPACE
     from repro_torch.kernels.attention.flash_decode import flash_decode_plain
     from repro_torch.kernels.attention.ops import (DEFAULT_BLOCK_S,
                                                    _clamp_block_s)
@@ -244,18 +248,48 @@ def main() -> int:
                 failures.append(f"{op.name}/{dtype}: engine='auto' did not "
                                 f"route to the vector kernel")
     gen = torch.Generator().manual_seed(SEED)
+    # the elementwise grid's edges, bit for bit, for every tile of the
+    # space: one CTA's elements -/+ 1, one full wave of the card's resident
+    # CTAs and 8 elements more, beside odd sizes; and an input that starts
+    # 16 bytes into a larger tensor
+    props = torch.cuda.get_device_properties(0)
+    wave = props.multi_processor_count * (
+        props.max_threads_per_multi_processor // _ext.ELEMENTWISE_THREADS)
     for dtype in (torch.float32, torch.bfloat16):
-        for shape in ((17,), (300_000,), (33, 95)):
-            m = torch.randn(shape, generator=gen).to(dtype).cuda()
-            a = torch.randn(shape, generator=gen).to(dtype).cuda()
+        per_chunk = 16 // torch.tensor([], dtype=dtype).element_size()
+        cta = _ext.ELEMENTWISE_THREADS * per_chunk
+        for has_add in (False, True):
+            for shape in ((17,), (cta - 1,), (cta + 1,), (wave * cta,),
+                          (wave * cta + 8,), (300_000,), (33, 95)):
+                m = torch.randn(shape, generator=gen).to(dtype).cuda()
+                a = torch.randn(shape, generator=gen).to(dtype).cuda() \
+                    if has_add else None
+                for engine in ("vector", "matrix"):
+                    want = elementwise_plain(m, 1.5, a, engine)
+                    for rows in ELEMENTWISE_TILE_SPACE["block_rows"]:
+                        for lanes in ELEMENTWISE_TILE_SPACE["lanes"]:
+                            got = elementwise_call("tail", m, 1.5, a,
+                                                   engine=engine,
+                                                   block_rows=rows,
+                                                   lanes=lanes)
+                            n_checks += 1
+                            if not torch.equal(got, want):
+                                failures.append(
+                                    f"elementwise/{engine}/{dtype}/{shape}/"
+                                    f"add={has_add}/tile {rows}x{lanes}: "
+                                    f"not equal to the plain version")
+            big = torch.randn(300_000 + per_chunk,
+                              generator=gen).to(dtype).cuda()
+            m = big[per_chunk:]
+            a = big[:-per_chunk] if has_add else None
             for engine in ("vector", "matrix"):
-                for add in (None, a):
-                    check(f"elementwise/{engine}/{dtype}/{shape}/add="
-                          f"{add is not None}",
-                          elementwise_call("tail", m, 1.5, add,
-                                           engine=engine),
-                          elementwise_plain(m, 1.5, add, engine))
-                    n_checks += 1
+                n_checks += 1
+                if not torch.equal(elementwise_call("tail", m, 1.5, a,
+                                                    engine=engine),
+                                   elementwise_plain(m, 1.5, a, engine)):
+                    failures.append(f"elementwise/{engine}/{dtype}/add="
+                                    f"{has_add}: input at a 16-byte offset "
+                                    f"not equal to the plain version")
     spmv_op = registry.get("spmv")
     for m_rows, n_cols, density in ((32, 256, 0.05), (128, 384, 0.3),
                                     (8, 128, 1.0)):

@@ -272,9 +272,15 @@ def elementwise_call(family: str, m: torch.Tensor, q,
     ragged tail itself, so only the output is allocated and it keeps the
     input's shape and dtype.
 
-    ``block_rows * lanes`` is the number of elements one CTA covers: the
-    grid has ``ceil(n / (block_rows * lanes))`` CTAs.  ``None`` means the
-    static defaults (256 x 1024).
+    The kernel gives each thread one 16-byte chunk of every array: a CTA
+    of 256 threads moves 256 consecutive chunks, and the grid has one CTA
+    per 256 chunks (``repro_torch.kernels._ext.elementwise_grid``), many
+    waves that the card's scheduler hands out in address order.  The tile
+    ``block_rows x lanes`` (``None``: the static 256 x 1024) is the TPU
+    kernel's VMEM block; on Hopper it does not shape the launch (larger
+    units per CTA measured slower).  It is still checked and accepted, so
+    ``tile_config`` through the ``Dispatcher`` and the tuning space stay
+    valid.
     """
     lanes = ELEMENTWISE_LANES if lanes is None else int(lanes)
     block_rows = (ELEMENTWISE_BLOCK_ROWS if block_rows is None
@@ -291,5 +297,4 @@ def elementwise_call(family: str, m: torch.Tensor, q,
     if backend == "plain":
         return elementwise_plain(m, q, add, engine)
     from ..kernels import _ext
-    return _ext.elementwise(family, m, q, add, engine=engine,
-                            tile_elems=block_rows * lanes)
+    return _ext.elementwise(family, m, q, add, engine=engine)

@@ -26,10 +26,10 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
-__all__ = ["CTAS_PER_SM", "LAUNCHES", "attention", "attention_launch",
-           "attention_ranges", "attention_split", "build",
-           "elementwise", "mma_instructions", "reset_launches", "spmv",
-           "stencil"]
+__all__ = ["CTAS_PER_SM", "ELEMENTWISE_THREADS", "LAUNCHES", "attention",
+           "attention_launch", "attention_ranges", "attention_split", "build",
+           "elementwise", "elementwise_grid", "mma_instructions",
+           "reset_launches", "spmv", "stencil"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
@@ -191,10 +191,30 @@ def _stream(t: torch.Tensor) -> int:
 # launch wrappers
 # --------------------------------------------------------------------------
 
+#: Threads per CTA of the elementwise kernel, one 16-byte chunk each.
+ELEMENTWISE_THREADS = 256
+
+
+def elementwise_grid(n: int, elem_bytes: int) -> int:
+    """CTAs of one elementwise call over ``n`` elements of ``elem_bytes``
+    bytes: one per ``ELEMENTWISE_THREADS`` 16-byte chunks.
+
+    CTA ``j`` takes chunks ``[256 j, 256 j + 256)``, one per thread, and the
+    last CTA the rest, so every chunk is covered once and no CTA is empty.
+    The grid runs in many waves: at the STREAM sizes 65,536 CTAs, of which
+    an H100 holds 1,056 at once, handed out in address order.  0 for
+    ``n = 0``.
+    """
+    if n < 0 or elem_bytes not in (2, 4):
+        raise ValueError(f"elementwise_grid: n={n}, elem_bytes={elem_bytes}")
+    chunks = -(-n * elem_bytes // 16)
+    return -(-chunks // ELEMENTWISE_THREADS)
+
+
 def elementwise(family: str, m: torch.Tensor, q,
-                add: Optional[torch.Tensor], *, engine: str,
-                tile_elems: int) -> torch.Tensor:
-    """Launch the elementwise kernel: ``q * m (+ add)``."""
+                add: Optional[torch.Tensor], *, engine: str) -> torch.Tensor:
+    """Launch the elementwise kernel: ``q * m (+ add)`` on the grid of
+    ``elementwise_grid``."""
     dtype = m.dtype
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"elementwise kernel takes float32/bfloat16, "
@@ -205,12 +225,15 @@ def elementwise(family: str, m: torch.Tensor, q,
         if add.shape != m.shape:
             raise ValueError(f"{family}: shapes disagree")
     out = torch.empty_like(m)
+    grid = elementwise_grid(out.numel(), m.element_size())
+    if grid == 0:
+        return out
     with torch.cuda.device(out.device):
         code = _lib("elementwise").elementwise_launch(
             m.data_ptr(), (add if add is not None else m).data_ptr(),
             out.data_ptr(), out.numel(), int(add is not None), float(q),
-            int(dtype == torch.bfloat16), int(engine == "matrix"),
-            int(tile_elems), _stream(out))
+            int(dtype == torch.bfloat16), int(engine == "matrix"), grid,
+            _stream(out))
     _check("elementwise", code, f"{family}_{engine}")
     return out
 

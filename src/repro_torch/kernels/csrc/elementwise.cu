@@ -10,10 +10,25 @@
 //
 // Bound: bytes.  Each element is read once per input and written once, so
 // the time floor is (inputs + 1) * n * sizeof(T) over the HBM rate; one
-// multiply-add per element is nothing to the CUDA cores.  The design keeps
-// HBM busy: 16-byte loads and stores, four of them in flight per thread
-// and input, the ragged tail handled inside the kernel (no padded copies),
-// no shared memory.
+// multiply-add per element is nothing to the CUDA cores.  What keeps HBM
+// busy on Hopper, measured with tools/kernel_points.py against designs that
+// fill the card's CTA slots once and loop over the arrays (contiguous
+// shares, or a front of pass-sized blocks; with a register double buffer
+// and L1/L2 streaming hints), all of which ran slower at the STREAM bench
+// points (PERF.md, Findings):
+//   - one 16-byte chunk per input and thread, no loop: a CTA of 256
+//     threads moves 256 consecutive chunks (4 KiB per array), and the grid
+//     has one CTA per 256 chunks, so the hardware scheduler hands out
+//     short CTAs in address order and the SMs read one narrow front of the
+//     arrays;
+//   - at most 32 registers a thread, so eight CTAs (64 warps, every thread
+//     slot of the SM) are resident and each keeps its loads in flight at
+//     once; the matrix engine's conversions and MMAs run while other warps
+//     wait on theirs;
+//   - plain cached loads (__ldg) and stores: L1::no_allocate loads and
+//     st.global.cs stores measured ~1% slower;
+//   - the ragged tail is handled inside the kernel (no padded copies), and
+//     there is no shared memory.
 //
 // Vector engine: float32 arithmetic with q as a float32 kernel argument.
 // Matrix engine (paper Fig. 5, A = B (qI)): every element goes through a
@@ -32,7 +47,6 @@
 //            input dtype.
 // Triad and AXPY issue two products, M (qI) and ADD I, each rounded to
 // float32, and add them in float32, as the reference adds two float32 dots.
-#include <climits>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -41,8 +55,9 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kUnroll = 4;
-constexpr long long kChunksPerPass = kThreads * kUnroll;
+// At most 32 registers a thread, so eight CTAs (all 2048 threads) fit on an
+// SM.
+constexpr int kMinCtasPerSm = 8;
 
 // 16 bytes: four float32 or eight bfloat16 values.
 union Chunk {
@@ -192,85 +207,74 @@ __device__ __forceinline__ Chunk matrix_chunk(const Chunk& m,
   return y;
 }
 
-// Each CTA covers chunks_per_cta consecutive 16-byte chunks.  The loop
-// bound is uniform across a warp, as mma.sync needs all 32 lanes.
+// Thread i of CTA j takes chunk 256 j + i.  A warp whose row starts past the
+// last chunk leaves as a whole; in the last row, lanes past the array load
+// zeros and store nothing, and the MMA still runs on all 32 lanes.
 template <bool BF16, bool ADD, bool MMA>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinCtasPerSm)
     elementwise_kernel(const void* __restrict__ m,
                        const void* __restrict__ add, void* __restrict__ out,
-                       long long n, float q, long long chunks_per_cta) {
+                       long long n, float q) {
   constexpr int E = Elems<BF16>::kPerChunk;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const long long total = (n + E - 1) / E;
-  const long long cta0 = static_cast<long long>(blockIdx.x) * chunks_per_cta;
-  const long long end = min(cta0 + chunks_per_cta, total);
-  MatrixB b;
-  if (MMA) b = make_b(q);
-  for (long long base = cta0 + static_cast<long long>(warp) * 32 * kUnroll;
-       base < end; base += kChunksPerPass) {
-    Chunk xm[kUnroll], xa[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const long long c = base + u * 32 + lane;
-      xm[u] = load_chunk<BF16>(m, c, n);
-      xa[u] = ADD ? load_chunk<BF16>(add, c, n) : xm[u];
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const long long c = base + u * 32 + lane;
-      const Chunk y = MMA ? matrix_chunk<BF16, ADD>(xm[u], xa[u], b)
-                          : vector_chunk<BF16, ADD>(xm[u], xa[u], q);
-      store_chunk<BF16>(out, c, n, y);
-    }
+  const long long row = static_cast<long long>(blockIdx.x) * kThreads +
+                        (threadIdx.x & ~31);
+  if (row >= total) return;
+  const long long c = row + (threadIdx.x & 31);
+  const Chunk xm = load_chunk<BF16>(m, c, n);
+  const Chunk xa = ADD ? load_chunk<BF16>(add, c, n) : xm;
+  Chunk y;
+  if constexpr (MMA) {
+    y = matrix_chunk<BF16, ADD>(xm, xa, make_b(q));
+  } else {
+    y = vector_chunk<BF16, ADD>(xm, xa, q);
   }
+  store_chunk<BF16>(out, c, n, y);
 }
 
 template <bool BF16, bool ADD, bool MMA>
 void launch(const void* m, const void* add, void* out, long long n, float q,
-            long long chunks_per_cta, long long grid, cudaStream_t stream) {
+            long long grid, cudaStream_t stream) {
   elementwise_kernel<BF16, ADD, MMA>
-      <<<static_cast<unsigned>(grid), kThreads, 0, stream>>>(
-          m, add, out, n, q, chunks_per_cta);
+      <<<static_cast<unsigned>(grid), kThreads, 0, stream>>>(m, add, out, n,
+                                                             q);
 }
 
 template <bool BF16>
 void launch_dtype(int has_add, int matrix, const void* m, const void* add,
-                  void* out, long long n, float q, long long chunks_per_cta,
-                  long long grid, cudaStream_t stream) {
+                  void* out, long long n, float q, long long grid,
+                  cudaStream_t s) {
   if (!has_add && !matrix)
-    launch<BF16, false, false>(m, add, out, n, q, chunks_per_cta, grid, stream);
+    launch<BF16, false, false>(m, add, out, n, q, grid, s);
   else if (!has_add)
-    launch<BF16, false, true>(m, add, out, n, q, chunks_per_cta, grid, stream);
+    launch<BF16, false, true>(m, add, out, n, q, grid, s);
   else if (!matrix)
-    launch<BF16, true, false>(m, add, out, n, q, chunks_per_cta, grid, stream);
+    launch<BF16, true, false>(m, add, out, n, q, grid, s);
   else
-    launch<BF16, true, true>(m, add, out, n, q, chunks_per_cta, grid, stream);
+    launch<BF16, true, true>(m, add, out, n, q, grid, s);
 }
 
 }  // namespace
 
 REPRO_ERROR_STRING(elementwise)
 
-// out = q * m (+ add) over n elements; tile_elems elements per CTA.
-// Returns the launch's cudaError_t (0 on success).
+// out = q * m (+ add) over n elements on `grid` CTAs of 256 threads, one
+// 16-byte chunk per thread: grid must be ceil(chunks / 256), as the
+// wrapper's elementwise_grid gives it.  Returns the launch's cudaError_t
+// (0 on success).
 extern "C" int elementwise_launch(const void* m, const void* add, void* out,
                                   long long n, int has_add, float q, int bf16,
-                                  int matrix, long long tile_elems,
-                                  void* stream) {
+                                  int matrix, long long grid, void* stream) {
   if (n < 0) return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
-  const int e = bf16 ? 8 : 4;
-  if (tile_elems <= 0 || tile_elems % (e * kChunksPerPass) != 0)
+  const long long e = bf16 ? 8 : 4;
+  const long long total = (n + e - 1) / e;
+  if (grid != (total + kThreads - 1) / kThreads || grid > 0x7fffffffLL)
     return cudaErrorInvalidValue;
-  const long long chunks_per_cta = tile_elems / e;
-  const long long grid = (n + tile_elems - 1) / tile_elems;
-  if (grid > INT_MAX) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    launch_dtype<true>(has_add, matrix, m, add, out, n, q, chunks_per_cta,
-                       grid, s);
+    launch_dtype<true>(has_add, matrix, m, add, out, n, q, grid, s);
   else
-    launch_dtype<false>(has_add, matrix, m, add, out, n, q, chunks_per_cta,
-                        grid, s);
+    launch_dtype<false>(has_add, matrix, m, add, out, n, q, grid, s);
   return static_cast<int>(cudaGetLastError());
 }

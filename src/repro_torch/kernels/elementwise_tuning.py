@@ -2,7 +2,10 @@
 
 SCALE, STREAM Triad, and AXPY all launch through
 ``repro_torch.core.dispatch.elementwise_call``, so they share one tile
-space.  ``block_rows * lanes`` is the element count one CTA covers.
+space: the reference's VMEM tile ``block_rows x lanes``.  On Hopper the
+tile does not shape the launch (one 16-byte chunk per thread,
+``repro_torch.core.dispatch.elementwise_call``); the space stays so that a
+``tile_config`` and the tuner's search remain valid.
 """
 from ..core.dispatch import ELEMENTWISE_BLOCK_ROWS, ELEMENTWISE_LANES
 

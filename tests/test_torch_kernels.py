@@ -217,6 +217,43 @@ def test_card_elementwise_kernel_matches_plain(card, dtype, engine):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("engine", ENGINES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_card_elementwise_grid_edges_match_plain(card, dtype, engine):
+    """Bit for bit at the edges of the kernel's grid, for every tile of the
+    space: one CTA's elements -/+ 1, one full wave of the card's resident
+    CTAs and 8 elements more, odd sizes, and an input that starts 16 bytes
+    into a larger tensor."""
+    from repro_torch.kernels import _ext
+    from repro_torch.kernels.elementwise_tuning import ELEMENTWISE_TILE_SPACE
+    g = torch.Generator().manual_seed(7)
+    per_chunk = 16 // torch.tensor([], dtype=dtype).element_size()
+    props = torch.cuda.get_device_properties(card)
+    wave = props.multi_processor_count * (
+        props.max_threads_per_multi_processor // _ext.ELEMENTWISE_THREADS)
+    cta = _ext.ELEMENTWISE_THREADS * per_chunk
+    for has_add in (False, True):
+        for shape in ((17,), (cta - 1,), (cta + 1,), (wave * cta,),
+                      (wave * cta + 8,), (300_000,), (33, 95)):
+            m = torch.randn(shape, generator=g).to(dtype).to(card)
+            add = torch.randn(shape, generator=g).to(dtype).to(card) \
+                if has_add else None
+            want = elementwise_plain(m, 1.5, add, engine)
+            for rows in ELEMENTWISE_TILE_SPACE["block_rows"]:
+                for lanes in ELEMENTWISE_TILE_SPACE["lanes"]:
+                    got = elementwise_call("test", m, 1.5, add, engine=engine,
+                                           block_rows=rows, lanes=lanes)
+                    assert torch.equal(got, want), (shape, has_add, rows,
+                                                    lanes)
+        big = torch.randn(300_000 + per_chunk, generator=g).to(dtype).to(card)
+        m = big[per_chunk:]
+        add = big[:-per_chunk] if has_add else None
+        assert m.data_ptr() % 16 == 0
+        assert torch.equal(elementwise_call("test", m, 1.5, add, engine=engine),
+                           elementwise_plain(m, 1.5, add, engine))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("engine", ENGINES)
 def test_card_spmv_kernel_matches_plain(card, engine):
     rng = np.random.default_rng(1)
     for m, n, density in SPMV_CASES:

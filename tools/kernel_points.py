@@ -1,19 +1,23 @@
 #!/usr/bin/env python3
-"""Time block-ELL SpMV and flash-decode at chip_smoke.py's experiment points.
+"""Time the elementwise kernels, block-ELL SpMV and flash-decode at
+chip_smoke.py's experiment points.
 
     python3 tools/kernel_points.py [--root DIR] [--label NAME]
+                                   [--points {elementwise,spmv,attention} ...]
 
 Imports ``repro_torch`` from ``DIR/src`` (default: this checkout), builds
 that checkout's kernels, and prints one JSON line per point and engine: the
 CUDA-event median and IQR of 20 calls after 3 warm-ups, the host's enqueue
 time per call, the device time per call (torch.profiler: the union of the
 intervals in which the call's kernels run, and each kernel's own mean
-duration), and the card's name and power limit.  The points: SpMV on the
-8192 x 16384 matrix at 5% density, and flash-decode at Mistral-NeMo-12B's
-decode shape (B 4, KH 8, G 4, Dh 128) over S = 32768 with kv_len = 7S/8, in
-float32 and bfloat16.
-Yardsticks are timed beside them: ``torch.mv`` on the same matrix in CSR,
-and ``scaled_dot_product_attention`` on the kv_len valid positions.
+duration), and the card's name and power limit.  The points (``--points``
+picks some, default all): SCALE, STREAM Triad and AXPY at float32
+n = 2^26 and bfloat16 n = 2^27; SpMV on the 8192 x 16384 matrix at 5%
+density; flash-decode at Mistral-NeMo-12B's decode shape (B 4, KH 8, G 4,
+Dh 128) over S = 32768 with kv_len = 7S/8, in float32 and bfloat16.
+Yardsticks are timed beside them: ``torch.mul`` / ``torch.add(...,
+alpha=q)`` on the same arrays, ``torch.mv`` on the same matrix in CSR, and
+``scaled_dot_product_attention`` on the kv_len valid positions.
 
 Two checkouts are compared on one card by running this once per checkout in
 turns within one command, e.g. ``A B B A``.  Needs an NVIDIA card.
@@ -29,6 +33,7 @@ import sys
 import time
 
 WARMUP, ITERS = 3, 20
+POINTS = ("elementwise", "spmv", "attention")
 
 
 def main() -> int:
@@ -37,6 +42,8 @@ def main() -> int:
                                           .parents[1]),
                     help="checkout whose src/repro_torch is timed")
     ap.add_argument("--label", default=None, help="name printed per line")
+    ap.add_argument("--points", nargs="+", choices=POINTS, default=POINTS,
+                    help="which kernels' points to time (default: all)")
     opts = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -55,7 +62,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    _ext.build()
+    _ext.build(tuple(n for n in _ext.SOURCES if n in opts.points))
     build_s = time.perf_counter() - t0
 
     def device_us(fn, calls=20):
@@ -106,38 +113,64 @@ def main() -> int:
                           "profiler_kernel_us": per_kernel,
                           "card": card, "build_s": build_s}), flush=True)
 
-    spmv = registry.get("spmv")
-    (bell, x), kw = spmv.make_inputs(np.random.default_rng(0), 8192,
-                                     "float32")
-    for engine in ("vector", "matrix"):
-        emit("spmv/8192x16384", engine,
-             lambda: spmv(bell, x, engine=engine, **kw))
-    csr = bell.todense().to_sparse_csr()
-    emit("spmv/8192x16384", "library: torch.mv on CSR",
-         lambda: torch.mv(csr, x))
-    del bell, x, csr
+    if "elementwise" in opts.points:
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        for dtype, n in ((torch.float32, 2**26), (torch.bfloat16, 2**27)):
+            m, a = (torch.randn(n, generator=gen, device="cuda").to(dtype)
+                    for _ in range(2))
+            q = 1.5
+            # (op arguments, the library call computing the same function)
+            calls = {
+                "scale": ((m, q), lambda: torch.mul(m, q)),
+                "triad": ((a, m, q), lambda: torch.add(a, m, alpha=q)),
+                "axpy": ((q, m, a), lambda: torch.add(a, m, alpha=q)),
+            }
+            for name, (args, library) in calls.items():
+                op = registry.get(name)
+                point = f"{name}/{str(dtype)[6:]}/n{n}"
+                for engine in ("vector", "matrix"):
+                    emit(point, engine,
+                         lambda: op(*args, engine=engine))
+                lib = "torch.mul" if name == "scale" else \
+                    "torch.add(alpha=q)"
+                emit(point, f"library: {lib}", library)
+            del m, a, calls
+            torch.cuda.empty_cache()
 
-    attention = registry.get("attention")
-    b, kh, g, dh, s = 4, 8, 4, 128, 32768
-    kv_len = s - s // 8
-    gen = torch.Generator().manual_seed(0)
-    cgen = torch.Generator(device="cuda").manual_seed(0)
-    for dtype in (torch.float32, torch.bfloat16):
-        q = torch.randn((b, kh, g, dh), generator=gen).to(dtype).cuda()
-        k, v = (torch.randn((b, s, kh, dh), generator=cgen,
-                            device="cuda").to(dtype) for _ in range(2))
-        point = f"attention/{str(dtype)[6:]}/B{b}xS{s}"
+    if "spmv" in opts.points:
+        spmv = registry.get("spmv")
+        (bell, x), kw = spmv.make_inputs(np.random.default_rng(0), 8192,
+                                         "float32")
         for engine in ("vector", "matrix"):
-            emit(point, engine,
-                 lambda: attention(q, k, v, kv_len, engine=engine))
-        qs = q.reshape(b, kh * g, 1, dh)
-        ks = k[:, :kv_len].permute(0, 2, 1, 3).contiguous()
-        vs = v[:, :kv_len].permute(0, 2, 1, 3).contiguous()
-        emit(point, "library: scaled_dot_product_attention",
-             lambda: F.scaled_dot_product_attention(qs, ks, vs,
-                                                    enable_gqa=True))
-        del q, k, v, qs, ks, vs
-        torch.cuda.empty_cache()
+            emit("spmv/8192x16384", engine,
+                 lambda: spmv(bell, x, engine=engine, **kw))
+        csr = bell.todense().to_sparse_csr()
+        emit("spmv/8192x16384", "library: torch.mv on CSR",
+             lambda: torch.mv(csr, x))
+        del bell, x, csr
+
+    if "attention" in opts.points:
+        attention = registry.get("attention")
+        b, kh, g, dh, s = 4, 8, 4, 128, 32768
+        kv_len = s - s // 8
+        gen = torch.Generator().manual_seed(0)
+        cgen = torch.Generator(device="cuda").manual_seed(0)
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn((b, kh, g, dh), generator=gen).to(dtype).cuda()
+            k, v = (torch.randn((b, s, kh, dh), generator=cgen,
+                                device="cuda").to(dtype) for _ in range(2))
+            point = f"attention/{str(dtype)[6:]}/B{b}xS{s}"
+            for engine in ("vector", "matrix"):
+                emit(point, engine,
+                     lambda: attention(q, k, v, kv_len, engine=engine))
+            qs = q.reshape(b, kh * g, 1, dh)
+            ks = k[:, :kv_len].permute(0, 2, 1, 3).contiguous()
+            vs = v[:, :kv_len].permute(0, 2, 1, 3).contiguous()
+            emit(point, "library: scaled_dot_product_attention",
+                 lambda: F.scaled_dot_product_attention(qs, ks, vs,
+                                                        enable_gqa=True))
+            del q, k, v, qs, ks, vs
+            torch.cuda.empty_cache()
     return 0
 
 
