@@ -22,13 +22,17 @@ Phases, each fatal on failure:
      CTA's elements -/+ 1, one full wave of resident CTAs and 8 elements
      more) for every tile of the space, and from a 16-byte offset; SpMV with
      slot counts off the ring depth and warp count, repeated and
-     out-of-range ids; flash-decode at kv_len edges where whole ranges lie
+     out-of-range ids; the stencils bit for bit, every suite member on both
+     engines at block_rows None / 32 / 1, on trailing extents 1, 2 and 3
+     mod 4 (the 4-byte load path), domains smaller than one tile, leading
+     extents that no block divides, and a 3-D radius-3 star at t = 3 (the
+     largest halo); flash-decode at kv_len edges where whole ranges lie
      past kv_len, each also bit for bit against reading every position;
   4. the experiment at STREAM size (every array >= 4x the 50 MiB L2):
      launch counts reset before it and read after it, one JSON line per
-     point and engine (all but the stencils also with the host's enqueue
-     time and torch.profiler's device time per call), then each output
-     held against its plain version;
+     point and engine, with the host's enqueue time and torch.profiler's
+     device time per call, then each output held against its plain
+     version (the stencils and the elementwise kernels bit for bit);
   5. library yardsticks (one PyTorch call computing the same function),
      and SpMV's byte bound in CSR;
   6. LM decode serving, once per flash-decode engine: launch counts reset
@@ -78,9 +82,11 @@ REPLACES = {
     "attention": "src/repro/kernels/attention/flash_decode.py:70",
 }
 #: Kernel families whose points also print the host's enqueue time and
-#: torch.profiler's device time: their kernels take 0.15-0.3 ms, near the
+#: torch.profiler's device time: their kernels take 0.15-0.4 ms, near the
 #: host's own time per call.
-REDESIGNED = ("scale", "triad", "axpy", "spmv", "attention")
+REDESIGNED = ("scale", "triad", "axpy", "spmv", "stencil", "attention")
+#: Flops of one DMMA m8n8k4 (8 x 8 x 4 multiply-adds).
+DMMA_FLOPS = 512
 SOURCE = {
     "scale": "elementwise", "triad": "elementwise", "axpy": "elementwise",
     "spmv": "spmv", "stencil": "stencil", "attention": "attention",
@@ -129,7 +135,7 @@ def main() -> int:
                                                    _clamp_block_s)
     from repro_torch.kernels.spmv.ref import dense_to_bell
     from repro_torch.kernels.spmv.spmv import bell_spmv, spmv_plain
-    from repro_torch.kernels.stencil.defs import TABLE3_DEPTH, suite
+    from repro_torch.kernels.stencil.defs import TABLE3_DEPTH, _star, suite
     from repro_torch.kernels.stencil.stencil import stencil_plain
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -206,14 +212,16 @@ def main() -> int:
     # issues DMMA/HMMA, no vector kernel does
     sass = {}
     for symbol, ops in _ext.mma_instructions().items():
+        # stencil_kernel<ndim, radius, box, matrix>
         match = re.search(r"(elementwise|spmv|stencil|attention)_"
                           r"(?:(vector|matrix)_)?kernel"
-                          r"(?:ILb[01]ELb[01]ELb([01])E|ILb([01])E)?",
+                          r"(?:ILb[01]ELb[01]ELb([01])E|ILb([01])E|"
+                          r"ILi[23]ELi[1-3]ELb[01]ELb([01])E)?",
                           symbol)
         if match is None:
             continue
-        family, named, ew_mma, st_mma = match.groups()
-        matrix = named == "matrix" or "1" in (ew_mma, st_mma)
+        family, named, ew_mma, mma_flag, st_mma = match.groups()
+        matrix = named == "matrix" or "1" in (ew_mma, mma_flag, st_mma)
         mma = ops["DMMA"] + ops["HMMA"]
         key = f"{family}/{'matrix' if matrix else 'vector'}"
         sass.setdefault(key, {"kernels": 0, "DMMA": 0, "HMMA": 0})
@@ -325,20 +333,35 @@ def main() -> int:
                   spmv_plain(blocks.masked_fill(bad[:, :, None, None], 0.0),
                              cols.masked_fill(bad, 0), x, engine=engine))
             n_checks += 1
+    # the stencils bit for bit: the kernels sum in the plain version's order.
+    # Per ndim: the trailing extent 0 mod 4 (16-byte loads) and 3, 1 mod 4
+    # (4-byte loads); leading extents that no block divides; a domain
+    # smaller than one tile; and a 3-D radius-3 star at t = 3
     stencil_op = registry.get("stencil")
+    stencil_cases = []
     for name, spec in sorted(suite().items()):
-        shape = (1000, 1000) if spec.ndim == 2 else (96, 96, 96)
+        for shape in ([(1000, 1000), (1001, 1003), (5, 9)] if spec.ndim == 2
+                      else [(96, 96, 96), (97, 95, 99), (3, 4, 5)]):
+            stencil_cases.append((name, spec, TABLE3_DEPTH[name], shape))
+    stencil_cases.append(("3d_star_r3", _star("3d_star_r3", 3, 3,
+                                              (0.11, 0.05, 0.02), 0.28),
+                          3, (37, 45, 50)))
+    stencil_cases.append(("2d5pt", suite()["2d5pt"], 3, (130, 1002)))
+    for name, spec, steps, shape in stencil_cases:
         u = torch.randn(shape, generator=gen).cuda()
-        steps = TABLE3_DEPTH[name]
         # the default block, a 32-row block, and one below the halo that
         # the t*r clamp lifts
         for block_rows in (None, 32, 1):
             for engine in ("vector", "matrix"):
-                check(f"stencil/{name}/{engine}/block_rows={block_rows}",
-                      stencil_op(u, spec, steps=steps, engine=engine,
-                                 block_rows=block_rows),
-                      stencil_plain(u, spec, steps=steps, engine=engine))
+                got = stencil_op(u, spec, steps=steps, engine=engine,
+                                 block_rows=block_rows)
+                want = stencil_plain(u, spec, steps=steps, engine=engine)
                 n_checks += 1
+                if not torch.equal(got, want):
+                    failures.append(
+                        f"stencil/{name}/{engine}/{shape}/block_rows="
+                        f"{block_rows}: not equal to the plain version, "
+                        f"max_abs_err {(got - want).abs().max().item()}")
     attention_op = registry.get("attention")
     # tests/test_flash_decode.py's shapes (b, s, kh, g, dh) at kv_len =
     # S - 16, its unaligned serving lengths, and an all-masked cache
@@ -442,8 +465,8 @@ def main() -> int:
         outs["auto"] = op(*args, engine="auto", **kw)
         for engine in ("vector", "matrix"):
             outs[engine] = op(*args, engine=engine, **kw)
-            times[engine] = time_fn(op, *args, engine=engine, warmup=WARMUP,
-                                    iters=ITERS, **kw)
+            times[engine] = time_fn(lambda: op(*args, engine=engine, **kw),
+                                    warmup=WARMUP, iters=ITERS)
         results.append((op, point, dtype, shape, args, kw, advice, traits,
                         outs, times))
     torch.cuda.synchronize()
@@ -481,6 +504,9 @@ def main() -> int:
             want = plain_of(op.name, args, kw, engine)
             err = check(f"{point}/{engine} at full size", outs[engine], want,
                         tol, floor)
+            if op.name == "stencil" and not torch.equal(outs[engine], want):
+                failures.append(f"{point}/{engine} at full size: not equal "
+                                f"to the plain version")
             plain_t[engine] = time_fn(plain_of, op.name, args, kw, engine,
                                       warmup=1, iters=5)
             t = times[engine]
@@ -499,6 +525,8 @@ def main() -> int:
             }
             if op.name == "attention":
                 line["bound_all_positions_ms"] = traits_ms
+            if op.name == "stencil" and engine == "matrix":
+                line["dmma_floor_ms"] = _dmma_floor_ms(args, kw, hw)
             if op.name in REDESIGNED:
                 # the host's enqueue time per call beside the CUDA-event
                 # median, and the kernels' device time from torch.profiler
@@ -511,7 +539,8 @@ def main() -> int:
                          "dtype": dtype, "err": err, "t": t,
                          "plain": plain_t[engine], "bound_ms": bound_ms,
                          "bound_by": bound_by, "op": op.name,
-                         "traits_ms": traits_ms})
+                         "traits_ms": traits_ms,
+                         "dmma_floor_ms": line.get("dmma_floor_ms")})
         check(f"{point}/auto at full size", outs["auto"],
               outs[advice.engine], 0.0)
 
@@ -553,6 +582,8 @@ def main() -> int:
             entry["csr_bound_ms"] = csr_ms
         if r["op"] == "attention":
             entry["bound_all_positions_ms"] = r["traits_ms"]
+        if r["name"] == "stencil_matrix":
+            entry["dmma_floor_ms"] = r["dmma_floor_ms"]
         if r["op"] == "attention":
             # flash-decode's own main path is LM decode serving (phase 6)
             entry["experiment_launches"] = entry["launches"]
@@ -736,6 +767,16 @@ def _bound_work(name, args, traits):
     esize = k.element_size()
     traffic = (2 * b * used * kh * dh + 2 * q.numel()) * esize
     return traffic, 4.0 * b * kh * g * used * dh
+
+
+def _dmma_floor_ms(args, kw, hw):
+    """Least time of the banded formulation on the FP64 tensor cores: per
+    step and axis pass, ceil((8 + 2r) / 4) DMMA m8n8k4 for each 8 x 8 tile
+    of outputs, at the datasheet's FP64 tensor-core rate (ms)."""
+    u, spec = args
+    per_tile = -(-(8 + 2 * spec.radius) // 4)
+    dmmas = kw["steps"] * spec.ndim * per_tile * u.numel() / 64
+    return dmmas * DMMA_FLOPS / hw.matrix.peak_flops * 1e3
 
 
 def _csr_bytes(bell, x):

@@ -3,8 +3,9 @@
 On the card every iteration is bracketed by a pair of
 ``torch.cuda.Event(enable_timing=True)`` records, so a sample is device
 time of the launches between them, not the host's enqueue time.  CPU
-results are timed with ``perf_counter``.  Which clock applies follows
-from where the function's result lives.
+work is timed with ``perf_counter``.  Which clock applies follows from
+where the arguments live or, for a function of no tensor argument (a
+closure), from where the first timed call's result lives.
 """
 from __future__ import annotations
 
@@ -39,33 +40,61 @@ def _on_card(out: Any) -> bool:
         return out.is_cuda
     if isinstance(out, (tuple, list)):
         return any(_on_card(o) for o in out)
+    if isinstance(out, dict):
+        return any(_on_card(o) for o in out.values())
+    return False
+
+
+def _has_tensor(x: Any) -> bool:
+    if isinstance(x, torch.Tensor):
+        return True
+    if isinstance(x, (tuple, list)):
+        return any(_has_tensor(o) for o in x)
+    if isinstance(x, dict):
+        return any(_has_tensor(o) for o in x.values())
     return False
 
 
 def time_fn(fn: Callable, *args, warmup: int = 2, iters: int = 5,
-            **kwargs) -> Timing:
-    """Per-call time statistics of ``fn(*args, **kwargs)`` in microseconds."""
-    out = None
-    for _ in range(max(1, warmup)):
-        out = fn(*args, **kwargs)
-    samples: List[float] = []
-    if _on_card(out):
+            label: str = "iteration", layer: str = "timing",
+            **span_attrs) -> Timing:
+    """Per-call time statistics of ``fn(*args)`` in microseconds.
+
+    The reference's signature: ``warmup`` untimed calls (0 allowed), then
+    ``iters`` timed ones.  *label* / *layer* / extra keywords name the
+    spans of a tracer and are never passed to ``fn``; until the port has
+    one they affect nothing.  Pass keyword arguments of ``fn`` through a
+    closure.
+    """
+    del label, layer, span_attrs
+    for _ in range(warmup):
+        fn(*args)
+    # card or host: from the arguments, else from the first timed call
+    card = _on_card(args) if _has_tensor(args) else None
+    if card is not False and torch.cuda.is_available():
         torch.cuda.synchronize()
-        pairs = []
-        for _ in range(iters):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn(*args, **kwargs)
-            end.record()
-            pairs.append((start, end))
+    samples: List[float] = []
+    pairs = []
+    for _ in range(iters):
+        events = None
+        if card is not False and torch.cuda.is_available():
+            events = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+            events[0].record()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        dt = time.perf_counter() - t0
+        if events is not None:
+            events[1].record()
+        if card is None:
+            card = _on_card(out)
+        if card:
+            pairs.append(events)
+        else:
+            samples.append(dt * 1e6)
+    if pairs:
         torch.cuda.synchronize()
         samples = [s.elapsed_time(e) * 1e3 for s, e in pairs]
-    else:
-        for _ in range(iters):
-            t0 = time.perf_counter()
-            fn(*args, **kwargs)
-            samples.append((time.perf_counter() - t0) * 1e6)
     times = sorted(samples)
     return Timing(median_us=_quantile(times, 0.5),
                   iqr_us=_quantile(times, 0.75) - _quantile(times, 0.25),

@@ -5,7 +5,9 @@ own shared library with a plain C interface, all files at once, at first
 use; the libraries are cached under ``build/repro_torch_ext/`` by a hash
 of their source and flags, and loaded with ``ctypes``.  A plain C
 interface keeps PyTorch's headers out of the build, which then takes
-seconds instead of minutes.
+seconds instead of minutes.  A file of many kernel instantiations
+(``PARTS``) is compiled as several objects at once, ``-DREPRO_PART=k``
+selecting object k's kernels, and linked into its library.
 
 Every launch wrapper here checks device, dtype, shape, contiguity and
 alignment, launches on PyTorch's current stream, raises if the launch
@@ -29,14 +31,17 @@ import torch
 __all__ = ["CTAS_PER_SM", "ELEMENTWISE_THREADS", "LAUNCHES", "attention",
            "attention_launch", "attention_ranges", "attention_split", "build",
            "elementwise", "elementwise_grid", "mma_instructions",
-           "reset_launches", "spmv", "stencil"]
+           "reset_launches", "spmv", "stencil", "stencil_offsets"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_ext"
 SOURCES = ("attention", "elementwise", "spmv", "stencil")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
+#: Sources compiled as this many objects in parallel: ``stencil.cu``
+#: specialises 24 kernels, 3 per object.
+PARTS = {"stencil": 8}
 
 #: Launches per kernel ("scale_vector", "spmv_matrix", ...) since the
 #: last ``reset_launches()``.
@@ -64,7 +69,20 @@ def _lib_path(name: str) -> pathlib.Path:
     for f in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(str(PARTS.get(name, 0)).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
+
+
+def _commands(name: str, out: pathlib.Path):
+    """(compile commands, link command or None) building ``out``."""
+    src = str(CSRC / f"{name}.cu")
+    n = PARTS.get(name, 0)
+    if not n:
+        return [[_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(out), src]], None
+    objs = [str(out.with_suffix(f".{k}.o")) for k in range(n)]
+    return ([[_nvcc(), *NVCC_FLAGS, "-c", f"-DREPRO_PART={k}", "-o", o, src]
+             for k, o in enumerate(objs)],
+            [_nvcc(), "-shared", "-o", str(out), *objs])
 
 
 def mma_instructions() -> Dict[str, Dict[str, int]]:
@@ -97,32 +115,41 @@ def mma_instructions() -> Dict[str, Dict[str, int]]:
 def build(names: Sequence[str] = SOURCES) -> Dict[str, ctypes.CDLL]:
     """Compile (if not cached) and load the named kernel libraries.
 
-    One ``nvcc`` per source, all started together.  Raises with the
-    compiler's output if any of them fails.
+    One ``nvcc`` per source (per object of a source in ``PARTS``), all
+    started together.  Raises with the compiler's output if any of them
+    fails.
     """
     with _LOCK:
         todo = [n for n in names if n not in _LIBS]
         if not todo:
             return _LIBS
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        procs = {}
+        jobs = {}
         for n in todo:
             path = _lib_path(n)
             if path.exists():
                 continue
             tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
-            procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                         stderr=subprocess.STDOUT,
-                                         text=True), tmp, path)
+            compiles, link = _commands(n, tmp)
+            jobs[n] = ([subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT, text=True)
+                        for cmd in compiles], link, tmp, path)
         failed = []
-        for n, (proc, tmp, path) in procs.items():
-            out, _ = proc.communicate()
-            if proc.returncode != 0:
-                failed.append(f"--- {n}.cu (nvcc exit {proc.returncode}) "
-                              f"---\n{out}")
+        for n, (procs, link, tmp, path) in jobs.items():
+            outs = [(proc.communicate()[0], proc.returncode)
+                    for proc in procs]
+            if link is not None and not any(rc for _, rc in outs):
+                done = subprocess.run(link, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+                outs.append((done.stdout, done.returncode))
+            bad = [(out, rc) for out, rc in outs if rc != 0]
+            if bad:
+                failed += [f"--- {n}.cu (nvcc exit {rc}) ---\n{out}"
+                           for out, rc in bad]
             else:
                 os.replace(tmp, path)
+            for obj in tmp.parent.glob(tmp.name[:-len(tmp.suffix)] + ".*.o"):
+                obj.unlink()
         if failed:
             raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
         for n in todo:
@@ -270,6 +297,19 @@ MAX_STENCIL_POINTS = 343
 MAX_RADIUS = 3
 
 
+def stencil_offsets(ndim: int, radius: int, kind: str):
+    """The offsets, in order, that the stencil kernels are compiled for: a
+    star's or a separable box's as ``kernels/stencil/defs.py`` builds them
+    (the order of the vector engine's multiply-adds)."""
+    from .stencil.defs import _box_separable, _star
+    if kind == "star":
+        return _star("", ndim, radius, (0.0,) * radius, 0.0).offsets
+    if kind == "box":
+        return _box_separable("", ndim, radius,
+                              (0.0,) * (2 * radius + 1)).offsets
+    raise ValueError(f"stencil kind {kind!r}: the kernels take star or box")
+
+
 def stencil(u: torch.Tensor, spec, *, steps: int, engine: str,
             block_rows: int) -> torch.Tensor:
     """Launch ``steps`` fused zero-boundary stencil steps of ``spec``."""
@@ -281,6 +321,10 @@ def stencil(u: torch.Tensor, spec, *, steps: int, engine: str,
                          f"1 <= steps <= 3, got r={spec.radius} t={steps}")
     if spec.num_points > MAX_STENCIL_POINTS:
         raise ValueError(f"too many stencil points: {spec.num_points}")
+    if spec.offsets != stencil_offsets(spec.ndim, spec.radius, spec.kind):
+        raise ValueError(f"stencil {spec.name!r}: the kernels are compiled "
+                         f"for the offsets of a {spec.kind} of radius "
+                         f"{spec.radius} in kernels/stencil/defs.py order")
     _need(u, "stencil u", torch.float32)
     out = torch.empty_like(u)
     dims = (ctypes.c_int * 3)(*([1] * (3 - u.ndim) + list(u.shape)))

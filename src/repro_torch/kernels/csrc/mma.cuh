@@ -69,6 +69,15 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                "l"(src), "r"(read ? 16 : 0)
                : "memory");
 }
+// 4-byte copy, for rows that are not 16-byte aligned; writes zero instead
+// when `read` is false (the 4-byte form has no L2-only variant).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool read) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(read ? 4 : 0)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

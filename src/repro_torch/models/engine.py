@@ -163,14 +163,20 @@ class DecodeEngine:
 
     @staticmethod
     def cache_state(caches: Any) -> Dict:
-        """The KV caches as a plain nested dict of tensors."""
+        """A snapshot of the KV caches as a plain nested dict of tensors.
+
+        Every leaf is a copy: ``decode_step`` writes the caches in place,
+        so a state taken at step t stays that of step t, as the
+        reference's immutable arrays do.
+        """
         def copy(tree):
-            return {k: copy(v) if isinstance(v, dict) else v
+            return {k: copy(v) if isinstance(v, dict) else v.clone()
                     for k, v in tree.items()}
         return copy(caches)
 
     def load_cache_state(self, template: Any, state: Dict) -> Any:
-        """Re-adopt a restored cache dict (shape/dtype-checked)."""
+        """Re-adopt a restored cache dict (shape/dtype-checked), as a copy
+        that later decode steps may write without touching ``state``."""
         flat_t, flat_s = _flatten(template), _flatten(state)
         if list(flat_t) != list(flat_s):
             raise ValueError(f"cache structure mismatch: {list(flat_t)} vs "

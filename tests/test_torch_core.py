@@ -209,6 +209,24 @@ def test_time_fn_cpu():
     assert min(t.samples_us) <= t.median_us <= max(t.samples_us)
 
 
+def test_time_fn_takes_the_reference_signature():
+    """Keywords name spans and never reach ``fn``; ``warmup=0`` runs ``fn``
+    exactly ``iters`` times; a closure is timed on the host clock."""
+    calls = []
+
+    def fn(*args, **kwargs):
+        calls.append((args, kwargs))
+        return torch.zeros(3)
+
+    t = time_fn(fn, 1, 2, warmup=0, iters=4, label="x", layer="kernel",
+                kernel="scale", size=8, dtype="float32")
+    assert t.iters == 4 and len(t.samples_us) == 4
+    assert calls == [((1, 2), {})] * 4
+    calls.clear()
+    time_fn(lambda: fn(), warmup=3, iters=2)
+    assert len(calls) == 5
+
+
 @pytest.mark.parametrize("spans,busy", [
     ([], 0.0),
     ([(0.0, 5.0)], 5.0),

@@ -182,6 +182,26 @@ def test_stencil_plain_matches_reference(name, engine, block_rows):
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("name", STENCILS)
+def test_stencil_kernel_refuses_other_offset_orders(name):
+    """The kernels are compiled for the offsets of defs.py's _star /
+    _box_separable in their order (the order of the multiply-adds): every
+    suite member is in it, and the launch wrapper refuses a reordered spec
+    before it looks at the tensor or the card."""
+    import dataclasses
+    from repro_torch.kernels import _ext
+    spec = p_suite()[name]
+    assert spec.offsets == _ext.stencil_offsets(spec.ndim, spec.radius,
+                                                spec.kind)
+    bad = dataclasses.replace(spec, offsets=spec.offsets[::-1],
+                              weights=spec.weights[::-1])
+    u = torch.zeros((8,) * spec.ndim)
+    with pytest.raises(ValueError, match="offsets"):
+        _ext.stencil(u, bad, steps=1, engine="vector", block_rows=32)
+    with pytest.raises(ValueError, match="card"):
+        _ext.stencil(u, spec, steps=1, engine="vector", block_rows=32)
+
+
 def test_stencil_halo_must_fit_block():
     spec = p_suite()["2d13pt"]
     u = torch.zeros(16, 16)
@@ -289,11 +309,18 @@ def test_card_spmv_kernel_matches_plain(card, engine):
 @pytest.mark.parametrize("engine", ENGINES)
 @pytest.mark.parametrize("name", STENCILS)
 def test_card_stencil_kernel_matches_plain(card, name, engine):
+    """Bit for bit: the kernels sum in the plain version's order.  The
+    second shape per ndim has a trailing extent that is no multiple of 4
+    (the 4-byte load path) and a leading one that no block divides."""
     spec = p_suite()[name]
     steps = TABLE3_DEPTH[name]
-    shape = (130, 300) if spec.ndim == 2 else (40, 33, 70)
-    u = torch.randn(shape, generator=torch.Generator().manual_seed(5)).to(card)
-    for br in (32, 128):
-        got = stencil_apply(u, spec, steps=steps, engine=engine, block_rows=br)
+    shapes = [(130, 300), (77, 1001)] if spec.ndim == 2 else \
+        [(40, 33, 70), (37, 29, 95)]
+    g = torch.Generator().manual_seed(5)
+    for shape in shapes:
+        u = torch.randn(shape, generator=g).to(card)
         want = stencil_plain(u, spec, steps=steps, engine=engine)
-        assert (got - want).abs().max().item() <= 1e-5
+        for br in (32, 128):
+            got = stencil_apply(u, spec, steps=steps, engine=engine,
+                                block_rows=br)
+            assert torch.equal(got, want), (shape, br)

@@ -339,6 +339,32 @@ def test_cache_state_round_trip():
         pe.load_cache_state(caches, bad)
 
 
+def test_cache_state_is_a_snapshot_matching_reference():
+    """A state taken after prefill stays that of prefill through a decode
+    step (which writes the caches in place), equal to a clone taken before
+    the step and to the reference's state at the same point; a loaded
+    state is a copy the next step does not write through."""
+    je, pe = _engines(None, "vector", "registry")
+    jb, pb = je.make_prompt_batch(seed=8), pe.make_prompt_batch(seed=8)
+    jlogits, jcaches = je.prefill(jb)
+    plogits, pcaches = pe.prefill(pb)
+    jstate = je.cache_state(jcaches)
+    pstate = pe.cache_state(pcaches)
+    before = {k: t.clone() for k, t in pcaches["attn"].items()}
+    loaded = pe.load_cache_state(pcaches, pstate)
+    jtok = jnp.argmax(jlogits[:, -1], axis=-1)[:, None]
+    ptok = torch.argmax(plogits[:, -1], dim=-1)[:, None]
+    je.decode_step(jtok, jcaches, je.prompt_len)
+    pe.decode_step(ptok, pcaches, pe.prompt_len)
+    pe.decode_step(ptok, loaded, pe.prompt_len)
+    for k in ("k", "v"):
+        assert not torch.equal(pcaches["attn"][k], before[k])  # written
+        assert torch.equal(pstate["attn"][k], before[k])
+        assert pstate["attn"][k].data_ptr() != pcaches["attn"][k].data_ptr()
+        _close(pstate["attn"][k], jstate["attn"][k])
+    assert not torch.equal(loaded["attn"]["k"], pstate["attn"]["k"])
+
+
 def test_init_and_pad_caches_match_reference():
     from repro.models import lm as j_lm
     j, p = _smoke_pair(2)

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Time the elementwise kernels, block-ELL SpMV and flash-decode at
-chip_smoke.py's experiment points.
+"""Time the elementwise kernels, block-ELL SpMV, the stencils and
+flash-decode at chip_smoke.py's experiment points.
 
     python3 tools/kernel_points.py [--root DIR] [--label NAME]
-                                   [--points {elementwise,spmv,attention} ...]
+        [--points {elementwise,spmv,stencil,attention} ...]
 
 Imports ``repro_torch`` from ``DIR/src`` (default: this checkout), builds
 that checkout's kernels, and prints one JSON line per point and engine: the
@@ -13,11 +13,15 @@ intervals in which the call's kernels run, and each kernel's own mean
 duration), and the card's name and power limit.  The points (``--points``
 picks some, default all): SCALE, STREAM Triad and AXPY at float32
 n = 2^26 and bfloat16 n = 2^27; SpMV on the 8192 x 16384 matrix at 5%
-density; flash-decode at Mistral-NeMo-12B's decode shape (B 4, KH 8, G 4,
-Dh 128) over S = 32768 with kv_len = 7S/8, in float32 and bfloat16.
-Yardsticks are timed beside them: ``torch.mul`` / ``torch.add(...,
-alpha=q)`` on the same arrays, ``torch.mv`` on the same matrix in CSR, and
-``scaled_dot_product_attention`` on the kv_len valid positions.
+density; the stencils 2d5pt on 8192^2 and 3d7pt on 512^3 at t = 3;
+flash-decode at Mistral-NeMo-12B's decode shape (B 4, KH 8, G 4, Dh 128)
+over S = 32768 with kv_len = 7S/8, in float32 and bfloat16.  Yardsticks are
+timed beside them: ``torch.mul`` / ``torch.add(..., alpha=q)`` on the same
+arrays, ``torch.mv`` on the same matrix in CSR, ``F.conv2d`` /
+``F.conv3d`` with the stencil's weights, t times, and
+``scaled_dot_product_attention`` on the kv_len valid positions.  Every
+call is timed through a closure, so the tool runs against older checkouts
+whose ``time_fn`` forwards keywords.
 
 Two checkouts are compared on one card by running this once per checkout in
 turns within one command, e.g. ``A B B A``.  Needs an NVIDIA card.
@@ -33,7 +37,7 @@ import sys
 import time
 
 WARMUP, ITERS = 3, 20
-POINTS = ("elementwise", "spmv", "attention")
+POINTS = ("elementwise", "spmv", "stencil", "attention")
 
 
 def main() -> int:
@@ -148,6 +152,36 @@ def main() -> int:
         emit("spmv/8192x16384", "library: torch.mv on CSR",
              lambda: torch.mv(csr, x))
         del bell, x, csr
+
+    if "stencil" in opts.points:
+        from repro_torch.kernels.stencil.defs import TABLE3_DEPTH, suite
+        stencil = registry.get("stencil")
+        torch.backends.cudnn.allow_tf32 = False
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        for name, shape in (("2d5pt", (8192, 8192)), ("3d7pt", (512,) * 3)):
+            spec, steps = suite()[name], TABLE3_DEPTH[name]
+            u = torch.randn(shape, generator=gen, device="cuda")
+            point = f"stencil/{name}/{'x'.join(map(str, shape))}"
+            for engine in ("vector", "matrix"):
+                emit(point, engine,
+                     lambda: stencil(u, spec, steps=steps, engine=engine))
+            # the same function as one PyTorch call per step: a convolution
+            # with the stencil's weights and zero padding r
+            r = spec.radius
+            w = torch.zeros((2 * r + 1,) * spec.ndim, device="cuda")
+            for off, wt in zip(spec.offsets, spec.weights):
+                w[tuple(o + r for o in off)] += wt
+            conv = F.conv2d if spec.ndim == 2 else F.conv3d
+            x0, wk = u[None, None], w[None, None]
+
+            def library():
+                v = x0
+                for _ in range(steps):
+                    v = conv(v, wk, padding=r)
+                return v
+            emit(point, f"library: F.conv{spec.ndim}d x {steps}", library)
+            del u, x0
+            torch.cuda.empty_cache()
 
     if "attention" in opts.points:
         attention = registry.get("attention")
