@@ -35,11 +35,20 @@ Phases, each fatal on failure:
      version (the stencils and the elementwise kernels bit for bit);
   5. library yardsticks (one PyTorch call computing the same function),
      and SpMV's byte bound in CSR;
-  6. LM decode serving, once per flash-decode engine: launch counts reset
+  6. the paper's steps 4-5 through the port's own sweep and claims:
+     repro_torch.bench.bench_kernels.records_for for every family at the
+     reference's bench_sizes and at the STREAM points, launch counts reset
+     before it and read after it; build/runs_torch/BENCH_<kernel>.json
+     written, loaded back with repro_torch.report.load_dir and verified
+     with check_records (one claims line, one line per violation: any
+     violation, or a set that fails to load, is fatal); the tracer's
+     overhead on one elementwise STREAM point (median captured against
+     median without);
+  7. LM decode serving, once per flash-decode engine: launch counts reset
      before the requests and read after them (exactly one launch per
      layer and decode step), one teacher-forced decode step held against
      the plain dense-attention path, prefill and per-step times;
-  7. one JSON line of per-kernel numbers, then the result line.
+  8. one JSON line of per-kernel numbers, then the result line.
 
 Exits non-zero, printing no result, without a card or without the
 repository's sources beside this file.
@@ -49,12 +58,14 @@ from __future__ import annotations
 import json
 import pathlib
 import re
-import subprocess
+import shutil
 import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 SEED = 0
+#: Phase 4's order of the STREAM points.
+STREAM_ORDER = ("scale", "triad", "axpy", "spmv", "stencil", "attention")
 WARMUP, ITERS = 3, 20
 F32_TOL = 1e-4            # report/claims.py's float32 accuracy claim
 #: bfloat16 attention outputs are convex combinations of V rows, and some
@@ -123,7 +134,8 @@ def main() -> int:
     import numpy as np
     import torch.nn.functional as F
 
-    from repro_torch.carry import cast
+    from repro_torch.bench.bench_kernels import bound_work, stream_points
+    from repro_torch.bench.common import card_line
     from repro_torch.core.bounds import tensor_core_upper_bound
     from repro_torch.core.dispatch import elementwise_call, elementwise_plain
     from repro_torch.core.hw import spec_for_device_name
@@ -143,11 +155,7 @@ def main() -> int:
     failures = []
 
     # -- 1. device ---------------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()
-    card = smi[0] if smi else "nvidia-smi gave nothing"
+    card = card_line()
     print(card)
     kind = torch.cuda.get_device_name(0)
     hw = spec_for_device_name(kind)
@@ -424,36 +432,15 @@ def main() -> int:
         return 1
 
     # -- 4. the experiment at STREAM size ----------------------------------
+    # the points of repro_torch.bench.bench_kernels.stream_points, which
+    # the sweep of phase 6 records too
     points = []
     rng = np.random.default_rng(SEED)
-    cgen = torch.Generator(device="cuda").manual_seed(SEED)
-    for name in ("scale", "triad", "axpy"):
-        op = registry.get(name)
-        for dtype, n in (("float32", 2**26), ("bfloat16", 2**27)):
-            args, kw = op.make_inputs(rng, n, dtype)
-            points.append((op, f"{name}/{dtype}", dtype, (n,), args, kw))
-    args, kw = spmv_op.make_inputs(rng, 8192, "float32")
-    points.append((spmv_op, "spmv/8192x16384", "float32",
-                   tuple(args[0].shape), args, kw))
-    args, kw = stencil_op.make_inputs(rng, 8192, "float32")
-    points.append((stencil_op, "stencil/2d5pt/8192^2", "float32",
-                   (8192, 8192), args, kw))
-    u3 = cast(rng.standard_normal((512, 512, 512)), "float32")
-    points.append((stencil_op, "stencil/3d7pt/512^3", "float32",
-                   (512, 512, 512), (u3, suite()["3d7pt"]),
-                   {"steps": TABLE3_DEPTH["3d7pt"]}))
-    # flash-decode at Mistral-NeMo-12B's decode shape (G = 32 / 8 query
-    # heads per KV head, Dh = 128) over a long cache: K + V = 1 GiB in
-    # float32, 512 MiB in bfloat16
-    b, kh, g, dh, s = 4, 8, 4, 128, 32768
-    for dtype in ("float32", "bfloat16"):
-        q = torch.randn((b, kh, g, dh), generator=gen).to(
-            getattr(torch, dtype)).cuda()
-        k, v = (torch.randn((b, s, kh, dh), generator=cgen,
-                            device="cuda").to(getattr(torch, dtype))
-                for _ in range(2))
-        points.append((attention_op, f"attention/{dtype}/B{b}xS{s}", dtype,
-                       (b, s, kh, dh), (q, k, v, s - s // 8), {}))
+    for op in registry.all_ops():
+        for pt in stream_points(op, rng, "cuda"):
+            point, shape = _point_label(op.name, pt)
+            points.append((op, point, pt.dtype, shape, pt.args, pt.kwargs))
+    points.sort(key=lambda p: STREAM_ORDER.index(p[0].name))
     torch.cuda.synchronize()
 
     _ext.reset_launches()
@@ -481,7 +468,7 @@ def main() -> int:
     for (op, point, dtype, shape, args, kw, advice, traits, outs,
          times) in results:
         ratio = times["matrix"].median_us / times["vector"].median_us
-        traffic, work = _bound_work(op.name, args, traits)
+        traffic, work = bound_work(op.name, args, traits)
         bytes_s = traffic / hw.mem_bw
         ops_s = work / PEAK_OPS
         bound_ms = max(bytes_s, ops_s) * 1e3
@@ -555,15 +542,18 @@ def main() -> int:
             print(json.dumps({"point": point, "library_ms": library[point],
                               "csr_bound_ms": csr_ms, "card": card}),
                   flush=True)
-    del points, results, args, kw, outs, times, want, traits, u3, q, k, v, \
-        bell, x, xg
+    del points, results, args, kw, outs, times, want, traits, bell, x, xg
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
-    # -- 6. LM decode serving at full width ----------------------------------
+    # -- 6. BENCH records, verified by the claims layer ----------------------
+    sweep_launches = _records_phase(torch, hw, card, failures)
+    torch.cuda.empty_cache()
+
+    # -- 7. LM decode serving at full width ----------------------------------
     model_launches = _model_phase(torch, hw, card, failures)
 
-    # -- 7. the per-kernel line ----------------------------------------------
+    # -- 8. the per-kernel line ----------------------------------------------
     kernels = []
     for r in rows:
         entry = {
@@ -571,6 +561,7 @@ def main() -> int:
             "source": f"src/repro_torch/kernels/csrc/{SOURCE[r['op']]}.cu",
             "replaces": REPLACES[r["op"]],
             "launches": launches.get(r["name"], 0),
+            "sweep_launches": sweep_launches.get(r["name"], 0),
             "max_abs_err": r["err"],
             "ms": r["t"].median_us / 1e3,
             "plain_ms": r["plain"].median_us / 1e3,
@@ -585,7 +576,7 @@ def main() -> int:
         if r["name"] == "stencil_matrix":
             entry["dmma_floor_ms"] = r["dmma_floor_ms"]
         if r["op"] == "attention":
-            # flash-decode's own main path is LM decode serving (phase 6)
+            # flash-decode's own main path is LM decode serving (phase 7)
             entry["experiment_launches"] = entry["launches"]
             entry["launches"] = model_launches[r["name"]]
         kernels.append(entry)
@@ -751,22 +742,120 @@ def _model_phase(torch, hw, card, failures):
     return launches
 
 
-def _bound_work(name, args, traits):
-    """(bytes, operations) the function needs on these inputs.
+def _point_label(name, pt):
+    """Phase 4's label and shape of one STREAM point."""
+    if name in ("scale", "triad", "axpy"):
+        return f"{name}/{pt.dtype}", (pt.size,)
+    if name == "spmv":
+        m, n = pt.args[0].shape
+        return f"spmv/{m}x{n}", (m, n)
+    if name == "stencil":
+        u, spec = pt.args
+        side = "^".join((str(u.shape[0]), str(u.ndim)))
+        return f"stencil/{spec.name}/{side}", tuple(u.shape)
+    q, k, _, _ = pt.args
+    return (f"attention/{pt.dtype}/B{q.shape[0]}xS{k.shape[1]}",
+            tuple(k.shape))
 
-    Flash-decode reads the K and V rows of min(kv_len, S) positions (all S
-    when kv_len <= 0, where the output is the mean of V), q once and writes
-    the output once: the advisor's traits count every cache position.
-    Every other kernel: the advisor's traits."""
-    if name != "attention":
-        return traits.traffic_bytes, traits.work_flops
-    q, k, v, kv_len = args
-    b, kh, g, dh = q.shape
-    s = k.shape[1]
-    used = min(kv_len, s) if kv_len >= 1 else s
-    esize = k.element_size()
-    traffic = (2 * b * used * kh * dh + 2 * q.numel()) * esize
-    return traffic, 4.0 * b * kh * g * used * dh
+
+def _records_phase(torch, hw, card, failures):
+    """The paper's steps 4-5 through the port's sweep and claims layer.
+
+    Every family at the reference's bench_sizes and at the STREAM points,
+    on the card with the card's HardwareSpec; the records written to
+    build/runs_torch, loaded back and verified.  Returns the sweep's
+    launches per kernel.
+    """
+    import numpy as np
+
+    from repro_torch.bench import bench_kernels
+    from repro_torch.bench.common import bench_env, write_json
+    from repro_torch.kernels import _ext, registry
+    from repro_torch.report import check_records, load_dir, violations
+
+    out_dir = ROOT / "build" / "runs_torch"
+    # records of an earlier run must not be verified in this one
+    shutil.rmtree(out_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    _ext.reset_launches()
+    n_records = 0
+    for op in registry.all_ops():
+        recs = bench_kernels.records_for(op, hw=hw, device="cuda")
+        recs += bench_kernels.records_for(op, hw=hw, device="cuda",
+                                          stream=True)
+        write_json(op.name, recs, str(out_dir),
+                   env=bench_env("cuda", hw.name))
+        n_records += len(recs)
+    torch.cuda.synchronize()
+    launches = dict(_ext.LAUNCHES)
+    sweep_s = time.perf_counter() - t0
+    for op in registry.all_ops():
+        for engine in ("vector", "matrix"):
+            if launches.get(f"{op.name}_{engine}", 0) == 0:
+                failures.append(f"{op.name}_{engine}: no launch in the sweep")
+    try:
+        sets = load_dir(str(out_dir))
+        results = check_records(sets)
+    except (OSError, ValueError, NotImplementedError) as exc:
+        failures.append(f"records: {exc}")
+        return launches
+    by_claim = {}
+    for r in results:
+        c = by_claim.setdefault(r.claim, {"checked": 0, "violations": 0})
+        c["checked"] += 1
+        c["violations"] += int(not r.passed)
+    bad = violations(results)
+    print(json.dumps({"claims": {"checked": len(results),
+                                 "violations": len(bad),
+                                 "by_claim": by_claim}}), flush=True)
+    for r in bad:
+        rec = r.record
+        print(json.dumps({"violation": r.claim, "kernel": rec.kernel,
+                          "engine": rec.engine, "size": rec.size,
+                          "dtype": rec.dtype, "detail": r.detail}),
+              flush=True)
+        failures.append(f"claim {r.claim} violated by {rec.kernel}/"
+                        f"{rec.engine}/{rec.size}/{rec.dtype}: {r.detail}")
+    # per family and engine: records, claims, and the STREAM points'
+    # engine medians beside their share of the byte bound
+    summary = {}
+    for rs in sets:
+        for rec in rs.records:
+            key = f"{rec.kernel}/{rec.engine}"
+            s = summary.setdefault(key, {"records": 0, "l2_resident": 0,
+                                         "claims": 0, "violations": 0,
+                                         "stream": []})
+            s["records"] += 1
+            s["l2_resident"] += int(bool(rec.l2_resident))
+            if not rec.l2_resident:
+                s["stream"].append({
+                    "size": rec.size, "dtype": rec.dtype,
+                    "us_per_call": rec.us_per_call, "iqr_us": rec.iqr_us,
+                    "profiler_device_us": rec.profiler_device_us,
+                    "ref_us_per_call": rec.ref_us_per_call,
+                    "bound_share": rec.bound_share(hw.mem_bw),
+                    "pct_of_bound_traits":
+                        dict(rec.trace or {}).get("roofline", {}).get(
+                            "pct_of_bound"),
+                    "max_err": rec.max_err})
+    for r in results:
+        s = summary[f"{r.record.kernel}/{r.record.engine}"]
+        s["claims"] += 1
+        s["violations"] += int(not r.passed)
+    print(json.dumps({"records": n_records, "dir": "build/runs_torch",
+                      "hw_model": hw.name, "sweep_s": sweep_s,
+                      "by_kernel": summary, "card": card}), flush=True)
+
+    # the tracer's cost on one elementwise STREAM point
+    op = registry.get("scale")
+    pt = next(bench_kernels.stream_points(op, np.random.default_rng(SEED),
+                                          "cuda"))
+    overhead = bench_kernels.tracer_overhead(op, pt.args, pt.kwargs,
+                                             "vector")
+    print(json.dumps({"trace_overhead": dict(
+        overhead, point=f"scale/vector/{pt.dtype}/n={pt.size}", card=card)}),
+        flush=True)
+    return launches
 
 
 def _dmma_floor_ms(args, kw, hw):

@@ -13,14 +13,23 @@ framework into kernel launches.
 the hand-written kernel and needs tensors on the card; ``"plain"`` runs
 the kernel's plain PyTorch version and needs tensors on the CPU.  A
 mismatch raises; nothing falls back.
+
+When the :mod:`repro_torch.obs` tracer is enabled, ``Dispatcher.run``
+wraps each call in a ``dispatch`` span with a nested ``launch`` span that
+waits for the result and carries the Eq. 2/3/4 roofline counters.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Callable, Dict, Hashable, Mapping, Optional
 
 import torch
 
+from ..obs.counters import roofline_sample
+from ..obs.log import LOG
+from ..obs.metrics import REGISTRY
+from ..obs.trace import TRACER
 from .advisor import DEFAULT_ADVISOR, Advice, EngineAdvisor
 from .intensity import KernelTraits
 
@@ -193,7 +202,26 @@ class Dispatcher:
 
         An explicit ``tile_config`` overrides per-call kwargs it collides
         with; its keys are validated against the op's ``tile_space``.
+
+        When the :mod:`repro_torch.obs` tracer is enabled, the call is
+        wrapped in a ``dispatch`` span (routing) with a nested ``launch``
+        span around the engine body; the launch span waits for the result
+        (``torch.cuda.synchronize()`` for card tensors) and carries the
+        roofline counters for the measured time.  Disabled tracing costs
+        one attribute check.
         """
+        if not TRACER.enabled:
+            return self._run(op, *args, engine=engine, backend=backend,
+                             tile_config=tile_config, **kwargs)
+        with TRACER.span("dispatch", layer="dispatch",
+                         kernel=op.name) as span_attrs:
+            return self._run(op, *args, engine=engine, backend=backend,
+                             tile_config=tile_config,
+                             _span_attrs=span_attrs, **kwargs)
+
+    def _run(self, op, *args, engine: str, backend: str,
+             tile_config: Optional[Mapping[str, int]],
+             _span_attrs: Optional[Dict[str, Any]] = None, **kwargs):
         semantic = {k: v for k, v in kwargs.items()
                     if k not in op.tile_space}
         eng = self.resolve(op, *args, engine=engine, **semantic)
@@ -211,7 +239,30 @@ class Dispatcher:
                     f"parameter(s) {unknown}; its tile space is "
                     f"{sorted(op.tile_space) or 'empty'}")
             kwargs = {**kwargs, **cfg}
-        return fn(*args, backend=backend, **kwargs)
+        if _span_attrs is None:
+            return fn(*args, backend=backend, **kwargs)
+        # traced launch: wait for the result so the span duration is the
+        # call's real time, then attach the roofline counters
+        dtype = _dtype_of(args, kwargs) or ""
+        _span_attrs.update(engine=eng, dtype=dtype)
+        with TRACER.span("launch", layer="dispatch", kernel=op.name,
+                         engine=eng, dtype=dtype) as launch_attrs:
+            t0 = time.perf_counter()
+            out = fn(*args, backend=backend, **kwargs)
+            if backend == "cuda":
+                torch.cuda.synchronize()
+            dur_us = (time.perf_counter() - t0) * 1e6
+            try:
+                sample = roofline_sample(op.traits(*args, **semantic),
+                                         self.hw, eng, dtype, dur_us)
+                launch_attrs.update(sample.as_attrs())
+                REGISTRY.counter("dispatch.launches").inc()
+                REGISTRY.histogram(
+                    f"dispatch.launch_us.{op.name}.{eng}").observe(dur_us)
+            except (TypeError, ValueError) as e:
+                LOG.debug("roofline counters unavailable",
+                          kernel=op.name, engine=eng, error=str(e))
+        return out
 
     def cache_info(self) -> Dict[str, int]:
         """Advice-cache statistics: {size, hits, misses}."""

@@ -6,6 +6,13 @@ time of the launches between them, not the host's enqueue time.  CPU
 work is timed with ``perf_counter``.  Which clock applies follows from
 where the arguments live or, for a function of no tensor argument (a
 closure), from where the first timed call's result lives.
+
+When the :mod:`repro_torch.obs` tracer is enabled, every timed iteration
+is also emitted as a wall-clock span *after* the measurement loop,
+carrying its sample verbatim: on the card the span starts at the host
+``perf_counter`` reading taken where the iteration's start event was
+recorded and lasts the CUDA-event sample.  Nothing is added inside the
+timed loop, and the span median equals ``Timing.median_us``.
 """
 from __future__ import annotations
 
@@ -14,6 +21,8 @@ import time
 from typing import Any, Callable, List, NamedTuple, Tuple
 
 import torch
+
+from ..obs.trace import TRACER
 
 __all__ = ["Timing", "busy_us", "device_busy_us", "time_fn"]
 
@@ -61,20 +70,19 @@ def time_fn(fn: Callable, *args, warmup: int = 2, iters: int = 5,
     """Per-call time statistics of ``fn(*args)`` in microseconds.
 
     The reference's signature: ``warmup`` untimed calls (0 allowed), then
-    ``iters`` timed ones.  *label* / *layer* / extra keywords name the
-    spans of a tracer and are never passed to ``fn``; until the port has
-    one they affect nothing.  Pass keyword arguments of ``fn`` through a
-    closure.
+    ``iters`` timed ones.  *label* / *layer* / extra keywords only name
+    the spans emitted when the obs tracer is on; they are never passed to
+    ``fn`` and never affect the measurement.  Pass keyword arguments of
+    ``fn`` through a closure.
     """
-    del label, layer, span_attrs
     for _ in range(warmup):
         fn(*args)
     # card or host: from the arguments, else from the first timed call
     card = _on_card(args) if _has_tensor(args) else None
     if card is not False and torch.cuda.is_available():
         torch.cuda.synchronize()
-    samples: List[float] = []
-    pairs = []
+    # (host start, host seconds, CUDA event pair or None) per iteration
+    runs = []
     for _ in range(iters):
         events = None
         if card is not False and torch.cuda.is_available():
@@ -88,13 +96,18 @@ def time_fn(fn: Callable, *args, warmup: int = 2, iters: int = 5,
             events[1].record()
         if card is None:
             card = _on_card(out)
-        if card:
-            pairs.append(events)
-        else:
-            samples.append(dt * 1e6)
-    if pairs:
+        runs.append((t0, dt, events))
+    if card:
         torch.cuda.synchronize()
-        samples = [s.elapsed_time(e) * 1e3 for s, e in pairs]
+        samples = [s.elapsed_time(e) * 1e3 for _, _, (s, e) in runs]
+    else:
+        samples = [dt * 1e6 for _, dt, _ in runs]
+    if TRACER.enabled:
+        # emitted after the loop so tracing adds nothing inside the timed
+        # region; each span carries its sample verbatim
+        for i, ((t0, _, _), us) in enumerate(zip(runs, samples)):
+            TRACER.emit(label, layer=layer, start_s=t0, dur_s=us * 1e-6,
+                        iter=i, **span_attrs)
     times = sorted(samples)
     return Timing(median_us=_quantile(times, 0.5),
                   iqr_us=_quantile(times, 0.75) - _quantile(times, 0.25),
