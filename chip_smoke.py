@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
 """Drive the PyTorch / H100 port's main path on one NVIDIA card.
 
-Two paths, through the port's public entry points.  The paper's
+Three paths, through the port's public entry points.  The paper's
 experiment: every kernel family (SCALE, STREAM Triad, AXPY, block-ELL
 SpMV, Table-3 stencils, flash-decode attention) is classified by the §6
 advisor, launched on the CUDA-core (vector) and the tensor-core (matrix)
 kernel, timed with CUDA events, and its measured matrix/vector time
-ratio printed beside the Eq. 23 ceiling.  LM decode serving:
-Mistral-NeMo-12B at full width and depth (random float32 weights from a
-seed) answers a few requests, every layer's decode attention through the
-flash-decode kernel.
+ratio printed beside the Eq. 23 ceiling.  Kernel serving: seeded
+traffic of each family through the continuous-batching scheduler, the
+elementwise requests packed into one launch per batch.  LM decode
+serving: Mistral-NeMo-12B at full width and depth (random float32
+weights from a seed) serves seeded traffic through the same scheduler,
+every layer's decode attention through the flash-decode kernel.
 
     python3 chip_smoke.py
 
@@ -44,11 +46,32 @@ Phases, each fatal on failure:
      violation, or a set that fails to load, is fatal); the tracer's
      overhead on one elementwise STREAM point (median captured against
      median without);
-  7. LM decode serving, once per flash-decode engine: launch counts reset
-     before the requests and read after them (exactly one launch per
-     layer and decode step), one teacher-forced decode step held against
-     the plain dense-attention path, prefill and per-step times;
-  8. one JSON line of per-kernel numbers, then the result line.
+  7. kernel serving: one repro_torch.serving.run_session per family and
+     engine on the card, at STREAM size (SCALE / Triad / AXPY requests of
+     2^23 float32 elements, Poisson 4000 req/s, so a full batch of 8
+     packs to phase 4's 2^26; SpMV, 2d5pt and float32 flash-decode
+     requests at their STREAM points, Poisson 200 req/s; 0.5 virtual s,
+     max_wait 20 ms, seed 0): launch counts reset before each session and
+     read after it, held against the log (a packed family launches once
+     per batch plus one warm-up, the others once per request plus one
+     warm-up); one formed batch's packed output, and a batch of three
+     ragged requests, sliced per request and held bit for bit against
+     the kernel on each request's own input, the padding zero; one JSON
+     line per session; build/runs_torch/BENCH_serve_<kernel>.json
+     written, loaded back and verified with check_records (a violation
+     is fatal); a packed batch's compute time inside and outside a trace
+     capture;
+  8. LM decode serving, once per flash-decode engine, through run_session
+     (the reference's serve --workload lm traffic: Poisson 8 req/s for 1
+     virtual s, max_batch 4, max_wait 20 ms, seed 0): launch counts reset
+     before the session and read after it (one launch per layer and
+     decode step of each logged batch and of the warm-up), one
+     teacher-forced decode step held against the plain dense-attention
+     path, prefill and per-step times; BENCH_serve_lm-mistral-nemo-12b.json
+     written and verified, the model verdict at full width included;
+  9. repro_torch.bench.compare with build/runs_torch as both baseline and
+     candidate, which must pass;
+ 10. one JSON line of per-kernel numbers, then the result line.
 
 Exits non-zero, printing no result, without a card or without the
 repository's sources beside this file.
@@ -102,9 +125,17 @@ SOURCE = {
     "scale": "elementwise", "triad": "elementwise", "axpy": "elementwise",
     "spmv": "spmv", "stencil": "stencil", "attention": "attention",
 }
+#: The serving phase: one session per family and engine, Poisson traffic.
+#: Elementwise requests of 2^23 float32 elements, so a full batch of 8
+#: packs to phase 4's 2^26; the other families at their STREAM points.
+PACKED = ("scale", "triad", "axpy")
+SERVE_ELEMENTWISE, SERVE_ELEMENTWISE_RPS, SERVE_OTHER_RPS = 2**23, 4000.0, 200.0
+SERVE_MAX_BATCH, SERVE_MAX_WAIT_S, SERVE_DURATION_S = 8, 0.02, 0.5
 #: The LM decode phase: Mistral-NeMo-12B, full width and depth, float32.
 MODEL = "mistral-nemo-12b"
 MODEL_BATCH, PROMPT_LEN, MAX_GEN = 4, 496, 16
+#: Its traffic: the reference's ``serve --workload lm`` defaults.
+LM_RPS, LM_DURATION_S, LM_SLO_MS = 8.0, 1.0, 30000.0
 
 
 class SmokeFailure(RuntimeError):
@@ -550,10 +581,30 @@ def main() -> int:
     sweep_launches = _records_phase(torch, hw, card, failures)
     torch.cuda.empty_cache()
 
-    # -- 7. LM decode serving at full width ----------------------------------
+    # -- 7. kernel serving through the scheduler ----------------------------
+    # phase 4's float32 medians (the 2d5pt one for the stencils), beside
+    # which each serving session prints its compute p50
+    stream_ms = {}
+    for r in rows:
+        if r["dtype"] == "float32":
+            stream_ms.setdefault(r["name"], r["t"].median_us / 1e3)
+    serving_launches = _serving_phase(torch, card, failures, stream_ms)
+    torch.cuda.empty_cache()
+
+    # -- 8. LM decode serving at full width through the scheduler ------------
     model_launches = _model_phase(torch, hw, card, failures)
 
-    # -- 8. the per-kernel line ----------------------------------------------
+    # -- 9. the compare gate ---------------------------------------------------
+    from repro_torch.bench import compare
+    runs = str(ROOT / "build" / "runs_torch")
+    gate_rc = compare.main([runs, runs])
+    print(json.dumps({"compare": {"baseline": "build/runs_torch",
+                                  "candidate": "build/runs_torch",
+                                  "rc": gate_rc}}), flush=True)
+    if gate_rc != 0:
+        failures.append(f"compare gate on build/runs_torch: rc {gate_rc}")
+
+    # -- 10. the per-kernel line ---------------------------------------------
     kernels = []
     for r in rows:
         entry = {
@@ -562,6 +613,7 @@ def main() -> int:
             "replaces": REPLACES[r["op"]],
             "launches": launches.get(r["name"], 0),
             "sweep_launches": sweep_launches.get(r["name"], 0),
+            "serving_launches": serving_launches.get(r["name"], 0),
             "max_abs_err": r["err"],
             "ms": r["t"].median_us / 1e3,
             "plain_ms": r["plain"].median_us / 1e3,
@@ -591,20 +643,235 @@ def main() -> int:
     return 0
 
 
+def _serving_phase(torch, card, failures, stream_ms):
+    """Every family serves seeded traffic through run_session on the card.
+
+    Per family, one session per engine on the same inputs; the launch
+    counts of each session are held against its log, and the records
+    written to build/runs_torch and verified.  Returns the launches per
+    kernel ("scale_vector", ...) of its own session.
+    """
+    import numpy as np
+
+    from repro_torch.bench.bench_kernels import stream_points
+    from repro_torch.bench.common import bench_env, write_serving_json
+    from repro_torch.core.dispatch import DEFAULT_DISPATCHER
+    from repro_torch.kernels import _ext, registry
+    from repro_torch.obs.trace import TRACER
+    from repro_torch.report import check_records, load_file, violations
+    from repro_torch.serving import (BatchPolicy, KernelBatchExecutor,
+                                     SessionConfig, run_session)
+
+    out_dir = str(ROOT / "build" / "runs_torch")
+    env = bench_env("cuda", DEFAULT_DISPATCHER.hw.name)
+    policy = BatchPolicy(max_batch=SERVE_MAX_BATCH,
+                         max_wait_s=SERVE_MAX_WAIT_S)
+    launches, by_claim, t_phase = {}, {}, time.perf_counter()
+    gc_pauses = _GcPauses()
+    for name in STREAM_ORDER:
+        op = registry.get(name)
+        rng = np.random.default_rng(SEED)
+        if name in PACKED:
+            size, rate = SERVE_ELEMENTWISE, SERVE_ELEMENTWISE_RPS
+            args, kw = op.make_inputs(rng, size, "float32", "cuda")
+        else:
+            # the family's float32 STREAM point (the 2d5pt one)
+            pt = next(stream_points(op, rng, "cuda"))
+            size, rate, args, kw = (pt.size, SERVE_OTHER_RPS, pt.args,
+                                    pt.kwargs)
+        records = []
+        for engine in ("vector", "matrix"):
+            other = "matrix" if engine == "vector" else "vector"
+            ex = KernelBatchExecutor(engine, max_batch=SERVE_MAX_BATCH,
+                                     seed=SEED)
+            ex.use_inputs(name, size, "float32", args, kw)
+            cfg = SessionConfig(kernel=name, workload="poisson",
+                                engine=engine, rate_rps=rate,
+                                duration_s=SERVE_DURATION_S, size=size,
+                                seed=SEED, policy=policy)
+            torch.cuda.synchronize()
+            _ext.reset_launches()
+            events_before = len(TRACER.events)
+            gc_pauses.reset()
+            t0 = time.perf_counter()
+            log, summary, record = run_session(cfg, executor=ex)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            counts = dict(_ext.LAUNCHES)
+            got = counts.get(f"{name}_{engine}", 0)
+            launches[f"{name}_{engine}"] = got
+            # one warm-up launch per session: every request has one size,
+            # so every packed batch has one capacity
+            want = (len(log.batches) if name in PACKED
+                    else log.completed) + 1
+            tag = f"serving/{name}/{engine}"
+            if got != want or counts.get(f"{name}_{other}", 0):
+                failures.append(f"{tag}: {got} {engine} and "
+                                f"{counts.get(f'{name}_{other}', 0)} {other} "
+                                f"launches, expected {want} and 0")
+            if log.completed != log.offered or record["engine"] != engine:
+                failures.append(f"{tag}: {log.completed}/{log.offered} "
+                                f"served, engine {record['engine']}")
+            print(json.dumps({
+                "phase": "serving", "kernel": name, "engine": engine,
+                "engine_auto": record["engine_auto"], "size": size,
+                "rate_rps": rate, "offered": log.offered,
+                "completed": log.completed, "batches": summary.batches,
+                "mean_batch": summary.mean_batch, "p50_ms": summary.p50_ms,
+                "p99_ms": summary.p99_ms,
+                "compute_p50_ms": summary.compute_p50_ms,
+                "compute_p99_ms": summary.compute_p99_ms,
+                "compute_max_ms": max(b[4] for b in log.batches) * 1e3,
+                "stream_median_ms": stream_ms.get(f"{name}_{engine}"),
+                "goodput_rps": summary.goodput_rps,
+                "slo_attainment": summary.slo_attainment,
+                "launches": got, "wall_s": wall_s,
+                "tracer_events_before": events_before,
+                "gc_full_collections": len(gc_pauses.ms),
+                "gc_full_max_ms": max(gc_pauses.ms, default=0.0),
+                "card": card}),
+                flush=True)
+            records.append(record)
+            if name in PACKED:
+                _packed_checks(torch, op, ex, log, engine, args, size, tag,
+                               failures)
+            if name == "scale" and engine == "vector":
+                _trace_cost(ex, log, card)
+            del ex, log
+        path = write_serving_json(name, records, out_dir, env=env)
+        del args, kw
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        try:
+            results = check_records([load_file(path)])
+        except (OSError, ValueError, NotImplementedError) as exc:
+            failures.append(f"serving records of {name}: {exc}")
+            continue
+        for r in results:
+            c = by_claim.setdefault(r.claim, {"checked": 0,
+                                              "violations": 0})
+            c["checked"] += 1
+            c["violations"] += int(not r.passed)
+        for r in violations(results):
+            failures.append(f"serving claim {r.claim} violated by "
+                            f"{r.record.kernel}/{r.record.engine}: "
+                            f"{r.detail}")
+    gc_pauses.close()
+    print(json.dumps({"serving_claims": by_claim,
+                      "phase_s": time.perf_counter() - t_phase,
+                      "card": card}), flush=True)
+    return launches
+
+
+class _GcPauses:
+    """Durations (ms) of the interpreter's full (generation 2) garbage
+    collections since the last reset: a host pause inside a timed batch
+    shows in its compute time."""
+
+    def __init__(self):
+        import gc
+        self.ms, self._t0 = [], None
+        gc.callbacks.append(self._on_gc)
+
+    def _on_gc(self, phase, info):
+        if info.get("generation") != 2:
+            return
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.ms.append((time.perf_counter() - self._t0) * 1e3)
+            self._t0 = None
+
+    def reset(self):
+        self.ms = []
+
+    def close(self):
+        import gc
+        gc.callbacks.remove(self._on_gc)
+
+
+def _packed_checks(torch, op, ex, log, engine, args, size, tag, failures):
+    """The packed launch, sliced per request, bit for bit against the
+    kernel on each request's own input, the padding zero: for the first
+    formed batch of the session, and for three ragged requests with
+    inputs of their own."""
+    import numpy as np
+
+    from repro_torch.serving import Request
+
+    first = [r.request for r in log.results if r.batch_id == 0]
+    own = {size: op(*args, engine=engine)}
+    ragged = []
+    rng = np.random.default_rng(SEED + 1)
+    for i, n in enumerate((size - 3, 1000, 8)):
+        a, kw = op.make_inputs(rng, n, "float32", "cuda")
+        ex.use_inputs(op.name, n, "float32", a, kw)
+        own[n] = op(*a, engine=engine, **kw)
+        ragged.append(Request(rid=i, kernel=op.name, arrival_s=0.0, size=n))
+    for label, batch in (("first batch", first), ("ragged batch", ragged)):
+        out, sizes = ex.packed_call(batch)
+        torch.cuda.synchronize()
+        off = 0
+        for n in sizes:
+            if not torch.equal(out[off:off + n], own[n]):
+                failures.append(f"{tag}: {label}, request of {n} at "
+                                f"{off}: packed output differs from the "
+                                f"kernel on its own input")
+            off += n
+        if bool((out[off:] != 0).any()):
+            failures.append(f"{tag}: {label}: padding not zero")
+
+
+def _trace_cost(ex, log, card):
+    """A packed batch's compute time inside and outside a trace capture,
+    20 executions each, twice in turns: the traced launch span
+    synchronizes and computes a roofline sample inside the timed
+    window."""
+    import numpy as np
+
+    from repro_torch.obs.trace import capture
+
+    batch = [r.request for r in log.results if r.batch_id == 0]
+    times = {False: [], True: []}
+    for traced in (False, True, False, True):
+        if traced:
+            with capture():
+                times[True] += [ex.execute(batch).compute_s
+                                for _ in range(20)]
+        else:
+            times[False] += [ex.execute(batch).compute_s for _ in range(20)]
+    untraced = float(np.median(times[False])) * 1e3
+    traced = float(np.median(times[True])) * 1e3
+    print(json.dumps({"phase": "serving_trace_cost", "kernel": "scale",
+                      "engine": "vector", "batch": len(batch),
+                      "untraced_compute_ms": untraced,
+                      "traced_compute_ms": traced,
+                      "traced_minus_untraced_ms": traced - untraced,
+                      "calls": len(times[False]), "card": card}),
+          flush=True)
+
+
 def _model_phase(torch, hw, card, failures):
-    """Mistral-NeMo-12B serves requests, once per flash-decode engine.
+    """Mistral-NeMo-12B serves seeded traffic through run_session, once
+    per flash-decode engine.
 
     Full width and depth (40 layers, d_model 5120, 32 query heads over 8
     KV heads), random float32 weights from SEED: about 49 GB on the card.
-    Returns the flash-decode launches of the request run, per kernel.
+    The two sessions' records are written to build/runs_torch and
+    verified.  Returns the flash-decode launches of the sessions, per
+    kernel.
     """
+    from repro_torch.bench.common import bench_env, write_serving_json
     from repro_torch.configs import get_arch
+    from repro_torch.core.dispatch import DEFAULT_DISPATCHER
     from repro_torch.core.timing import busy_us
     from repro_torch.kernels import _ext
     from repro_torch.models.advisor_map import step_traits
     from repro_torch.models.engine import DecodeEngine
+    from repro_torch.report import check_records, load_file, violations
+    from repro_torch.serving import (SLO, BatchPolicy, PoissonLoadGen,
+                                     SessionConfig, run_session)
     from repro_torch.serving.lm import LMDecodeExecutor
-    from repro_torch.serving.requests import LM_DECODE, Request
 
     cfg = get_arch(MODEL)
     steps = MAX_GEN - 1                 # decode steps per generation
@@ -618,48 +885,77 @@ def _model_phase(torch, hw, card, failures):
           f" heads, head_dim {cfg.head_dim}, {cfg.param_count() / 1e9:.2f} B"
           f" float32 parameters), batch {MODEL_BATCH}, prompt {PROMPT_LEN}, "
           f"{MAX_GEN} tokens, cache {max_len}", flush=True)
-    requests = [Request(rid=i, kernel=LM_DECODE, arrival_s=0.0, size=MAX_GEN)
-                for i in range(7)]
-    launches, tokens = {}, {}
+    kernel = f"lm-{cfg.name}"
+    launches, tokens, records = {}, {}, []
     for engine in ("vector", "matrix"):
         other = "matrix" if engine == "vector" else "vector"
         t0 = time.perf_counter()
         ex = LMDecodeExecutor(cfg, max_batch=MODEL_BATCH,
                               prompt_len=PROMPT_LEN, max_gen=MAX_GEN,
-                              dtype=torch.float32, seed=SEED, engine=engine)
+                              dtype=torch.float32, seed=SEED, engine=engine,
+                              verdict_cfg=cfg)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         mem_gb = torch.cuda.memory_allocated() / 1e9
-        # the main path: two formed batches, 4 requests and 3 padded to 4;
-        # the first execute also runs one untimed warm-up generation
+        # the main path: the reference's serve --workload lm traffic
+        # through the scheduler; the first batch also runs one untimed
+        # warm-up generation
+        session = SessionConfig(
+            kernel=kernel, workload="lm", engine=engine, rate_rps=LM_RPS,
+            duration_s=LM_DURATION_S, size=MAX_GEN, seed=SEED,
+            policy=BatchPolicy(max_batch=MODEL_BATCH,
+                               max_wait_s=SERVE_MAX_WAIT_S),
+            slo=SLO(latency_ms=LM_SLO_MS))
+        source = PoissonLoadGen(kernel=kernel, rate_rps=LM_RPS,
+                                size=MAX_GEN, seed=SEED)
         _ext.reset_launches()
-        labels = [ex.execute(requests[:4]).engine]
-        first = _ext.LAUNCHES[f"attention_{engine}"]
-        labels.append(ex.execute(requests[4:]).engine)
+        t0 = time.perf_counter()
+        log, summary, record = run_session(session, executor=ex,
+                                           source=source)
         torch.cuda.synchronize()
+        session_s = time.perf_counter() - t0
         counts = dict(_ext.LAUNCHES)
         launches[f"attention_{engine}"] = counts.get(f"attention_{engine}", 0)
         launches.setdefault(f"attention_{other}", 0)
-        if first != 2 * per_gen or \
-                launches[f"attention_{engine}"] != 3 * per_gen:
+        want = (len(log.batches) + 1) * per_gen
+        if launches[f"attention_{engine}"] != want:
             failures.append(
-                f"model/{engine}: {first} then "
-                f"{launches[f'attention_{engine}']} flash-decode launches, "
-                f"expected {2 * per_gen} then {3 * per_gen} (one per layer "
-                f"and decode step)")
+                f"model/{engine}: {launches[f'attention_{engine}']} "
+                f"flash-decode launches for {len(log.batches)} batches, "
+                f"expected {want} (one per layer and decode step of each "
+                f"batch and of the warm-up)")
         if counts.get(f"attention_{other}", 0):
             failures.append(f"model/{engine}: the {other} kernel ran "
                             f"{counts[f'attention_{other}']} times")
-        if labels != [engine, engine]:
-            failures.append(f"model/{engine}: batches report {labels}")
-        extras = ex.record_extras()["phases"]
+        if record["engine"] != engine or log.completed != log.offered:
+            failures.append(f"model/{engine}: engine {record['engine']}, "
+                            f"{log.completed}/{log.offered} served")
+        records.append(record)
+        extras = record["phases"]
         per_step_ms = extras["per_step_ms"]
         prefill_ms = extras["prefill_ms"] / extras["launches"]
+        print(json.dumps({
+            "phase": "model_serving", "kernel": kernel, "engine": engine,
+            "offered": log.offered, "completed": log.completed,
+            "batches": summary.batches, "mean_batch": summary.mean_batch,
+            "p50_ms": summary.p50_ms, "p99_ms": summary.p99_ms,
+            "queue_p50_ms": summary.queue_p50_ms,
+            "compute_p50_ms": summary.compute_p50_ms,
+            "goodput_rps": summary.goodput_rps,
+            "slo_attainment": summary.slo_attainment,
+            "per_step_ms": per_step_ms, "prefill_ms": prefill_ms,
+            "memory_bound_time_frac":
+                record["verdict"]["memory_bound_time_frac"],
+            "flash_decode_launches": launches[f"attention_{engine}"],
+            "session_s": session_s, "card": card}), flush=True)
 
         # greedy tokens of the main path's prompt batch
         eng = ex.engine
         batch = eng.make_prompt_batch(seed=SEED)
         result = eng.generate(batch)
+        # the same generation outside the session's trace capture, where
+        # no launch span synchronizes
+        untraced_step_ms = result.per_step_s * 1e3
         tokens[engine] = result.tokens.cpu()
         if tuple(result.tokens.shape) != (MODEL_BATCH, MAX_GEN) or \
                 not bool(torch.isfinite(result.logits).all()):
@@ -720,6 +1016,7 @@ def _model_phase(torch, hw, card, failures):
             "prompt_len": PROMPT_LEN, "max_gen": MAX_GEN,
             "init_s": init_s, "weights_gb": mem_gb,
             "prefill_ms": prefill_ms, "per_step_ms": per_step_ms,
+            "untraced_per_step_ms": untraced_step_ms,
             "step_bytes": step_bytes, "step_bound_ms": step_bound_ms,
             "step_bound_share": step_bound_ms / per_step_ms,
             "device_busy_share": (device_ms / profiled_ms if measured
@@ -733,12 +1030,34 @@ def _model_phase(torch, hw, card, failures):
         }
         print(json.dumps(line), flush=True)
         del ex, eng, dense, batch, logits, caches, twin, got, want, tok, prof
+        del log
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
     agree = (tokens["vector"] == tokens["matrix"]).float().mean().item()
     print(f"model: greedy tokens agree between the vector and matrix "
           f"flash-decode engines on {agree:.1%} of {tokens['vector'].numel()} "
           f"positions", flush=True)
+    path = write_serving_json(kernel, records, str(ROOT / "build" /
+                                                   "runs_torch"),
+                              env=bench_env("cuda", DEFAULT_DISPATCHER.hw.name))
+    try:
+        results = check_records([load_file(path)])
+    except (OSError, ValueError, NotImplementedError) as exc:
+        failures.append(f"model records: {exc}")
+        return launches
+    by_claim = {}
+    for r in results:
+        c = by_claim.setdefault(r.claim, {"checked": 0, "violations": 0})
+        c["checked"] += 1
+        c["violations"] += int(not r.passed)
+        if r.claim in ("model_verdict", "trace_reconciliation"):
+            print(json.dumps({"claim": r.claim, "engine": r.record.engine,
+                              "passed": r.passed, "detail": r.detail}),
+                  flush=True)
+    print(json.dumps({"model_claims": by_claim}), flush=True)
+    for r in violations(results):
+        failures.append(f"model claim {r.claim} violated by "
+                        f"{r.record.kernel}/{r.record.engine}: {r.detail}")
     return launches
 
 

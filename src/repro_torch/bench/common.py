@@ -1,7 +1,9 @@
 """Shared benchmark utilities: CSV rows, JSON record files, environment.
 
 Record files written here are the input to the claims layer
-(``repro_torch.report``): schema-versioned ``BENCH_<kernel>.json`` with
+(``repro_torch.report``) and the compare gate
+(``repro_torch.bench.compare``): schema-versioned ``BENCH_<kernel>.json``
+sweeps and ``BENCH_serve_<kernel>.json`` serving sessions, with
 environment metadata.
 """
 from __future__ import annotations
@@ -18,8 +20,9 @@ import torch
 # one implementation for the sweep and every other timing consumer
 from ..core.timing import Timing, time_fn
 
-__all__ = ["SCHEMA_VERSION", "Timing", "bench_env", "card_line", "emit",
-           "time_fn", "write_json"]
+__all__ = ["SCHEMA_VERSION", "SERVING_SCHEMA_VERSION", "Timing",
+           "bench_env", "card_line", "emit", "time_fn", "write_json",
+           "write_serving_json"]
 
 #: Version of the BENCH_<kernel>.json file format: the reference's schema
 #: 7 (schema 2 wraps records with environment metadata, 3 adds
@@ -28,6 +31,13 @@ __all__ = ["SCHEMA_VERSION", "Timing", "bench_env", "card_line", "emit",
 #: schema-7 reader ignores (``us_per_call``, ``profiler_device_us``,
 #: ``bound_bytes``, ``l2_resident``, ``pred_us``).
 SCHEMA_VERSION = 7
+
+#: Version of the serving record file format (``BENCH_serve_*.json``):
+#: the reference's schema 5, a ``"kind": "serving"`` set of session
+#: summaries from ``repro_torch.serving.metrics.serving_record`` with the
+#: per-record ``trace`` block (serving files are told apart from bench
+#: schema 5 by their ``kind`` marker, not the number).
+SERVING_SCHEMA_VERSION = 5
 
 
 def emit(rows: List[dict], out: Optional[TextIO] = None) -> None:
@@ -69,6 +79,20 @@ def bench_env(device: str, hw_model: str) -> dict:
     }
 
 
+def _write_record_file(filename: str, kernel: str, schema: int,
+                       records: List[dict], out_dir: str, env: dict,
+                       extra: Optional[dict] = None) -> str:
+    """The one serialization convention every record file shares."""
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, filename)
+    payload = {"schema": schema, "kernel": kernel, "env": env,
+               "records": records, **(extra or {})}
+    with open(path, "w") as f:
+        json.dump(payload, f, indent=2, sort_keys=True)
+        f.write("\n")
+    return path
+
+
 def write_json(kernel: str, records: List[dict], out_dir: str,
                env: dict) -> str:
     """Write one kernel's sweep records to ``out_dir/BENCH_<kernel>.json``.
@@ -76,11 +100,22 @@ def write_json(kernel: str, records: List[dict], out_dir: str,
     ``{"schema": 7, "kernel": ..., "env": {...}, "records": [...]}`` with
     one record per (engine, size, dtype) sweep point, sorted keys.
     """
-    os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, f"BENCH_{kernel}.json")
-    payload = {"schema": SCHEMA_VERSION, "kernel": kernel, "env": env,
-               "records": records}
-    with open(path, "w") as f:
-        json.dump(payload, f, indent=2, sort_keys=True)
-        f.write("\n")
-    return path
+    return _write_record_file(f"BENCH_{kernel}.json", kernel,
+                              SCHEMA_VERSION, records, out_dir, env)
+
+
+def write_serving_json(kernel: str, records: List[dict], out_dir: str,
+                       env: dict) -> str:
+    """Write one kernel's serving sessions to
+    ``out_dir/BENCH_serve_<kernel>.json``.
+
+    ``{"schema": 5, "kind": "serving", "kernel": ..., "env": {...},
+    "records": [...]}`` with one record per (engine, workload, size,
+    dtype) session, consumed by ``repro_torch.report`` and gated on
+    p99/goodput by ``repro_torch.bench.compare``.  The reference's mesh
+    and ``_online`` file names wait with their sessions (ROADMAP Queue 1
+    items 12-13).
+    """
+    return _write_record_file(f"BENCH_serve_{kernel}.json", kernel,
+                              SERVING_SCHEMA_VERSION, records, out_dir, env,
+                              extra={"kind": "serving"})

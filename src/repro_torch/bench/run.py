@@ -2,11 +2,14 @@
 
     python -m repro_torch.bench [bounds|roofline|kernels|<kernel>] [--out DIR]
         [--trace FILE] [--verbose] [--stream] [--device cpu]
+    python -m repro_torch.bench serve [--workload lm] [--device cpu] ...
 
   bounds         -- Table 1 + Eq. 14/23/24 (theory)
   roofline       -- Fig. 2 (two-ceiling roofline placements)
   kernels        -- every registered kernel x engine x size x dtype
   <kernel name>  -- one registered kernel (e.g. ``scale``, ``triad``)
+  serve          -- request-level serving sessions (see
+                    :mod:`repro_torch.bench.serve` for its flags)
 
 Prints ``name,us_per_call,derived`` CSV rows; kernel sweeps also write
 ``DIR/BENCH_<kernel>.json`` (default ``build/runs_torch``).  Sweeps run on
@@ -18,9 +21,8 @@ every span of the sweep as Chrome-trace JSON.  ``--verbose`` raises the
 structured logger to info.
 
 Not ported yet, and refused with a message naming the ROADMAP item:
-``tune`` (Queue 1 item 12), ``serve`` (item 11), ``report`` (the render
-follow-up of item 8), ``--mesh`` / ``--real`` (item 13) and ``--tuned``
-(item 12).
+``tune`` (Queue 1 item 12), ``report`` (the render follow-up of item 8),
+``--mesh`` / ``--real`` (item 13) and ``--tuned`` (item 12).
 """
 from __future__ import annotations
 
@@ -41,7 +43,6 @@ DEFAULT_OUT = "build/runs_torch"
 #: Reference subcommands and flags the port has no counterpart for yet.
 WAITING_COMMANDS = {
     "tune": "ROADMAP Queue 1 item 12 (tuning)",
-    "serve": "ROADMAP Queue 1 item 11 (serving)",
     "report": "the render follow-up of ROADMAP Queue 1 item 8 "
               "(report/render.py)",
 }
@@ -74,6 +75,9 @@ def _take_switch(argv: List[str], flag: str) -> bool:
 
 def main(argv: Optional[List[str]] = None) -> None:
     argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] == "serve":
+        from . import serve
+        raise SystemExit(serve.main(argv[1:]))
     waiting = [w for w in WAITING_FLAGS if w in argv]
     if argv and argv[0] in WAITING_COMMANDS:
         waiting.insert(0, argv[0])

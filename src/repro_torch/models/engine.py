@@ -159,6 +159,12 @@ class DecodeEngine:
             caches=caches, prefill_s=t1 - t0, decode_s=t2 - t1,
             decode_steps=steps)
 
+    def warmup(self, batch: Optional[Dict] = None) -> None:
+        """Build the kernels and warm the card outside any timed region:
+        one two-token generation (prefill and one decode step)."""
+        self.generate(batch if batch is not None
+                      else self.make_prompt_batch(), gen=2)
+
     # -- checkpointable cache state ---------------------------------------
 
     @staticmethod

@@ -15,26 +15,41 @@ package's rules and detail strings:
 * **boundedness** (Eq. 4) -- the recorded memory-bound flag matches a
   fresh I < B_vector derivation from the recorded intensity.
 
+Serving records (sessions under traffic) get their own claim set
+(:data:`SERVING_CLAIMS`): the Eq. 23/24 **ceiling**, §6 routing and
+Eq. 4 boundedness re-derived exactly as above, plus two
+internal-consistency claims -- latency percentiles non-negative and
+monotone (p50 <= p95 <= p99), and goodput consistent with the
+SLO-attainment and completion accounting.  An lm session's model-scale
+``verdict`` payload passes **model_verdict** (:data:`MODEL_CLAIMS`): every
+per-op row re-derived (Eq. 2 intensity, Eq. 4 boundedness, §6 routing,
+Eq. 23/24 ceiling) and the whole step accounted for.
+
 Records carrying the obs ``trace`` block additionally pass
-**trace_reconciliation** (:data:`TRACE_CLAIMS`): the span count equals
-the timing iterations, the span median equals the recorded median
-within rounding (the span *is* the sample), and the roofline gauge
-re-derives exactly from the record's own traffic, time and hardware
-model.  The recorded median is the engine kernel's ``us_per_call``
-where the record has it (the port's sweep) and the oracle's
-``ref_us_per_call`` otherwise (the reference's records).
+**trace_reconciliation** (:data:`TRACE_CLAIMS`).  For a bench record the
+span count equals the timing iterations, the span median equals the
+recorded median within rounding (the span *is* the sample), and the
+roofline gauge re-derives exactly from the record's own traffic, time
+and hardware model.  The recorded median is the engine kernel's
+``us_per_call`` where the record has it (the port's sweep) and the
+oracle's ``ref_us_per_call`` otherwise (the reference's records).  For a
+serving record the virtual-clock batch spans equal the logged launches,
+one queue span per completed request, and the summed span compute equals
+the log's compute total.
 
 Two differences from the reference, both so that nothing passes
 silently: :func:`hw_for` raises on a hardware model it does not know,
 where the reference falls back to the TPU v5e; and records that need
-claims the port does not have yet (serving sessions, and the mesh fields
-``shard_spec`` / ``mesh_exec``) raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+claims the port does not have yet raise ``NotImplementedError`` naming
+the ROADMAP item that ports them: the mesh fields ``shard_spec`` /
+``mesh_exec`` and sharded sessions (item 13), chaos sessions carrying
+``events`` (the elastic claim, items 13-14) and online-tuned sessions
+carrying ``tuning`` (the online claim, item 12).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterable, List, Sequence, Tuple
+from typing import Dict, Iterable, List, Sequence, Tuple, Union
 
 from ..core.advisor import EngineAdvisor
 from ..core.balance import machine_balance
@@ -42,14 +57,23 @@ from ..core.bounds import tensor_core_upper_bound, workload_upper_bound
 from ..core.hw import PLATFORMS, HardwareSpec
 from ..core.intensity import KernelTraits
 from ..obs.counters import roofline_sample
-from .records import BenchRecord, RecordSet
+from .records import BenchRecord, RecordSet, ServingRecord
 
-__all__ = ["CLAIMS", "ClaimResult", "SAMPLE_CLOCKS", "TOLERANCE",
-           "TRACE_CLAIMS", "ceiling_bound", "check_record",
-           "check_records", "hw_for", "violations"]
+__all__ = ["CLAIMS", "ClaimResult", "MODEL_CLAIMS", "SAMPLE_CLOCKS",
+           "SERVING_CLAIMS", "TOLERANCE", "TRACE_CLAIMS", "ceiling_bound",
+           "check_record", "check_records", "check_serving_record",
+           "hw_for", "violations"]
 
 #: Claim identifiers, in report order.
 CLAIMS = ("ceiling", "routing", "accuracy", "boundedness")
+
+#: Serving-record claim identifiers, in report order.
+SERVING_CLAIMS = ("ceiling", "routing", "boundedness", "percentiles",
+                  "goodput")
+
+#: Extra claim for serving sessions that carry a model-scale verdict
+#: (lm records with a ``verdict`` payload).
+MODEL_CLAIMS = ("model_verdict",)
 
 #: Extra claim for records carrying the observability ``trace`` block:
 #: the tracer's independent account of the measurement reconciles with
@@ -76,19 +100,21 @@ _EPS = 1e-9
 
 #: ROADMAP items that port the claims this module refuses to skip.
 _WAITING = {
-    "serving": "the serving claims wait for ROADMAP Queue 1 item 11 "
-               "(serving)",
     "mesh": "the shard and mesh claims wait for ROADMAP Queue 1 item 13 "
             "(sharding)",
+    "elastic": "the elastic_integrity claim of chaos sessions waits for "
+               "ROADMAP Queue 1 items 13-14 (sharding, runtime)",
+    "online": "the online_ceiling claim of online-tuned sessions waits "
+              "for ROADMAP Queue 1 item 12 (tuning)",
 }
 
 
 @dataclasses.dataclass(frozen=True)
 class ClaimResult:
-    """Outcome of one claim check against one bench record."""
+    """Outcome of one claim check against one bench/serving record."""
 
-    claim: str           # one of CLAIMS / TRACE_CLAIMS
-    record: BenchRecord
+    claim: str           # one of CLAIMS / SERVING_CLAIMS / ...
+    record: Union[BenchRecord, ServingRecord]
     passed: bool
     detail: str          # human-readable evidence string
 
@@ -121,9 +147,12 @@ def ceiling_bound(intensity: float, hw: HardwareSpec) -> float:
                workload_upper_bound(intensity, b_vec))
 
 
-def _analytic_checks(rec: BenchRecord,
-                     hw: HardwareSpec) -> List[ClaimResult]:
-    """The ceiling / routing / boundedness checks (Eq. 17/23/24, §6, Eq. 4)."""
+def _analytic_checks(rec, hw: HardwareSpec,
+                     routing_context: str = "") -> List[ClaimResult]:
+    """The ceiling / routing / boundedness checks (Eq. 17/23/24, §6, Eq. 4)
+    both record kinds share: bench sweep points and serving sessions
+    carry the same analytic join fields, so one implementation verifies
+    them and the two kinds can never drift onto different rules."""
     advice = EngineAdvisor(hw).advise(
         KernelTraits(rec.kernel, rec.intensity, 1.0))
     results = []
@@ -146,7 +175,7 @@ def _analytic_checks(rec: BenchRecord,
     results.append(ClaimResult(
         "routing", rec, routing_ok,
         f"auto={rec.engine_auto} vs advisor={advice.engine} "
-        f"(memory_bound={rec.memory_bound})"))
+        f"(memory_bound={rec.memory_bound}{routing_context})"))
 
     results.append(ClaimResult(
         "boundedness", rec, rec.memory_bound == advice.memory_bound,
@@ -223,6 +252,130 @@ def _trace_checks(rec: BenchRecord,
     return [ClaimResult("trace_reconciliation", rec, not problems, detail)]
 
 
+def _serving_trace_checks(rec: ServingRecord) -> List[ClaimResult]:
+    """The TRACE_CLAIMS check for one serving record's trace block.
+
+    Two independently-kept accounts of the same virtual timeline — the
+    tracer's spans (emitted inside the serving loop) and the
+    :class:`~repro_torch.serving.scheduler.ServingLog`'s batch tuples --
+    must tell the same story: span count == logged launches, one queue
+    span per completed request, summed span compute == summed logged
+    compute (float-rounding tolerance).  The reference's chaos branch
+    (redispatch spans and chaos instants) comes with the elastic session:
+    a record with ``events`` raises before it gets here.
+    """
+    tr = dict(rec.trace or {})
+    problems: List[str] = []
+
+    if tr.get("clock") != "virtual":
+        problems.append(f"serving trace on clock {tr.get('clock')!r}")
+    batch_spans = int(tr.get("batch_spans", -1))
+    if batch_spans != rec.batches:
+        problems.append(f"{batch_spans} batch spans != {rec.batches} "
+                        f"logged batches")
+    queue_spans = int(tr.get("queue_spans", -1))
+    if queue_spans != rec.completed:
+        problems.append(f"{queue_spans} queue spans != {rec.completed} "
+                        f"completed requests")
+    span_ms = float(tr.get("span_compute_ms", -1.0))
+    log_ms = float(tr.get("log_compute_ms", -2.0))
+    if abs(span_ms - log_ms) > 0.01:
+        problems.append(f"span compute {span_ms:.4g} ms != logged "
+                        f"compute {log_ms:.4g} ms")
+
+    detail = (f"{batch_spans} batch + {queue_spans} queue spans, span "
+              f"compute {span_ms:.4g} ms vs log {log_ms:.4g} ms"
+              + (f"; problems: {'; '.join(problems[:4])}" if problems
+                 else ""))
+    return [ClaimResult("trace_reconciliation", rec, not problems, detail)]
+
+
+def _verdict_checks(rec: ServingRecord,
+                    hw: HardwareSpec) -> List[ClaimResult]:
+    """The MODEL_CLAIMS check for one lm session's verdict payload.
+
+    The verdict is the per-op Eq. 2 classification of one decode step
+    at model scale (``repro_torch.models.advisor_map``).  The claim
+    re-derives every row and the whole-step accounting:
+
+    * per-op intensity equals flops/bytes, the memory_bound flag
+      matches a fresh Eq. 4 test, a memory-bound op routes to the
+      vector engine (§6), and its recorded ceiling obeys Eq. 23/24 at
+      that op's intensity;
+    * the time and byte fractions each sum to 1 (every op of the step
+      is accounted for — nothing hidden, nothing double-counted);
+    * the per-op times sum to the measured mean decode-step wall time
+      within rounding tolerance (the classification covers the whole
+      measured step, not a convenient subset);
+    * the headline memory-bound fractions equal the sum over
+      memory-bound ops.
+    """
+    v = dict(rec.verdict or {})
+    ops = list(v.get("ops", []))
+    step_ms = float(v.get("step_time_ms", 0.0))
+    b_vec = machine_balance(hw, "vector")
+    problems: List[str] = []
+    if not ops:
+        problems.append("empty ops list")
+
+    tsum = bsum = mb_t = mb_b = t_ms = 0.0
+    for op in ops:
+        name = str(op.get("name", "?"))
+        W, Q = float(op.get("flops", 0.0)), float(op.get("bytes", 0.0))
+        intensity = float(op.get("intensity", -1.0))
+        mb = bool(op.get("memory_bound"))
+        engine = str(op.get("engine", ""))
+        ceil = float(op.get("mxu_ceiling", 0.0))
+        tf, bf = float(op.get("time_frac", 0.0)), \
+            float(op.get("bytes_frac", 0.0))
+        if Q <= 0.0:
+            problems.append(f"{name}: bytes {Q:.4g} <= 0")
+            continue
+        derived_i = W / Q
+        if abs(intensity - derived_i) > 1e-6 * max(derived_i, 1.0):
+            problems.append(f"{name}: intensity {intensity:.4g} != "
+                            f"W/Q {derived_i:.4g}")
+        if mb != (derived_i < b_vec):
+            problems.append(f"{name}: memory_bound={mb} vs Eq. 4 "
+                            f"I={derived_i:.4g} < B_vec={b_vec:.4g}")
+        if mb and engine != "vector":
+            problems.append(f"{name}: memory-bound routed to {engine}")
+        bound = (ceiling_bound(derived_i, hw) if mb else hw.alpha)
+        if not (1.0 - _EPS <= ceil <= bound + _EPS):
+            problems.append(f"{name}: ceiling {ceil:.4g}x outside "
+                            f"[1, {bound:.4g}]")
+        if not (0.0 <= tf <= 1.0 + _EPS and 0.0 <= bf <= 1.0 + _EPS):
+            problems.append(f"{name}: fraction outside [0, 1]")
+        tsum += tf
+        bsum += bf
+        t_ms += float(op.get("time_ms", 0.0))
+        if mb:
+            mb_t += tf
+            mb_b += bf
+
+    if ops:
+        if abs(tsum - 1.0) > 1e-4:
+            problems.append(f"time fractions sum to {tsum:.6g} != 1")
+        if abs(bsum - 1.0) > 1e-4:
+            problems.append(f"byte fractions sum to {bsum:.6g} != 1")
+        # per-op time_ms rows are rounded independently at record time
+        if abs(t_ms - step_ms) > 1e-3 * max(step_ms, 1.0) + 1e-3 * len(ops):
+            problems.append(f"per-op times sum to {t_ms:.4g} ms vs "
+                            f"measured step {step_ms:.4g} ms")
+        head_t = float(v.get("memory_bound_time_frac", -1.0))
+        head_b = float(v.get("memory_bound_bytes_frac", -1.0))
+        if abs(head_t - mb_t) > 1e-4 or abs(head_b - mb_b) > 1e-4:
+            problems.append(f"headline fractions ({head_t:.4g}, "
+                            f"{head_b:.4g}) != per-op sums "
+                            f"({mb_t:.4g}, {mb_b:.4g})")
+
+    detail = (f"{len(ops)} ops, memory-bound time frac {mb_t:.4g}, "
+              f"step {step_ms:.4g} ms"
+              + (f"; problems: {'; '.join(problems[:4])}" if problems
+                 else ""))
+    return [ClaimResult("model_verdict", rec, not problems, detail)]
+
+
 def check_record(rec: BenchRecord,
                  hw: HardwareSpec) -> Tuple[ClaimResult, ...]:
     """Verify the paper's claims (Eq. 4, Eq. 17/23/24, §6) for one record.
@@ -248,20 +401,80 @@ def check_record(rec: BenchRecord,
     return tuple(out)
 
 
-def check_records(recsets: Sequence[RecordSet]) -> List[ClaimResult]:
-    """Run :func:`check_record` over every record of every set.
+def check_serving_record(rec: ServingRecord,
+                         hw: HardwareSpec) -> Tuple[ClaimResult, ...]:
+    """Verify the serving claims (§6 routing under load, Eq. 4, latency
+    and goodput consistency) for one schema-4 session record.
 
-    The hardware model is resolved per record set from its environment
-    metadata (:func:`hw_for`).  A serving set raises
-    ``NotImplementedError``, as a mesh record does.
+    Returns one :class:`ClaimResult` per entry in
+    :data:`SERVING_CLAIMS`, in order, re-deriving the advisor's decision
+    from the recorded intensity so the paper's routing story is checked
+    in steady state, not just per call.  Records carrying a model-scale
+    ``verdict`` payload (lm sessions) additionally get one result per
+    entry in :data:`MODEL_CLAIMS`, and records carrying the observability
+    ``trace`` block (serving schema 5) pass :data:`TRACE_CLAIMS`.  A
+    session with ``events`` (chaos), ``tuning`` (online) or more than one
+    shard raises ``NotImplementedError`` naming its ROADMAP item.
+    """
+    what = f"{rec.kernel}/{rec.engine}/{rec.workload}/{rec.size}"
+    if rec.tuning:
+        raise NotImplementedError(f"{what}: {_WAITING['online']}")
+    if rec.events:
+        raise NotImplementedError(f"{what}: {_WAITING['elastic']}")
+    if (rec.num_shards or 1) > 1:
+        raise NotImplementedError(f"{what}: {_WAITING['mesh']}")
+    # Eq. 17/23/24, §6 routing, Eq. 4: the same checks as per-call
+    # sweep points, via the shared helper (a record claiming a bigger
+    # matrix-engine win than the theory allows is a violation whether
+    # it was measured per call or under traffic)
+    ceiling, routing, boundedness = _analytic_checks(
+        rec, hw, routing_context=f", workload={rec.workload}")
+    results = [ceiling, routing, boundedness]
+
+    pct_ok = (0.0 <= rec.p50_ms <= rec.p95_ms + _EPS
+              and rec.p95_ms <= rec.p99_ms + _EPS
+              and rec.queue_p50_ms >= 0.0 and rec.compute_p50_ms >= 0.0)
+    results.append(ClaimResult(
+        "percentiles", rec, pct_ok,
+        f"p50={rec.p50_ms:.4g} <= p95={rec.p95_ms:.4g} <= "
+        f"p99={rec.p99_ms:.4g} ms, queue/compute splits >= 0"))
+
+    throughput = (rec.completed / rec.duration_s
+                  if rec.duration_s > 0 else 0.0)
+    # goodput = attained/duration; attainment and goodput are rounded
+    # independently at record time, so allow that rounding slack
+    expect = rec.slo_attainment * throughput
+    slack = 0.5 + 0.01 * max(throughput, 1.0)
+    goodput_ok = (0.0 <= rec.slo_attainment <= 1.0 + _EPS
+                  and rec.completed <= rec.offered
+                  and rec.goodput_rps <= throughput + slack
+                  and abs(rec.goodput_rps - expect) <= slack)
+    results.append(ClaimResult(
+        "goodput", rec, goodput_ok,
+        f"goodput {rec.goodput_rps:.4g}/s vs attainment "
+        f"{rec.slo_attainment:.4g} x throughput {throughput:.4g}/s "
+        f"({rec.completed}/{rec.offered} completed)"))
+    if rec.verdict:
+        results.extend(_verdict_checks(rec, hw))
+    if rec.trace:
+        results.extend(_serving_trace_checks(rec))
+    return tuple(results)
+
+
+def check_records(recsets: Sequence[RecordSet]) -> List[ClaimResult]:
+    """Run the kind-appropriate checks over every record of every set.
+
+    Bench sets go through :func:`check_record`, serving sets through
+    :func:`check_serving_record`.  The hardware model is resolved per
+    record set from its environment metadata (:func:`hw_for`).
     """
     out: List[ClaimResult] = []
     for rs in recsets:
-        if rs.kind == "serving":
-            raise NotImplementedError(f"{rs.path}: {_WAITING['serving']}")
         hw = hw_for(rs)
+        check = (check_serving_record if rs.kind == "serving"
+                 else check_record)
         for rec in rs.records:
-            out.extend(check_record(rec, hw))
+            out.extend(check(rec, hw))
     return out
 
 

@@ -192,7 +192,8 @@ def test_tracer_overhead_reports_both_sides():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["tune"], "item 12"), (["serve"], "item 11"),
+    (["tune"], "item 12"), (["serve", "--chaos", "fail@0.1:1"],
+                            "items 13-14"),
     (["report"], "render"), (["scale", "--mesh", "2"], "item 13"),
     (["scale", "--real"], "item 13"), (["scale", "--tuned", "t.json"],
                                         "item 12"),

@@ -283,6 +283,23 @@ def test_engine_greedy_tokens_match_reference(n_kv_heads, engine, impl):
     assert pr.per_step_s > 0
 
 
+@pytest.mark.parametrize("engine", ["vector", "matrix"])
+def test_warmup_keeps_the_greedy_tokens(engine):
+    """``DecodeEngine.warmup`` (the reference's method) leaves the
+    engine as it was: the same greedy tokens after it as without it, and
+    the reference's after its own warmup."""
+    je, pe = _engines(2, engine, "registry")
+    batch = pe.make_prompt_batch(seed=3)
+    before = pe.generate(batch).tokens
+    pe.warmup()
+    pe.warmup(batch)
+    after = pe.generate(batch).tokens
+    assert torch.equal(after, before)
+    je.warmup()
+    jr = je.generate(je.make_prompt_batch(seed=3))
+    assert np.array_equal(after.numpy(), np.asarray(jr.tokens))
+
+
 def test_forward_matches_reference():
     from repro.models import lm as j_lm
     je, pe = _engines(2, "vector", "registry")
