@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch / H100 port's main path on one NVIDIA card.
 
-Three paths, through the port's public entry points.  The paper's
+Four paths, through the port's public entry points.  The paper's
 experiment: every kernel family (SCALE, STREAM Triad, AXPY, block-ELL
 SpMV, Table-3 stencils, flash-decode attention) is classified by the §6
 advisor, launched on the CUDA-core (vector) and the tensor-core (matrix)
@@ -11,7 +11,11 @@ traffic of each family through the continuous-batching scheduler, the
 elementwise requests packed into one launch per batch.  LM decode
 serving: Mistral-NeMo-12B at full width and depth (random float32
 weights from a seed) serves seeded traffic through the same scheduler,
-every layer's decode attention through the flash-decode kernel.
+every layer's decode attention through the flash-decode kernel.  Tile
+tuning and the report: the tunable kernels' tiles searched on the card,
+the STREAM sweep run again with the winners, SCALE / Triad / AXPY served
+with an online tile bandit, and the whole record directory rendered as
+REPORT.md and per-kernel pages.
 
     python3 chip_smoke.py
 
@@ -69,9 +73,30 @@ Phases, each fatal on failure:
      teacher-forced decode step held against the plain dense-attention
      path, prefill and per-step times; BENCH_serve_lm-mistral-nemo-12b.json
      written and verified, the model verdict at full width included;
-  9. repro_torch.bench.compare with build/runs_torch as both baseline and
-     candidate, which must pass;
- 10. one JSON line of per-kernel numbers, then the result line.
+  9. tile tuning: repro_torch.tuning.tune_op for SCALE / Triad / AXPY,
+     the stencils and flash-decode on both engines at their STREAM
+     points (phase 4's inputs), every candidate of the family's tile
+     space timed by CUDA events; launch counts reset before and read
+     after; one JSON line per search (winner, best_us, default_us and
+     the default's IQR); build/runs_torch/tuned.json written (source
+     "cuda") and read back.  A skipped candidate is fatal;
+ 10. the STREAM sweep again with those tiles
+     (bench_kernels.records_for(..., tuned=)) into
+     build/runs_torch_tuned/: every record of a tuned family carries its
+     tile_config, the claims give 0 violations, and each point's tuned
+     us_per_call is printed beside phase 6's untuned one;
+ 11. online-tuned serving: one session per elementwise family at phase
+     7's traffic through OnlineKernelBatchExecutor (engine 'auto', the
+     bandit warm-started from tuned.json): launches held against the
+     log (one per batch plus one warm-up per arm pulled), the record's
+     online_ceiling passing, BENCH_serve_<k>_online.json and
+     tuned-online.json written;
+ 12. repro_torch.bench.compare with build/runs_torch as both baseline and
+     candidate, which must pass (the regret gate joins the online pairs);
+ 13. repro_torch.report.write_report on build/runs_torch into
+     build/runs_torch/REPORT.md and build/runs_torch/docs/benchmarks/,
+     twice, byte-identical, the ceiling column at 0 violations;
+ 14. one JSON line of per-kernel numbers, then the result line.
 
 Exits non-zero, printing no result, without a card or without the
 repository's sources beside this file.
@@ -136,6 +161,10 @@ MODEL = "mistral-nemo-12b"
 MODEL_BATCH, PROMPT_LEN, MAX_GEN = 4, 496, 16
 #: Its traffic: the reference's ``serve --workload lm`` defaults.
 LM_RPS, LM_DURATION_S, LM_SLO_MS = 8.0, 1.0, 30000.0
+#: The families with a tile space, tuned on both engines in phase 9.
+TUNED = ("scale", "triad", "axpy", "stencil", "attention")
+#: The online bandit's exploration pulls per key (the reference's default).
+ONLINE_BUDGET = 8
 
 
 class SmokeFailure(RuntimeError):
@@ -594,7 +623,19 @@ def main() -> int:
     # -- 8. LM decode serving at full width through the scheduler ------------
     model_launches = _model_phase(torch, hw, card, failures)
 
-    # -- 9. the compare gate ---------------------------------------------------
+    # -- 9. tile tuning on the card ---------------------------------------
+    cache, tune_launches = _tune_phase(torch, hw, card, failures)
+    torch.cuda.empty_cache()
+
+    # -- 10. the STREAM sweep with the tuned tiles -------------------------
+    tuned_launches = _tuned_sweep_phase(torch, hw, card, failures, cache)
+    torch.cuda.empty_cache()
+
+    # -- 11. online-tuned kernel serving ------------------------------------
+    online_launches = _online_phase(torch, card, failures)
+    torch.cuda.empty_cache()
+
+    # -- 12. the compare gate -----------------------------------------------
     from repro_torch.bench import compare
     runs = str(ROOT / "build" / "runs_torch")
     gate_rc = compare.main([runs, runs])
@@ -604,7 +645,10 @@ def main() -> int:
     if gate_rc != 0:
         failures.append(f"compare gate on build/runs_torch: rc {gate_rc}")
 
-    # -- 10. the per-kernel line ---------------------------------------------
+    # -- 13. the report -----------------------------------------------------
+    _report_phase(card, failures)
+
+    # -- 14. the per-kernel line ---------------------------------------------
     kernels = []
     for r in rows:
         entry = {
@@ -614,6 +658,9 @@ def main() -> int:
             "launches": launches.get(r["name"], 0),
             "sweep_launches": sweep_launches.get(r["name"], 0),
             "serving_launches": serving_launches.get(r["name"], 0),
+            "tune_launches": tune_launches.get(r["name"], 0),
+            "tuned_sweep_launches": tuned_launches.get(r["name"], 0),
+            "online_serving_launches": online_launches.get(r["name"], 0),
             "max_abs_err": r["err"],
             "ms": r["t"].median_us / 1e3,
             "plain_ms": r["plain"].median_us / 1e3,
@@ -1059,6 +1106,306 @@ def _model_phase(torch, hw, card, failures):
         failures.append(f"model claim {r.claim} violated by "
                         f"{r.record.kernel}/{r.record.engine}: {r.detail}")
     return launches
+
+
+def _launch_check(tag, launches, names, failures):
+    """Fail for each (family, engine) kernel of a path that never ran."""
+    for name in names:
+        for engine in ("vector", "matrix"):
+            if launches.get(f"{name}_{engine}", 0) == 0:
+                failures.append(f"{tag}: {name}_{engine} never launched")
+
+
+def _tune_phase(torch, hw, card, failures):
+    """Tile search on the card for every tunable family, both engines, at
+    the STREAM points (phase 4's inputs).  Returns the cache written to
+    build/runs_torch/tuned.json and the phase's launches per kernel."""
+    import numpy as np
+
+    from repro_torch.bench.bench_kernels import stream_points
+    from repro_torch.core.timing import time_fn
+    from repro_torch.kernels import _ext, registry
+    from repro_torch.tuning import TuningCache, env_fingerprint, tune_op
+
+    path = ROOT / "build" / "runs_torch" / "tuned.json"
+    cache = TuningCache(fingerprint=env_fingerprint())
+    t_phase = time.perf_counter()
+    searches = 0
+    torch.cuda.synchronize()
+    _ext.reset_launches()
+    for name in TUNED:
+        op = registry.get(name)
+        for pt in stream_points(op, np.random.default_rng(SEED), "cuda"):
+            label, _ = _point_label(name, pt)
+            for engine in ("vector", "matrix"):
+                timings, skipped = [], []
+
+                def timer(fn, timings=timings):
+                    t = time_fn(fn, warmup=WARMUP, iters=ITERS)
+                    timings.append(t)
+                    return t
+
+                def note(msg, skipped=skipped):
+                    if ": skipped (" in msg:
+                        skipped.append(msg)
+                try:
+                    entry = tune_op(op, engine=engine, dtype=pt.dtype,
+                                    size=pt.size, hw_model=hw.name,
+                                    timer=timer, verbose=note,
+                                    inputs=(pt.args, pt.kwargs))
+                except RuntimeError as exc:
+                    failures.append(f"tune/{label}/{engine}: {exc}")
+                    continue
+                searches += 1
+                failures.extend(f"tune/{label}: {m}" for m in skipped)
+                # a family's key holds one entry: the faster point's
+                # winner (the 2-D stencil's over the 3-D one)
+                cache.merge(TuningCache([entry]))
+                print(json.dumps({
+                    "phase": "tune", "point": label, "engine": engine,
+                    "params": dict(entry.params),
+                    "best_us": entry.best_us,
+                    "default_us": entry.default_us,
+                    "default_iqr_us": timings[0].iqr_us,
+                    "default_minus_best_us":
+                        entry.default_us - entry.best_us,
+                    "candidates": len(timings), "card": card}),
+                    flush=True)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    launches = dict(_ext.LAUNCHES)
+    _launch_check("tune", launches, TUNED, failures)
+    cache.save(str(path))
+    back = TuningCache.load(str(path))
+    sources = sorted({e.source for e in back})
+    if sources != ["cuda"] or len(back) != len(cache):
+        failures.append(f"tuned.json: {len(back)} entries of sources "
+                        f"{sources}, expected {len(cache)} of ['cuda']")
+    print(json.dumps({"tune": {"searches": searches, "entries": len(back),
+                               "path": "build/runs_torch/tuned.json",
+                               "phase_s": time.perf_counter() - t_phase,
+                               "card": card}}), flush=True)
+    return back, launches
+
+
+def _tuned_sweep_phase(torch, hw, card, failures, cache):
+    """The STREAM sweep with the tuned tiles, into build/runs_torch_tuned;
+    each point's tuned median beside phase 6's untuned one.  Returns the
+    phase's launches per kernel."""
+    from repro_torch.bench import bench_kernels
+    from repro_torch.bench.common import bench_env, write_json
+    from repro_torch.kernels import _ext, registry
+    from repro_torch.report import check_records, load_dir, violations
+
+    out_dir = ROOT / "build" / "runs_torch_tuned"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    untuned = {}
+    for rs in load_dir(str(ROOT / "build" / "runs_torch")):
+        if rs.kind == "bench":
+            for rec in rs.records:
+                untuned[(rec.kernel, rec.engine, rec.size, rec.dtype)] = rec
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    _ext.reset_launches()
+    for op in registry.all_ops():
+        recs = bench_kernels.records_for(op, hw=hw, device="cuda",
+                                         stream=True, tuned=cache)
+        write_json(op.name, recs, str(out_dir),
+                   env=bench_env("cuda", hw.name))
+    torch.cuda.synchronize()
+    launches = dict(_ext.LAUNCHES)
+    _launch_check("tuned sweep", launches,
+                  [op.name for op in registry.all_ops()], failures)
+    try:
+        sets = load_dir(str(out_dir))
+        results = check_records(sets)
+    except (OSError, ValueError, NotImplementedError) as exc:
+        failures.append(f"tuned records: {exc}")
+        return launches
+    for r in violations(results):
+        failures.append(f"tuned sweep: claim {r.claim} violated by "
+                        f"{r.record.kernel}/{r.record.engine}/"
+                        f"{r.record.dtype}: {r.detail}")
+    slower = 0
+    for rs in sets:
+        for rec in rs.records:
+            if rec.kernel in TUNED and not rec.tile_config:
+                failures.append(f"tuned sweep: {rec.kernel}/{rec.engine}/"
+                                f"{rec.dtype} has no tile_config")
+            base = untuned.get((rec.kernel, rec.engine, rec.size, rec.dtype))
+            gap = (rec.us_per_call - base.us_per_call
+                   if base is not None else None)
+            beyond = bool(gap is not None and gap > base.iqr_us)
+            slower += int(beyond)
+            print(json.dumps({
+                "phase": "tuned_sweep", "kernel": rec.kernel,
+                "engine": rec.engine, "size": rec.size, "dtype": rec.dtype,
+                "tile": dict(rec.tile_params or {}),
+                "tuned_us": rec.us_per_call, "tuned_iqr_us": rec.iqr_us,
+                "untuned_us": base.us_per_call if base else None,
+                "untuned_iqr_us": base.iqr_us if base else None,
+                "slower_beyond_untuned_iqr": beyond, "card": card}),
+                flush=True)
+    print(json.dumps({"tuned_sweep": {
+        "records": sum(len(rs.records) for rs in sets),
+        "claims": len(results), "violations": len(violations(results)),
+        "slower_beyond_iqr": slower, "dir": "build/runs_torch_tuned",
+        "phase_s": time.perf_counter() - t_phase, "card": card}}),
+        flush=True)
+    return launches
+
+
+def _online_phase(torch, card, failures):
+    """SCALE / Triad / AXPY served at phase 7's traffic by the online tile
+    bandit, warm-started from tuned.json; the records verified (the
+    online_ceiling replay included) and the winners persisted.  Returns
+    the phase's launches per kernel."""
+    import numpy as np
+
+    from repro_torch.bench.common import bench_env, write_serving_json
+    from repro_torch.bench.serve import _persist_online
+    from repro_torch.core.dispatch import DEFAULT_DISPATCHER
+    from repro_torch.kernels import _ext, registry
+    from repro_torch.report import check_records, load_file, violations
+    from repro_torch.serving import (BatchPolicy, OnlineKernelBatchExecutor,
+                                     SessionConfig, run_session)
+    from repro_torch.tuning import OnlineTuner
+
+    out_dir = str(ROOT / "build" / "runs_torch")
+    env = bench_env("cuda", DEFAULT_DISPATCHER.hw.name)
+    policy = BatchPolicy(max_batch=SERVE_MAX_BATCH,
+                         max_wait_s=SERVE_MAX_WAIT_S)
+    launches, entries, t_phase = {}, [], time.perf_counter()
+    DEFAULT_DISPATCHER.load_tuned(str(ROOT / "build" / "runs_torch" /
+                                      "tuned.json"))
+    try:
+        for name in PACKED:
+            op = registry.get(name)
+            args, kw = op.make_inputs(np.random.default_rng(SEED),
+                                      SERVE_ELEMENTWISE, "float32", "cuda")
+            tuner = OnlineTuner(ONLINE_BUDGET,
+                                cache=DEFAULT_DISPATCHER.tuning.cache,
+                                hw_model=DEFAULT_DISPATCHER.hw.name)
+            ex = OnlineKernelBatchExecutor("auto", max_batch=SERVE_MAX_BATCH,
+                                           seed=SEED, tuner=tuner)
+            ex.use_inputs(name, SERVE_ELEMENTWISE, "float32", args, kw)
+            cfg = SessionConfig(kernel=name, workload="poisson",
+                                engine="auto", rate_rps=SERVE_ELEMENTWISE_RPS,
+                                duration_s=SERVE_DURATION_S,
+                                size=SERVE_ELEMENTWISE, seed=SEED,
+                                policy=policy, online_tune=True,
+                                tune_budget=ONLINE_BUDGET)
+            torch.cuda.synchronize()
+            _ext.reset_launches()
+            t0 = time.perf_counter()
+            log, summary, record = run_session(cfg, executor=ex)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            counts = dict(_ext.LAUNCHES)
+            for engine in ("vector", "matrix"):
+                launches[f"{name}_{engine}"] = counts.get(f"{name}_{engine}",
+                                                          0)
+            t = record["tuning"]
+            (key,) = t["keys"]
+            kd = t["keys"][key]
+            pulled = {e["arm"] for e in kd["events"]}
+            # one launch per batch, and one untimed warm-up per arm
+            want = len(log.batches) + len(pulled)
+            tag = f"online/{name}"
+            if launches[f"{name}_vector"] != want or \
+                    launches[f"{name}_matrix"]:
+                failures.append(f"{tag}: {launches[f'{name}_vector']} vector "
+                                f"and {launches[f'{name}_matrix']} matrix "
+                                f"launches, expected {want} and 0")
+            if t["decisions"] != len(log.batches) or \
+                    log.completed != log.offered or \
+                    record["engine"] != "vector":
+                failures.append(f"{tag}: {t['decisions']} decisions for "
+                                f"{len(log.batches)} batches, "
+                                f"{log.completed}/{log.offered} served, "
+                                f"engine {record['engine']}")
+            winner = kd["arms"][kd["winner"]]
+            print(json.dumps({
+                "phase": "online_serving", "kernel": name,
+                "engine": record["engine"], "key": key,
+                "warm_source": kd["warm_source"], "warm_arm": kd["arms"][0],
+                "arms": len(kd["arms"]), "arms_pulled": len(pulled),
+                "decisions": t["decisions"],
+                "regret_us_total": t["regret_us_total"],
+                "warm_us": kd["warm_us"], "best_us": kd["best_us"],
+                "committed_us": kd["committed_us"], "winner": winner,
+                "p50_ms": summary.p50_ms, "p99_ms": summary.p99_ms,
+                "compute_p50_ms": summary.compute_p50_ms,
+                "compute_p99_ms": summary.compute_p99_ms,
+                "goodput_rps": summary.goodput_rps, "launches": want,
+                "wall_s": wall_s, "card": card}), flush=True)
+            path = write_serving_json(name, [record], out_dir, env=env,
+                                      suffix="_online")
+            entries.extend(tuner.to_entries())
+            del ex, log, args, kw
+            try:
+                results = check_records([load_file(path)])
+            except (OSError, ValueError, NotImplementedError) as exc:
+                failures.append(f"{tag} records: {exc}")
+                continue
+            for r in results:
+                if r.claim == "online_ceiling":
+                    print(json.dumps({"claim": r.claim, "kernel": name,
+                                      "passed": r.passed,
+                                      "detail": r.detail}), flush=True)
+            if "online_ceiling" not in {r.claim for r in results}:
+                failures.append(f"{tag}: no online_ceiling claim checked")
+            for r in violations(results):
+                failures.append(f"{tag}: claim {r.claim} violated: "
+                                f"{r.detail}")
+        persisted = _persist_online(out_dir, entries)
+    finally:
+        DEFAULT_DISPATCHER.set_tuning_cache(None)
+    print(json.dumps({"online_serving": {
+        "sessions": len(PACKED), "persisted":
+            str(pathlib.Path(persisted).relative_to(ROOT)),
+        "online_entries": len(entries),
+        "phase_s": time.perf_counter() - t_phase, "card": card}}),
+        flush=True)
+    return launches
+
+
+def _ceiling_violations(report):
+    """The summed Eq. 23/24 column of REPORT.md's claim table."""
+    table = report.split("## Claim verification")[1].split("\n\n")[2]
+    return sum(int(line.split(" | ")[2].split()[0])
+               for line in table.splitlines()[2:])
+
+
+def _report_phase(card, failures):
+    """REPORT.md and the per-kernel pages of build/runs_torch, rendered
+    twice into build/runs_torch: the two renders must be byte-identical
+    and the ceiling column must read 0."""
+    from repro_torch.report import write_report
+
+    runs = ROOT / "build" / "runs_torch"
+    where = {"runs_dir": str(runs), "report_path": str(runs / "REPORT.md"),
+             "docs_dir": str(runs / "docs" / "benchmarks")}
+    t0 = time.perf_counter()
+    try:
+        first = write_report(**where)
+        texts = [pathlib.Path(p).read_text() for p in first]
+        second = write_report(**where)
+    except (OSError, ValueError, NotImplementedError) as exc:
+        failures.append(f"report: {exc}")
+        return
+    identical = first == second and \
+        texts == [pathlib.Path(p).read_text() for p in second]
+    ceiling = _ceiling_violations(texts[0])
+    if not identical:
+        failures.append("report: two renders of build/runs_torch differ")
+    if ceiling:
+        failures.append(f"report: {ceiling} ceiling violations")
+    print(json.dumps({"report": {
+        "pages": [str(pathlib.Path(p).relative_to(ROOT)) for p in first],
+        "ceiling_violations": ceiling, "identical": identical,
+        "bytes": sum(len(t.encode()) for t in texts),
+        "phase_s": time.perf_counter() - t0, "card": card}}), flush=True)
 
 
 def _point_label(name, pt):

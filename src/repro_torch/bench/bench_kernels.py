@@ -23,10 +23,16 @@ The oracle is timed into ``ref_us_per_call``, the reference's meaning of
 that field.  On the card every engine also gets torch.profiler's device
 time per call (``profiler_device_us``).
 
+With a tuned cache (``tuned=``, ``--tuned FILE``) every engine is checked
+and timed with the tile the cache holds for its (kernel, engine, dtype,
+hardware model), and the record's ``tile_config`` carries the params with
+the tuner's own ``tuned_us`` / ``default_us`` (the reference's
+``_tile_config_field``); without one, or on a cache miss, it is null and
+the static tiles run.
+
 The sweep is single-device: ``mesh_shape`` / ``shard_spec`` /
 ``mesh_exec`` are written as null (the mesh legs wait for ROADMAP Queue 1
-item 13), and ``tile_config`` is null (static tiles until the tuning
-port, item 12).
+item 13).
 """
 from __future__ import annotations
 
@@ -41,7 +47,7 @@ import torch
 
 from ..carry import cast
 from ..core.advisor import EngineAdvisor
-from ..core.dispatch import DEFAULT_DISPATCHER, Dispatcher
+from ..core.dispatch import DEFAULT_DISPATCHER, Dispatcher, TuningPolicy
 from ..core.hw import HardwareSpec, spec_for_device_name
 from ..core.timing import device_busy_us
 from ..kernels import registry
@@ -145,6 +151,24 @@ def bound_work(name: str, args: tuple, traits) -> Tuple[float, float]:
     return float(traffic), 4.0 * b * kh * g * used * dh
 
 
+def _tile_config_field(dispatcher: Dispatcher, op, engine: str,
+                       dtype: str) -> Optional[dict]:
+    """The tuned-tile evidence for one sweep point, or None (defaults):
+    the params with the tuner's own ``tuned_us`` (the cache's
+    ``best_us``) and ``default_us``, so the report renders the
+    tuned-vs-default delta without re-timing anything."""
+    entry = dispatcher.tuning.lookup(op.name, engine, dtype,
+                                     dispatcher.hw.name)
+    if entry is None:
+        return None
+    return {
+        "params": {k: int(v) for k, v in sorted(entry.params.items())},
+        "tuned_us": round(entry.best_us, 1),
+        "default_us": round(entry.default_us, 1),
+        "source": entry.source,
+    }
+
+
 def _shape(args: tuple) -> List[int]:
     """The shape of the call's largest array (a BlockEll: its dense shape)."""
     arrays = [a for a in args if hasattr(a, "shape")]
@@ -153,7 +177,7 @@ def _shape(args: tuple) -> List[int]:
 
 def records_for(op, sizes: Optional[Sequence[int]] = None, *,
                 hw: Optional[HardwareSpec] = None, device: str = "cuda",
-                stream: bool = False) -> List[dict]:
+                stream: bool = False, tuned=None) -> List[dict]:
     """One record per (engine, size, dtype) for a registered kernel.
 
     ``sizes`` overrides the reference's ``bench_sizes``; ``stream=True``
@@ -161,12 +185,13 @@ def records_for(op, sizes: Optional[Sequence[int]] = None, *,
     hand-written kernels; ``"cpu"`` runs their plain versions.  ``hw``
     (default: the card's spec, or the default advisor's on the CPU) is
     the hardware model the Advice, the predictions and the roofline
-    gauge use.
+    gauge use.  ``tuned`` (a ``TuningCache``) supplies each engine's tile
+    by (kernel, engine, dtype, ``hw.name``).
     """
     if device not in _COUNTS:
         raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
     hw = default_hw(device) if hw is None else hw
-    dispatcher = Dispatcher(EngineAdvisor(hw))
+    dispatcher = Dispatcher(EngineAdvisor(hw), TuningPolicy(tuned))
     backend = "cuda" if device == "cuda" else "plain"
     warmup, iters = _COUNTS[device]
     clock = "cuda_event" if device == "cuda" else "wall"
@@ -184,13 +209,17 @@ def records_for(op, sizes: Optional[Sequence[int]] = None, *,
                       kernel=op.name, size=pt.size, dtype=pt.dtype)
         bound_bytes, _ = bound_work(op.name, args, traits)
         for engine in sorted(op.engines):
-            got = op(*args, engine=engine, backend=backend, **kw)
+            # the correctness check and the timing both run the tile the
+            # record reports (the tuned one, else the static default)
+            got = dispatcher.run(op, *args, engine=engine, backend=backend,
+                                 **kw)
             err = float((got.float() - want).abs().max())
             del got
             fn = op.engines[engine]
+            tile = dispatcher.tile_params(op, engine, *args, **kw) or {}
 
-            def call(fn=fn):
-                return fn(*args, backend=backend, **kw)
+            def call(fn=fn, tile=tile):
+                return fn(*args, backend=backend, **{**kw, **tile})
             with capture() as view:
                 t = time_fn(call, warmup=warmup, iters=iters,
                             label="engine_call", layer="bench",
@@ -233,7 +262,8 @@ def records_for(op, sizes: Optional[Sequence[int]] = None, *,
                 "l2_resident": bool(hw.l2_bytes is not None
                                     and bound_bytes <= hw.l2_bytes),
                 "mxu_ceiling": advice.max_speedup_matrix,
-                "tile_config": None,
+                "tile_config": _tile_config_field(dispatcher, op, engine,
+                                                  pt.dtype),
                 "mesh_shape": None,
                 "shard_spec": None,
                 "mesh_exec": None,
@@ -272,16 +302,22 @@ def tracer_overhead(op, args: tuple, kw: dict, engine: str,
 
 def rows(names: Optional[Sequence[str]] = None, json_dir: Optional[str] = None,
          *, trace_out: Optional[str] = None, stream: bool = False,
-         device: str = "cuda") -> List[dict]:
+         device: str = "cuda", tuned: Optional[str] = None) -> List[dict]:
     """Sweep the registry; write ``BENCH_<kernel>.json`` per family.
 
     ``stream=True`` adds the STREAM points to each family's records.
     With *trace_out* the whole sweep runs under the tracer (dispatch and
     launch spans of the correctness calls, timing iterations) and the
     events are written as Chrome-trace JSON; the per-record captures
-    nest inside that outer one.
+    nest inside that outer one.  *tuned* names a tuned.json whose tiles
+    the sweep launches with (loaded forgivingly: a bad file warns and the
+    static tiles run).
     """
     hw = default_hw(device)
+    cache = None
+    if tuned is not None:
+        from ..tuning.cache import TuningCache
+        cache = TuningCache.load_or_warn(tuned)
     wanted = set(names) if names is not None else None
     out = []
     with contextlib.ExitStack() as stack:
@@ -290,9 +326,10 @@ def rows(names: Optional[Sequence[str]] = None, json_dir: Optional[str] = None,
         for op in registry.all_ops():
             if wanted is not None and op.name not in wanted:
                 continue
-            recs = records_for(op, hw=hw, device=device)
+            recs = records_for(op, hw=hw, device=device, tuned=cache)
             if stream:
-                recs += records_for(op, hw=hw, device=device, stream=True)
+                recs += records_for(op, hw=hw, device=device, stream=True,
+                                    tuned=cache)
             if json_dir:
                 write_json(op.name, recs, json_dir,
                            env=bench_env(device, hw.name))
@@ -313,6 +350,9 @@ def _csv_rows(recs: List[dict], hw: HardwareSpec,
         share = (f"{r['bound_bytes'] / hw.mem_bw / (r['us_per_call'] * 1e-6):.4f}"
                  if device == "cuda" and r["us_per_call"] > 0
                  else "not measured")
+        cfg = r.get("tile_config")
+        tiles = "" if not cfg else ";tiles=" + ",".join(
+            f"{k}={v}" for k, v in sorted(cfg["params"].items()))
         out.append({
             "name": (f"{r['kernel']}/{r['engine']}/n={r['size']}/"
                      f"{r['dtype']}"),
@@ -324,6 +364,6 @@ def _csv_rows(recs: List[dict], hw: HardwareSpec,
                         f"I={r['intensity']:.4f};"
                         f"auto={r['engine_auto']};"
                         f"mxu_ceiling={r['mxu_ceiling']:.4f}x;"
-                        f"err={r['max_err']:.2e}"),
+                        f"err={r['max_err']:.2e}" + tiles),
         })
     return out

@@ -105,17 +105,18 @@ def write_json(kernel: str, records: List[dict], out_dir: str,
 
 
 def write_serving_json(kernel: str, records: List[dict], out_dir: str,
-                       env: dict) -> str:
+                       env: dict, suffix: str = "") -> str:
     """Write one kernel's serving sessions to
-    ``out_dir/BENCH_serve_<kernel>.json``.
+    ``out_dir/BENCH_serve_<kernel><suffix>.json``.
 
     ``{"schema": 5, "kind": "serving", "kernel": ..., "env": {...},
     "records": [...]}`` with one record per (engine, workload, size,
     dtype) session, consumed by ``repro_torch.report`` and gated on
-    p99/goodput by ``repro_torch.bench.compare``.  The reference's mesh
-    and ``_online`` file names wait with their sessions (ROADMAP Queue 1
-    items 12-13).
+    p99/goodput by ``repro_torch.bench.compare``.  *suffix* (``"_online"``
+    for ``serve --online-tune`` sessions) keeps a session variant beside
+    the baseline instead of clobbering it.  The reference's mesh file
+    names wait with their sessions (ROADMAP Queue 1 item 13).
     """
-    return _write_record_file(f"BENCH_serve_{kernel}.json", kernel,
+    return _write_record_file(f"BENCH_serve_{kernel}{suffix}.json", kernel,
                               SERVING_SCHEMA_VERSION, records, out_dir, env,
                               extra={"kind": "serving"})

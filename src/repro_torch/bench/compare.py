@@ -15,10 +15,15 @@ Compares candidate records against the baseline and exits non-zero when
   routing, oracle accuracy, Eq. 4 boundedness -- §6-under-load,
   percentile and goodput consistency and the model-scale verdict for
   serving records -- and ``trace_reconciliation``),
+* a joined pair of **online-tuned** sessions (both sides carrying a
+  ``tuning`` block from ``serve --online-tune``) grows its total bandit
+  regret (``regret_us_total``) by more than the same threshold --
+  exploration getting more expensive is an adaptive-control regression,
+  gated beside the p99 drift the shared tail gate already catches,
 * a joined serving session pair disagrees on its load knobs
-  (rate/duration/SLO/seed/batching policy/mesh width): sessions under
-  different offered load are not comparable, so drifted defaults fail
-  loudly instead of gating noise, or
+  (rate/duration/SLO/seed/batching policy/mesh width/online tune budget):
+  sessions under different offered load are not comparable, so drifted
+  defaults fail loudly instead of gating noise, or
 * a baseline point disappears from the candidate set (lost coverage is
   a regression too).
 
@@ -40,9 +45,9 @@ reported but never fail the gate.
 
 Not ported yet, and raising ``NotImplementedError`` naming the ROADMAP
 Queue 1 item when a record set carries what they gate: the
-chaos-availability gate (``events``, items 13-14), the online-regret gate
-(``tuning``, item 12), and the measured-mesh gate with the ``--mesh``
-filter (``shard_spec`` / ``mesh_exec`` / sharded sessions, item 13).
+chaos-availability gate (``events``, items 13-14) and the measured-mesh
+gate with the ``--mesh`` filter (``shard_spec`` / ``mesh_exec`` / sharded
+sessions, item 13).
 
 On failure the log ends with a per-kernel summary table (compared
 points, missing points, perf/goodput regressions, config mismatches,
@@ -70,14 +75,12 @@ KINDS = ("all", "bench", "serving")
 WAITING = {
     "events": "the chaos availability gate waits for ROADMAP Queue 1 "
               "items 13-14 (sharding, runtime)",
-    "tuning": "the online regret gate waits for ROADMAP Queue 1 item 12 "
-              "(tuning)",
     "mesh": "the mesh gate waits for ROADMAP Queue 1 item 13 (sharding)",
 }
 
 #: Serving-session load knobs that must agree on a joined pair.
 KNOBS = ("rate_rps", "duration_s", "slo_ms", "seed", "max_batch",
-         "max_wait_ms", "num_shards", "mesh_exec_mode")
+         "max_wait_ms", "num_shards", "mesh_exec_mode", "tune_budget")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,8 +130,6 @@ def _refuse_waiting(rs: RecordSet, rec: Record) -> None:
     if rs.kind == "serving":
         if rec.events:
             raise NotImplementedError(f"{rs.path}: {WAITING['events']}")
-        if rec.tuning:
-            raise NotImplementedError(f"{rs.path}: {WAITING['tuning']}")
         sharded = (rec.num_shards or 1) > 1
     else:
         sharded = bool(rec.shard_spec or rec.mesh_exec
@@ -242,6 +243,10 @@ def gate(baseline_dir: str, candidate_dir: str, threshold: float = 0.25,
         empty = empty and not base
 
         def _knob(rec, field):
+            if field == "tune_budget":
+                # exploration budget shapes both regret and the tail:
+                # online sessions only gate against the same budget
+                return (rec.tuning or {}).get("budget")
             value = getattr(rec, field)
             if field == "num_shards":
                 return value or 1  # legacy records: None = unsharded
@@ -268,6 +273,14 @@ def gate(baseline_dir: str, candidate_dir: str, threshold: float = 0.25,
                          cand[key].goodput_rps, "goodput_rps", "rps",
                          threshold, "goodput", failures,
                          lower_is_better=False)
+            b_tu, c_tu = base[key].tuning, cand[key].tuning
+            if b_tu and c_tu:
+                # both sides tuned online under the same budget: total
+                # regret is the price the bandit paid to explore
+                _gate_metric(key, float(b_tu.get("regret_us_total", 0.0)),
+                             float(c_tu.get("regret_us_total", 0.0)),
+                             "regret_us_total", "us", threshold, "perf",
+                             failures)
 
     if empty:
         # an over-narrow --kernels/--kind filter must not pass vacuously

@@ -28,11 +28,22 @@ admissions, queue waits and batch launches, and the traced dispatch and
 launch spans on the wall clock) as Chrome-trace JSON.  Records always
 carry the compact ``trace`` reconciliation block.
 
+``--tuned FILE`` loads a tuned.json into the default dispatcher, so
+dispatch and the packed capacity use its tiles.  ``--online-tune`` adds
+one ``engine='auto'`` session per kernel served by
+:class:`~repro_torch.serving.router.OnlineKernelBatchExecutor`: a budgeted
+UCB bandit (``repro_torch.tuning.online``, ``--tune-budget`` pulls per
+key) re-tunes tiles from measured batch compute, warm-started from the
+loaded cache.  These sessions land in ``BENCH_serve_<kernel>_online.json``
+with a ``tuning`` block that the ``online_ceiling`` claim replays, and
+the bandit's winners persist to ``<out>/tuned-online.json`` through the
+cache's faster-wins merge.
+
 Sessions run on the card; ``--device cpu`` runs the kernels' plain
 versions on the CPU (the CPU tests' form).  Refused, naming their ROADMAP
 Queue 1 item: ``--chaos`` (the elastic session, items 13-14),
-``--online-tune`` / ``--slo-route`` / ``--tuned`` (item 12), ``--mesh N``
-with N > 1 and ``--real`` (item 13).
+``--slo-route`` (its router grows the mesh), ``--mesh N`` with N > 1 and
+``--real`` (item 13).
 """
 from __future__ import annotations
 
@@ -62,9 +73,7 @@ DEFAULT_OUT = "build/runs_torch"
 #: waits for.
 WAITING = {
     "chaos": "items 13-14 (the elastic session: sharding, runtime)",
-    "online_tune": "item 12 (tuning)",
-    "slo_route": "item 12 (tuning)",
-    "tuned": "item 12 (tuning)",
+    "slo_route": "item 13 (sharding: the router's mesh widths)",
     "mesh": "item 13 (sharding)",
     "real": "item 13 (sharding)",
 }
@@ -117,21 +126,28 @@ def _parse(argv: Optional[List[str]]) -> argparse.Namespace:
                         "CPU with the kernels' plain versions")
     p.add_argument("--out", default=DEFAULT_OUT,
                    help=f"record directory (default {DEFAULT_OUT})")
+    p.add_argument("--tuned", default=None,
+                   help="tuned.json for tile-aware packing/dispatch")
+    p.add_argument("--online-tune", action="store_true",
+                   help="add one engine='auto' session per kernel whose "
+                        "tiles are re-tuned live by the budgeted UCB "
+                        "bandit; records land in "
+                        "BENCH_serve_<kernel>_online.json and the winners "
+                        "in <out>/tuned-online.json")
+    p.add_argument("--tune-budget", type=int, default=8,
+                   help="online bandit exploration pulls per (kernel, "
+                        "engine, dtype, shard) key (default 8)")
     # refused: each waits for a ROADMAP item (WAITING)
     p.add_argument("--mesh", type=int, default=1, help=argparse.SUPPRESS)
     p.add_argument("--chaos", default=None, help=argparse.SUPPRESS)
     p.add_argument("--real", action="store_true", help=argparse.SUPPRESS)
-    p.add_argument("--tuned", default=None, help=argparse.SUPPRESS)
-    p.add_argument("--online-tune", action="store_true",
-                   help=argparse.SUPPRESS)
     p.add_argument("--slo-route", action="store_true",
                    help=argparse.SUPPRESS)
     return p.parse_args(argv)
 
 
 def _refuse_waiting(args: argparse.Namespace) -> None:
-    given = {"chaos": args.chaos is not None, "online_tune": args.online_tune,
-             "slo_route": args.slo_route, "tuned": args.tuned is not None,
+    given = {"chaos": args.chaos is not None, "slo_route": args.slo_route,
              "mesh": args.mesh > 1, "real": args.real}
     for name, on in given.items():
         if on:
@@ -249,6 +265,7 @@ def _serve_kernels(args: argparse.Namespace, env: dict) -> int:
     slo = SLO(latency_ms=args.slo_ms)
     print("kernel,engine,workload,completed,p50_ms,p99_ms,goodput_rps,"
           "slo_attainment")
+    online_entries = []
     for kernel in names:
         records = []
         # per-kernel view of the once-parsed trace (None for the
@@ -268,7 +285,70 @@ def _serve_kernels(args: argparse.Namespace, env: dict) -> int:
             print(_row(kernel, args.workload, summary, record))
         path = write_serving_json(kernel, records, args.out, env=env)
         print(f"# wrote {path}")
+        if args.online_tune:
+            record, summary, entries = _online_session(args, kernel, policy,
+                                                       slo, source)
+            online_entries.extend(entries)
+            print(_row(kernel, args.workload, summary, record))
+            path = write_serving_json(kernel, [record], args.out, env=env,
+                                      suffix="_online")
+            print(f"# wrote {path}")
+    if online_entries:
+        print(f"# wrote {_persist_online(args.out, online_entries)}")
     return 0
+
+
+def _online_session(args: argparse.Namespace, kernel: str,
+                    policy: BatchPolicy, slo: SLO, source):
+    """One ``--online-tune`` session: auto-routed engine, live bandit.
+
+    Builds the tuner/executor stack here (rather than letting
+    ``run_session`` own it) so the sweep can persist the bandit's winners
+    after the session.
+    """
+    from ..serving.router import OnlineKernelBatchExecutor
+    from ..tuning.online import OnlineTuner
+
+    tuner = OnlineTuner(args.tune_budget,
+                        cache=DEFAULT_DISPATCHER.tuning.cache,
+                        hw_model=DEFAULT_DISPATCHER.hw.name)
+    backend = BACKEND_FOR_DEVICE[args.device]
+    executor = OnlineKernelBatchExecutor(
+        engine="auto", max_batch=args.max_batch, seed=args.seed,
+        backend=backend, tuner=tuner)
+    cfg = SessionConfig(
+        kernel=kernel, workload=args.workload, engine="auto",
+        rate_rps=args.rate, duration_s=args.duration, size=args.size,
+        dtype=args.dtype, seed=args.seed, policy=policy, slo=slo,
+        trace_path=args.trace, online_tune=True,
+        tune_budget=args.tune_budget, device=args.device, backend=backend)
+    _, summary, record = run_session(cfg, executor=executor, source=source)
+    return record, summary, tuner.to_entries()
+
+
+def _persist_online(out_dir: str, entries) -> str:
+    """Persist the sweep's online winners to ``<out>/tuned-online.json``.
+
+    Faster-wins merge against the cache the sessions were warm-started
+    from: an online entry (a batch's completed time, host path included,
+    above the tuner's kernel times) can only *add* keys that cache lacks,
+    never displace a kernel-timed winner with a slower-clock measurement.
+    """
+    import os
+
+    from ..tuning.cache import TuningCache
+
+    online = TuningCache()
+    for entry in entries:
+        online.add(entry)
+    loaded = DEFAULT_DISPATCHER.tuning.cache
+    # merge() mutates its receiver, so fold into a copy: the default
+    # dispatcher's cache must not grow online entries
+    merged = TuningCache(list(loaded) if loaded is not None else (),
+                         fingerprint=(loaded.fingerprint
+                                      if loaded is not None else None))
+    merged.merge(online)
+    return merged.save(os.path.join(out_dir, "tuned-online.json"))
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -287,6 +367,13 @@ def main(argv: Optional[List[str]] = None) -> int:
         args.slo_ms = 30000.0 if lm else 50.0
     if args.workload == "trace" and not args.trace:
         raise SystemExit("--workload trace requires --trace PATH")
+    if args.online_tune and lm:
+        raise SystemExit("--online-tune is not supported for --workload lm "
+                         "(kernel sessions only)")
+    if args.tune_budget < 1:
+        raise SystemExit("--tune-budget must be >= 1")
+    if args.tuned:
+        DEFAULT_DISPATCHER.load_tuned(args.tuned)
     import torch
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no card (torch.cuda.is_available() is false); "

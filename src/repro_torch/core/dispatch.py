@@ -5,6 +5,10 @@ framework into kernel launches.
     advisor, memoizing one ``Advice`` per (kernel, shape, dtype,
     hardware) so steady-state dispatch is a dict hit, not a roofline
     re-derivation.
+  * ``TuningPolicy`` -- consults a versioned ``tuned.json`` cache
+    (``repro_torch.tuning.cache``) for the winning tile configuration per
+    (kernel, engine, dtype, hardware model, shard shape) before falling
+    back to the static tile defaults.
   * ``elementwise_call`` -- the shared wrapper for same-shape
     elementwise kernels (SCALE, STREAM Triad, AXPY): one hand-written
     CUDA kernel per engine serves all three families.
@@ -21,7 +25,9 @@ waits for the result and carries the Eq. 2/3/4 roofline counters.
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
+import warnings
 from typing import Any, Callable, Dict, Hashable, Mapping, Optional
 
 import torch
@@ -34,12 +40,18 @@ from .advisor import DEFAULT_ADVISOR, Advice, EngineAdvisor
 from .intensity import KernelTraits
 
 __all__ = [
-    "BACKENDS", "DEFAULT_DISPATCHER", "Dispatcher", "check_backend",
-    "default_cache_key", "dtype_name", "elementwise_call",
-    "normalize_engine", "ELEMENTWISE_BLOCK_ROWS", "ELEMENTWISE_LANES",
+    "BACKENDS", "DEFAULT_DISPATCHER", "Dispatcher", "TUNED_CACHE_ENV",
+    "TuningPolicy", "check_backend", "default_cache_key", "dtype_name",
+    "elementwise_call", "normalize_engine", "ELEMENTWISE_BLOCK_ROWS",
+    "ELEMENTWISE_LANES",
 ]
 
 BACKENDS = ("cuda", "plain")
+
+#: Environment variable naming a tuned.json for the default policy (the
+#: port's own name, so the reference's ``REPRO_TUNED_JSON`` -- a TPU
+#: cache -- never reaches it).
+TUNED_CACHE_ENV = "REPRO_TORCH_TUNED_JSON"
 
 _ENGINE_ALIASES = {
     "mxu": "matrix", "matrix": "matrix",
@@ -130,6 +142,56 @@ def _dtype_of(args: tuple, kwargs: dict) -> Optional[str]:
     return None
 
 
+class TuningPolicy:
+    """Tile-configuration lookups against a ``tuned.json`` cache.
+
+    The policy layer between the dispatcher and
+    ``repro_torch.tuning.cache.TuningCache``: ``lookup`` returns the
+    winning entry for (kernel, engine, dtype, hw model, shard shape) or
+    None, in which case callers use the static defaults.  The default
+    policy lazily loads the path named by :data:`TUNED_CACHE_ENV`
+    (forgivingly: a corrupt or version-mismatched file warns and degrades
+    to the static defaults rather than breaking dispatch).
+    """
+
+    def __init__(self, cache=None):
+        self._cache = cache
+        self._resolved = cache is not None
+
+    @property
+    def cache(self):
+        """The backing TuningCache (lazy-loaded), or None if empty."""
+        if not self._resolved:
+            path = os.environ.get(TUNED_CACHE_ENV)
+            if path:
+                from ..tuning.cache import TuningCache
+                self._cache = TuningCache.load_or_warn(path)
+            self._resolved = True
+        return self._cache
+
+    def load(self, path: str) -> None:
+        """Point the policy at a tuned.json (forgiving load, see above)."""
+        from ..tuning.cache import TuningCache
+        self._cache = TuningCache.load_or_warn(path)
+        self._resolved = True
+
+    def set_cache(self, cache) -> None:
+        """Install an in-memory TuningCache (None = static defaults)."""
+        self._cache = cache
+        self._resolved = True
+
+    def lookup(self, kernel: str, engine: str, dtype: Optional[str],
+               hw_model: str):
+        """The full-width TunedEntry for this key, or None (use static
+        defaults).  The port launches unsharded (the mesh waits for
+        ROADMAP Queue 1 item 13), so per-shard entries are never read.
+        """
+        cache = self.cache
+        if cache is None or dtype is None:
+            return None
+        return cache.lookup(kernel, engine, dtype, hw_model)
+
+
 class Dispatcher:
     """Advisor-backed engine router with a memoized Advice cache.
 
@@ -138,8 +200,10 @@ class Dispatcher:
     the vector engine, and memoize the resulting Advice.
     """
 
-    def __init__(self, advisor: Optional[EngineAdvisor] = None):
+    def __init__(self, advisor: Optional[EngineAdvisor] = None,
+                 tuning: Optional[TuningPolicy] = None):
         self.advisor = advisor if advisor is not None else DEFAULT_ADVISOR
+        self.tuning = tuning if tuning is not None else TuningPolicy()
         self._cache: Dict[Hashable, Advice] = {}
         self._hits = 0
         self._misses = 0
@@ -164,13 +228,26 @@ class Dispatcher:
 
         The cache key is (kernel, hardware, shapes/dtypes/static params);
         the op's ``KernelTraits`` factory (W flops, Q bytes per Eq. 2)
-        only runs on a miss.  ``tile_config`` stays None: the port has
-        no tuning cache yet.
+        only runs on a miss.  The returned Advice also records the tile
+        config the TuningPolicy would apply for the chosen engine
+        (``tile_config=None`` means static defaults), so records can say
+        *which* tiles produced a number.
         """
         key_fn = op.cache_key or default_cache_key
         key = (op.name, self.hw.name, key_fn(*args, **kwargs))
-        return self._memoized(
-            key, lambda: self.advisor.advise(op.traits(*args, **kwargs)))
+
+        def make() -> Advice:
+            advice = self.advisor.advise(op.traits(*args, **kwargs))
+            entry = self.tuning.lookup(op.name, advice.engine,
+                                       _dtype_of(args, kwargs),
+                                       self.hw.name)
+            if entry is not None:
+                advice = dataclasses.replace(
+                    advice,
+                    tile_config=tuple(sorted(entry.params.items())))
+            return advice
+
+        return self._memoized(key, make)
 
     def advise_traits(self, traits: KernelTraits) -> Advice:
         """Memoized Advice (paper §6) for hand-built Eq. 2 traits."""
@@ -191,17 +268,27 @@ class Dispatcher:
 
     def tile_params(self, op, eng: str, *args,
                     **kwargs) -> Optional[Dict[str, int]]:
-        """Tuned tile params for this call: always None (static defaults)
-        until the port has a tuning cache."""
-        del op, eng, args, kwargs
-        return None
+        """The tuned tile params this call would use, or None (defaults).
+
+        Consults the TuningPolicy with the op's name, the resolved
+        engine, the call's dtype and the advisor's hardware model -- the
+        granularity winners are cached at.
+        """
+        entry = self.tuning.lookup(op.name, eng, _dtype_of(args, kwargs),
+                                   self.hw.name)
+        return dict(entry.params) if entry is not None else None
 
     def run(self, op, *args, engine: str = "auto", backend: str = "cuda",
             tile_config: Optional[Mapping[str, int]] = None, **kwargs):
-        """Advisor-route (paper §6) and launch one op.
+        """Advisor-route (paper §6), tile-tune, and launch one op.
 
-        An explicit ``tile_config`` overrides per-call kwargs it collides
-        with; its keys are validated against the op's ``tile_space``.
+        Tile precedence: an explicit ``tile_config`` overrides everything
+        (including per-call kwargs it collides with); a TuningPolicy hit
+        overrides the static defaults but *not* explicitly passed kwargs;
+        otherwise the family's static defaults apply.  An explicit config
+        naming a parameter outside the op's ``tile_space`` raises; a
+        cache entry doing so warns and drops the unknown names (a stale
+        cache is advisory, never a crash).
 
         When the :mod:`repro_torch.obs` tracer is enabled, the call is
         wrapped in a ``dispatch`` span (routing) with a nested ``launch``
@@ -230,15 +317,29 @@ class Dispatcher:
             raise ValueError(
                 f"kernel {op.name!r} has no {eng!r} variant "
                 f"(has {sorted(op.engines)})")
-        if tile_config is not None:
-            cfg = dict(tile_config)
+        explicit = tile_config is not None
+        cfg = dict(tile_config) if explicit else \
+            self.tile_params(op, eng, *args, **semantic)
+        if cfg:
             unknown = sorted(set(cfg) - set(op.tile_space))
-            if unknown:
+            if unknown and explicit:
                 raise ValueError(
                     f"kernel {op.name!r} does not accept tile "
                     f"parameter(s) {unknown}; its tile space is "
                     f"{sorted(op.tile_space) or 'empty'}")
-            kwargs = {**kwargs, **cfg}
+            if unknown:
+                from ..tuning.cache import TuningCacheWarning
+                warnings.warn(
+                    f"tuned config for {op.name}/{eng} names unknown "
+                    f"tile parameter(s) {unknown}; ignoring them "
+                    f"(tile space: {sorted(op.tile_space) or 'empty'})",
+                    TuningCacheWarning, stacklevel=2)
+                cfg = {k: v for k, v in cfg.items() if k in op.tile_space}
+            if explicit:
+                kwargs = {**kwargs, **cfg}
+            else:  # tuned values fill gaps; a None kwarg is a gap too
+                kwargs = {**kwargs, **{k: v for k, v in cfg.items()
+                                       if kwargs.get(k) is None}}
         if _span_attrs is None:
             return fn(*args, backend=backend, **kwargs)
         # traced launch: wait for the result so the span duration is the
@@ -263,6 +364,17 @@ class Dispatcher:
                 LOG.debug("roofline counters unavailable",
                           kernel=op.name, engine=eng, error=str(e))
         return out
+
+    def load_tuned(self, path: str) -> None:
+        """Adopt a tuned.json and drop the memoized Advice, which embeds
+        tile configs."""
+        self.tuning.load(path)
+        self.cache_clear()
+
+    def set_tuning_cache(self, cache) -> None:
+        """Install an in-memory TuningCache (None = static defaults)."""
+        self.tuning.set_cache(cache)
+        self.cache_clear()
 
     def cache_info(self) -> Dict[str, int]:
         """Advice-cache statistics: {size, hits, misses}."""

@@ -37,14 +37,19 @@ serving record the virtual-clock batch spans equal the logged launches,
 one queue span per completed request, and the summed span compute equals
 the log's compute total.
 
+Online-tuned sessions (``serve --online-tune``) carrying a ``tuning``
+block pass **online_ceiling** (:data:`ONLINE_CLAIMS`): every bandit key
+and router decision held to Eq. 23/24, every arm inside the family's
+``tile_space``, the arm sequence replayed byte-identically from the
+event log, the regret arithmetic and the router trajectory re-derived.
+
 Two differences from the reference, both so that nothing passes
 silently: :func:`hw_for` raises on a hardware model it does not know,
 where the reference falls back to the TPU v5e; and records that need
 claims the port does not have yet raise ``NotImplementedError`` naming
 the ROADMAP item that ports them: the mesh fields ``shard_spec`` /
-``mesh_exec`` and sharded sessions (item 13), chaos sessions carrying
-``events`` (the elastic claim, items 13-14) and online-tuned sessions
-carrying ``tuning`` (the online claim, item 12).
+``mesh_exec`` and sharded sessions (item 13) and chaos sessions carrying
+``events`` (the elastic claim, items 13-14).
 """
 from __future__ import annotations
 
@@ -59,8 +64,9 @@ from ..core.intensity import KernelTraits
 from ..obs.counters import roofline_sample
 from .records import BenchRecord, RecordSet, ServingRecord
 
-__all__ = ["CLAIMS", "ClaimResult", "MODEL_CLAIMS", "SAMPLE_CLOCKS",
-           "SERVING_CLAIMS", "TOLERANCE", "TRACE_CLAIMS", "ceiling_bound",
+__all__ = ["CLAIMS", "ClaimResult", "MODEL_CLAIMS", "ONLINE_CLAIMS",
+           "SAMPLE_CLOCKS", "SERVING_CLAIMS", "TOLERANCE", "TRACE_CLAIMS",
+           "ceiling_bound",
            "check_record", "check_records", "check_serving_record",
            "hw_for", "violations"]
 
@@ -74,6 +80,10 @@ SERVING_CLAIMS = ("ceiling", "routing", "boundedness", "percentiles",
 #: Extra claim for serving sessions that carry a model-scale verdict
 #: (lm records with a ``verdict`` payload).
 MODEL_CLAIMS = ("model_verdict",)
+
+#: Extra claim for online-tuned sessions (records with a ``tuning``
+#: payload): every bandit/router decision re-verified and replayed.
+ONLINE_CLAIMS = ("online_ceiling",)
 
 #: Extra claim for records carrying the observability ``trace`` block:
 #: the tracer's independent account of the measurement reconciles with
@@ -104,8 +114,6 @@ _WAITING = {
             "(sharding)",
     "elastic": "the elastic_integrity claim of chaos sessions waits for "
                "ROADMAP Queue 1 items 13-14 (sharding, runtime)",
-    "online": "the online_ceiling claim of online-tuned sessions waits "
-              "for ROADMAP Queue 1 item 12 (tuning)",
 }
 
 
@@ -376,6 +384,172 @@ def _verdict_checks(rec: ServingRecord,
     return [ClaimResult("model_verdict", rec, not problems, detail)]
 
 
+def _online_checks(rec: ServingRecord,
+                   hw: HardwareSpec) -> List[ClaimResult]:
+    """The ONLINE_CLAIMS check for one session's tuning payload.
+
+    The contract of :mod:`repro_torch.tuning.online` and
+    :mod:`repro_torch.serving.router`, verified from the record alone:
+
+    * **ceiling** — every bandit key's engine obeys §6/Eq. 23/24 for
+      the record's kernel: memory-bound work (Eq. 4 at the recorded
+      intensity, which Eq. 2 keeps invariant under the data split at
+      every shard width) may only ever tune *vector*-engine tiles, and
+      the same holds for every router decision's engine — an adaptive
+      control plane can never "discover" a matrix-engine win the
+      ceiling forbids;
+    * **arms** — every arm is a point of the family's declared
+      ``tile_space`` (an online tuner cannot smuggle undeclared
+      launch kwargs);
+    * **replay** — the recorded arm sequence replays byte-identically
+      through :func:`repro_torch.tuning.online.replay` from the event log
+      (same deterministic policy, same rounded observations);
+    * **regret** — per-event ``regret_us`` equals the observation
+      minus the running minimum (hence ``>= 0``), and the headline
+      ``decisions`` / ``regret_us_total`` match the event log;
+    * **router** — when the decision log is present, widths stay in
+      ``[1, max_width]`` and the whole width/explore sequence replays
+      exactly through the recorded policy knobs.
+    """
+    from ..tuning.online import replay
+    t = dict(rec.tuning or {})
+    problems: List[str] = []
+    advice = EngineAdvisor(hw).advise(
+        KernelTraits(rec.kernel, rec.intensity, 1.0))
+
+    if t.get("mode") != "online":
+        problems.append(f"tuning mode {t.get('mode')!r} != 'online'")
+    budget = int(t.get("budget", 0))
+    if budget < 1:
+        problems.append(f"bad budget {t.get('budget')!r}")
+    bonus = float(t.get("bonus", 1.0))
+    keys = dict(t.get("keys", {}))
+    total_events = regret_sum = 0.0
+
+    for key, kd in sorted(keys.items()):
+        kd = dict(kd)
+        composed = "|".join((str(kd.get("kernel")), str(kd.get("engine")),
+                             str(kd.get("dtype")),
+                             str(kd.get("shard_shape"))))
+        if composed != key:
+            problems.append(f"{key}: fields compose to {composed!r}")
+        engine = str(kd.get("engine"))
+        if engine not in ("vector", "matrix"):
+            problems.append(f"{key}: unknown engine {engine!r}")
+        if kd.get("kernel") == rec.kernel and advice.memory_bound \
+                and engine != "vector":
+            problems.append(
+                f"{key}: memory-bound kernel tuned on the {engine} "
+                f"engine — Eq. 23/24 forbids the win")
+        arms = [dict(a) for a in kd.get("arms", [])]
+        events = [dict(e) for e in kd.get("events", [])]
+        if not arms:
+            problems.append(f"{key}: no arms")
+            continue
+        try:
+            from ..kernels import registry
+            op = registry.get(str(kd.get("kernel")))
+        except KeyError:
+            op = None
+        if op is not None:
+            space = {k: {int(x) for x in v}
+                     for k, v in dict(op.tile_space).items()}
+            for i, arm in enumerate(arms):
+                bad = [p for p, v in arm.items()
+                       if p not in space or int(v) not in space[p]]
+                if bad:
+                    problems.append(f"{key}: arm {i} outside the "
+                                    f"declared tile_space ({bad})")
+        best = None
+        for i, ev in enumerate(events):
+            obs = float(ev.get("observed_us", -1.0))
+            reg = float(ev.get("regret_us", -1.0))
+            arm = int(ev.get("arm", -1))
+            if not 0 <= arm < len(arms):
+                problems.append(f"{key}: event {i} arm {arm} out of "
+                                f"range")
+                continue
+            if obs < 0.0:
+                problems.append(f"{key}: event {i} observed "
+                                f"{obs:.4g} us < 0")
+            best = obs if best is None else min(best, obs)
+            want = round(obs - best, 3)
+            if abs(reg - want) > 1e-9:
+                problems.append(f"{key}: event {i} regret {reg:.4g} != "
+                                f"observed - running min {want:.4g}")
+            regret_sum += reg
+        total_events += len(events)
+        try:
+            replayed = replay(len(arms), budget, events, bonus=bonus)
+        except (KeyError, ValueError) as exc:
+            problems.append(f"{key}: replay failed ({exc})")
+        else:
+            recorded = [int(e["arm"]) for e in events]
+            if recorded != replayed:
+                problems.append(f"{key}: arm sequence {recorded} does "
+                                f"not replay ({replayed})")
+        if events and kd.get("best_us") is not None and best is not None \
+                and abs(float(kd["best_us"]) - best) > 1e-9:
+            problems.append(f"{key}: best_us {kd['best_us']!r} != min "
+                            f"observed {best:.4g}")
+
+    if int(t.get("decisions", -1)) != int(total_events):
+        problems.append(f"decisions {t.get('decisions')!r} != "
+                        f"{int(total_events)} logged events")
+    if abs(float(t.get("regret_us_total", -1.0))
+           - round(regret_sum, 3)) > 1e-6:
+        problems.append(f"regret_us_total {t.get('regret_us_total')!r} "
+                        f"!= event sum {round(regret_sum, 3):.4g}")
+
+    router = dict(t.get("router") or {})
+    if router:
+        max_width = int(router.get("max_width", 0))
+        grow = int(router.get("grow_depth", 0))
+        shrink = int(router.get("shrink_depth", -1))
+        slo_ms = float(router.get("slo_ms", 0.0))
+        p_frac = float(router.get("pressure_frac", 0.0))
+        e_frac = float(router.get("explore_frac", 0.0))
+        if not (max_width >= 1 and 0 <= shrink < grow and slo_ms > 0):
+            problems.append(f"bad router knobs (max_width={max_width}, "
+                            f"band=[{shrink}, {grow}], slo={slo_ms})")
+        width = 1
+        for i, d in enumerate(router.get("decisions", [])):
+            d = dict(d)
+            depth = int(d.get("queue_depth", -1))
+            head = float(d.get("headroom_ms", 0.0))
+            engine = str(d.get("engine"))
+            if d.get("kernel", rec.kernel) == rec.kernel and \
+                    advice.memory_bound and engine != "vector":
+                problems.append(f"decision {i}: memory-bound batch "
+                                f"routed to {engine}")
+            want, reason = width, "hold"
+            if depth >= grow and head < slo_ms * p_frac \
+                    and width < max_width:
+                want, reason = min(max_width, width * 2), "grow"
+            elif depth <= shrink and width > 1:
+                want, reason = max(1, width // 2), "shrink"
+            width = want
+            explore = depth < grow and head >= slo_ms * e_frac
+            if int(d.get("width", -1)) != want or \
+                    str(d.get("reason")) != reason or \
+                    bool(d.get("explore")) != explore:
+                problems.append(
+                    f"decision {i}: recorded (width={d.get('width')}, "
+                    f"{d.get('reason')}, explore={d.get('explore')}) "
+                    f"!= replayed ({want}, {reason}, explore={explore})")
+            if not 1 <= int(d.get("width", 0)) <= max_width:
+                problems.append(f"decision {i}: width "
+                                f"{d.get('width')!r} outside "
+                                f"[1, {max_width}]")
+
+    detail = (f"{len(keys)} bandit keys, {int(total_events)} decisions "
+              f"replayed, total regret {round(regret_sum, 3):.4g} us, "
+              f"router decisions {len(router.get('decisions', []))}"
+              + (f"; problems: {'; '.join(problems[:4])}" if problems
+                 else ""))
+    return [ClaimResult("online_ceiling", rec, not problems, detail)]
+
+
 def check_record(rec: BenchRecord,
                  hw: HardwareSpec) -> Tuple[ClaimResult, ...]:
     """Verify the paper's claims (Eq. 4, Eq. 17/23/24, §6) for one record.
@@ -412,13 +586,12 @@ def check_serving_record(rec: ServingRecord,
     in steady state, not just per call.  Records carrying a model-scale
     ``verdict`` payload (lm sessions) additionally get one result per
     entry in :data:`MODEL_CLAIMS`, and records carrying the observability
-    ``trace`` block (serving schema 5) pass :data:`TRACE_CLAIMS`.  A
-    session with ``events`` (chaos), ``tuning`` (online) or more than one
-    shard raises ``NotImplementedError`` naming its ROADMAP item.
+    ``trace`` block (serving schema 5) pass :data:`TRACE_CLAIMS`, and
+    records carrying an online-tuning ``tuning`` payload one per entry in
+    :data:`ONLINE_CLAIMS`.  A session with ``events`` (chaos) or more than
+    one shard raises ``NotImplementedError`` naming its ROADMAP item.
     """
     what = f"{rec.kernel}/{rec.engine}/{rec.workload}/{rec.size}"
-    if rec.tuning:
-        raise NotImplementedError(f"{what}: {_WAITING['online']}")
     if rec.events:
         raise NotImplementedError(f"{what}: {_WAITING['elastic']}")
     if (rec.num_shards or 1) > 1:
@@ -458,6 +631,8 @@ def check_serving_record(rec: ServingRecord,
         results.extend(_verdict_checks(rec, hw))
     if rec.trace:
         results.extend(_serving_trace_checks(rec))
+    if rec.tuning:
+        results.extend(_online_checks(rec, hw))
     return tuple(results)
 
 

@@ -22,16 +22,18 @@ arrives as a request stream.  The layers:
   latency percentiles with queue/compute split, goodput and SLO
   attainment, emitted as schema-4 records for ``repro_torch.report`` and
   the ``repro_torch.bench.compare`` p99/goodput gate.
+* :mod:`repro_torch.serving.router` -- the SLO-aware control plane
+  (:class:`SLORouter`) and the online-tuning executor
+  (:class:`OnlineKernelBatchExecutor`, whose tile bandit is
+  :mod:`repro_torch.tuning.online`), at width 1.
 * :mod:`repro_torch.serving.session` -- the one-call session runner.
 
 Entry points: ``python -m repro_torch.bench serve`` (record-producing
 sweeps) and ``python -m repro_torch.launch.serve`` (LM serving).
 
-Not ported yet: ``router`` (the SLO-aware control plane and the
-online-tuning executor; ROADMAP Queue 1 item 12, which brings
-``tuning.online``) and ``elastic`` (the fault-tolerant session; items
-13-14, which bring ``ShardPlan``, ``runtime/checkpoint`` and
-``runtime/elastic``).
+Not ported yet: ``elastic`` (the fault-tolerant session; items 13-14,
+which bring ``ShardPlan``, ``runtime/checkpoint`` and
+``runtime/elastic``), and the router's widths above 1 (item 13).
 """
 from .batcher import KernelBatchExecutor
 from .loadgen import (WORKLOADS, BurstyLoadGen, ClosedLoopLoadGen, LoadGen,
@@ -41,6 +43,7 @@ from .lm import LMDecodeExecutor, decode_traits
 from .metrics import (ServingSummary, format_summary, percentile,
                       serving_record, summarize)
 from .requests import LM_DECODE, Request, RequestResult
+from .router import OnlineKernelBatchExecutor, RouterDecision, SLORouter
 from .scheduler import (BatchExecution, BatchPolicy,
                         ContinuousBatchingScheduler, ServingLog)
 from .session import SessionConfig, run_session
@@ -49,8 +52,9 @@ from .slo import DEFAULT_SLO, SLO
 __all__ = [
     "BatchExecution", "BatchPolicy", "BurstyLoadGen", "ClosedLoopLoadGen",
     "ContinuousBatchingScheduler", "DEFAULT_SLO", "KernelBatchExecutor",
-    "LMDecodeExecutor", "LM_DECODE", "LoadGen", "PoissonLoadGen", "Request",
-    "RequestResult", "SLO", "ServingLog", "ServingSummary", "SessionConfig",
+    "LMDecodeExecutor", "LM_DECODE", "LoadGen", "OnlineKernelBatchExecutor",
+    "PoissonLoadGen", "Request", "RequestResult", "RouterDecision", "SLO",
+    "SLORouter", "ServingLog", "ServingSummary", "SessionConfig",
     "TraceLoadGen", "WORKLOADS", "decode_traits", "format_summary",
     "load_trace", "make_loadgen", "percentile", "run_session", "save_trace",
     "serving_record", "summarize",

@@ -7,7 +7,8 @@ the family is elementwise (its call arguments are scalars plus
 same-length 1-D tensors: SCALE, STREAM Triad, AXPY), by concatenating
 each tensor argument across requests on the device and zero-padding to
 a *fixed capacity* derived from the policy's ``max_batch`` and the
-dispatch layer's tile shape (``block_rows x lanes``).  Fixed-capacity
+dispatch layer's tile shape (``block_rows x lanes``: the tuned one when
+the dispatcher's cache holds one, else the static default).  Fixed-capacity
 packing keeps every launch of a (kernel, dtype, engine) triple at one
 shape, and engine selection is the dispatcher's memoized Advice (paper
 §6): a dict hit, not a roofline re-derivation, as the paper's
@@ -42,8 +43,9 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..core.dispatch import (BACKENDS, ELEMENTWISE_BLOCK_ROWS,
-                             ELEMENTWISE_LANES, normalize_engine)
+from ..core.dispatch import (BACKENDS, DEFAULT_DISPATCHER,
+                             ELEMENTWISE_BLOCK_ROWS, ELEMENTWISE_LANES,
+                             normalize_engine)
 from ..kernels import registry
 from ..models.engine import resolve_device
 from .requests import Request
@@ -125,27 +127,34 @@ class KernelBatchExecutor:
             saw_array = True
         return saw_array
 
-    def _capacity(self, total: int) -> int:
+    def _capacity(self, kernel: str, engine: str, total: int,
+                  dtype: str) -> int:
         """Packed length: max_batch x per-request size, tile-rounded.
 
-        The tile is the static ``ELEMENTWISE_BLOCK_ROWS x
-        ELEMENTWISE_LANES`` (256 x 1024), which is the reference's own
-        result when no tuned entry exists; the port has no tuning cache
-        until ROADMAP Queue 1 item 12.  The elementwise kernel's launch
-        does not depend on this tile (one 16-byte chunk per thread, see
-        ``elementwise_call``): the padding only follows the reference, so
-        that the packed shapes are its shapes.
+        Uses the tile shape dispatch would launch with (the tuned
+        ``block_rows`` / ``lanes`` when the default dispatcher's cache
+        holds them, the static 256 x 1024 otherwise), as the reference
+        does.  The elementwise kernel's launch does not depend on this
+        tile (one 16-byte chunk per thread, see ``elementwise_call``):
+        the padding follows the reference, so that the packed shapes are
+        its shapes.
         """
-        tile = ELEMENTWISE_BLOCK_ROWS * ELEMENTWISE_LANES
+        entry = DEFAULT_DISPATCHER.tuning.lookup(
+            kernel, engine, dtype, DEFAULT_DISPATCHER.hw.name)
+        cfg = dict(entry.params) if entry is not None else {}
+        tile = (cfg.get("block_rows", ELEMENTWISE_BLOCK_ROWS)
+                * cfg.get("lanes", ELEMENTWISE_LANES))
         cap = max(total, 1)
         return -(-cap // tile) * tile  # ceil to a whole tile count
 
     def _tile_override(self, op, engine: str, dtype: str):
         """Per-launch tile-config override hook (None = dispatch decides).
 
-        The base executor never overrides; the online-tuning executor of
-        ROADMAP Queue 1 item 12 will, to inject the bandit's current arm
-        into packed launches.
+        The base executor never overrides: tuned tiles come from the
+        dispatcher's TuningPolicy.  The online-tuning executor
+        (:class:`repro_torch.serving.router.OnlineKernelBatchExecutor`)
+        overrides it to inject the bandit's current arm into packed
+        launches.
         """
         del op, engine, dtype
         return None
@@ -190,8 +199,9 @@ class KernelBatchExecutor:
         # scheduler policy with a larger max_batch than ours costs one
         # more launch shape instead of a crash
         total = sum(r.size for r in batch)
-        cap = self._capacity(max(self.max_batch * max(r.size for r in batch),
-                                 total))
+        cap = self._capacity(op.name, engine,
+                             max(self.max_batch * max(r.size for r in batch),
+                                 total), dtype)
         packed = []
         for i, a in enumerate(per_req[0][0]):
             if _is_scalar(a):

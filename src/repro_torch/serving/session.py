@@ -8,12 +8,15 @@ session log, its latency summary, and the schema-4 record dict ready for
 ``repro_torch.bench.common.write_serving_json``.
 
 Sessions run on the card unless the config asks for the CPU
-(``device="cpu"``, ``backend="plain"``).  What waits, and raises
-``NotImplementedError`` naming its ROADMAP Queue 1 item: online tile
-tuning and SLO routing (``online_tune`` / ``slo_route``, item 12) and the
-mesh (``num_shards > 1`` / ``real_mesh``, item 13).  The reference's
-``checkpoint_session`` and ``redispatch_failed_shard`` come with the
-elastic session (items 13-14).
+(``device="cpu"``, ``backend="plain"``).  ``online_tune`` serves through
+:class:`~repro_torch.serving.router.OnlineKernelBatchExecutor`: a
+budgeted bandit re-tunes tiles from measured batch compute, warm-started
+from the default dispatcher's tuning cache, and the record gains a
+``tuning`` block.  What waits, and raises ``NotImplementedError`` naming
+its ROADMAP Queue 1 item: SLO routing (``slo_route``, whose router grows
+the mesh) and the mesh (``num_shards > 1`` / ``real_mesh``), item 13.
+The reference's ``checkpoint_session`` and ``redispatch_failed_shard``
+come with the elastic session (items 13-14).
 """
 from __future__ import annotations
 
@@ -33,10 +36,6 @@ __all__ = ["BACKEND_FOR_DEVICE", "SessionConfig", "run_session"]
 
 #: The backend that runs where the session's tensors live.
 BACKEND_FOR_DEVICE = {"cuda": "cuda", "cpu": "plain"}
-
-#: Where online tuning and SLO routing wait.
-TUNING_WAITS = ("online tuning and SLO routing wait for ROADMAP Queue 1 "
-                "item 12 (tuning)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,8 +60,14 @@ class SessionConfig:
     trace_path: Optional[str] = None
     num_shards: int = 1          # mesh shards per launch (1 = no mesh)
     real_mesh: bool = False
+    # online tile tuning: a budgeted bandit re-tunes from measured batch
+    # compute times (repro_torch.tuning.online); the record gains a
+    # `tuning` block
     online_tune: bool = False
+    # SLO-aware routing (repro_torch.serving.router.SLORouter); requires
+    # online_tune, and its mesh widths wait for ROADMAP item 13
     slo_route: bool = False
+    tune_budget: int = 8         # bandit exploration pulls per key
     device: str = "cuda"
     backend: str = "cuda"
 
@@ -89,13 +94,23 @@ def run_session(cfg: SessionConfig, executor=None,
     if cfg.slo_route and not cfg.online_tune:
         raise ValueError("slo_route requires online_tune: the router's "
                          "exploration gate drives the online tuner")
-    if cfg.online_tune:
-        raise NotImplementedError(TUNING_WAITS)
     if cfg.num_shards > 1 or cfg.real_mesh:
         raise NotImplementedError(
             f"num_shards={cfg.num_shards}, real_mesh={cfg.real_mesh}: "
             f"{MESH_WAITS}")
-    if executor is None:
+    if executor is None and cfg.online_tune:
+        from ..core.dispatch import DEFAULT_DISPATCHER
+        from ..tuning.online import OnlineTuner
+        from .router import OnlineKernelBatchExecutor, SLORouter
+        tuner = OnlineTuner(cfg.tune_budget,
+                            cache=DEFAULT_DISPATCHER.tuning.cache,
+                            hw_model=DEFAULT_DISPATCHER.hw.name)
+        router = (SLORouter(slo_ms=cfg.slo.latency_ms) if cfg.slo_route
+                  else None)
+        executor = OnlineKernelBatchExecutor(
+            engine=cfg.engine, max_batch=cfg.policy.max_batch,
+            seed=cfg.seed, backend=cfg.backend, tuner=tuner, router=router)
+    elif executor is None:
         executor = KernelBatchExecutor(engine=cfg.engine,
                                        max_batch=cfg.policy.max_batch,
                                        seed=cfg.seed, backend=cfg.backend)
@@ -133,5 +148,6 @@ def run_session(cfg: SessionConfig, executor=None,
         max_wait_ms=cfg.policy.max_wait_s * 1e3,
         num_shards=cfg.num_shards, mesh_exec_mode=None,
         model=extras.get("model"), phases=extras.get("phases"),
-        verdict=extras.get("verdict"), trace=trace)
+        verdict=extras.get("verdict"), tuning=extras.get("tuning"),
+        trace=trace)
     return log, summary, record

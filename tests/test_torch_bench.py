@@ -8,12 +8,15 @@
   written file loads back unchanged.
 * The Table 1 / Eq. 14/23/24 rows and the Fig. 2 roofline rows equal the
   reference's for every platform both packages have.
-* The CLI refuses what is not ported, naming the ROADMAP item.
+* The CLI refuses what is not ported, naming the ROADMAP item, and
+  ``tune --device cpu`` before timing anything; ``--tuned FILE`` sweeps
+  launch with the cached tiles and record them in ``tile_config``.
 * On the card (``gpu``): a sweep at ``test_size`` writes records that pass
   every claim, and the tracer does not move the recorded median.
 """
 import dataclasses
 import json
+import os
 
 import numpy as np
 import pytest
@@ -192,15 +195,60 @@ def test_tracer_overhead_reports_both_sides():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["tune"], "item 12"), (["serve", "--chaos", "fail@0.1:1"],
-                            "items 13-14"),
-    (["report"], "render"), (["scale", "--mesh", "2"], "item 13"),
-    (["scale", "--real"], "item 13"), (["scale", "--tuned", "t.json"],
-                                        "item 12"),
+    (["serve", "--slo-route"], "item 13"),
+    (["serve", "--chaos", "fail@0.1:1"], "items 13-14"),
+    (["report", "--mesh", "2"], "item 13"), (["scale", "--mesh", "2"],
+                                             "item 13"),
+    (["scale", "--real"], "item 13"), (["tune", "--device", "cpu"],
+                                       "refused at persist"),
 ])
 def test_cli_refuses_what_is_not_ported(argv, item):
     with pytest.raises(SystemExit, match=item):
         bench_run.main(argv)
+
+
+def test_tune_refuses_the_cpu_before_timing(monkeypatch, tmp_path):
+    from repro_torch.bench import tune
+    monkeypatch.setattr(tune, "tune_op", None)  # never reached
+    out = tmp_path / "tuned.json"
+    with pytest.raises(SystemExit) as stop:
+        bench_run.main(["tune", "--device", "cpu", "--out", str(out)])
+    assert stop.value.code != 0 and "plain versions" in str(stop.value.code)
+    assert not out.exists()
+
+
+def test_tune_default_out_is_under_build():
+    from repro_torch.bench import tune
+    assert tune.DEFAULT_OUT == os.path.join("build", "runs_torch",
+                                            "tuned.json")
+
+
+def test_cli_tuned_sweep_records_its_tiles(tmp_path, capsys):
+    from repro_torch.core.dispatch import DEFAULT_DISPATCHER
+    from repro_torch.tuning import TunedEntry, TuningCache
+    hw = DEFAULT_DISPATCHER.hw.name
+    path = str(tmp_path / "tuned.json")
+    TuningCache([
+        TunedEntry("stencil", "vector", "float32", hw, {"block_rows": 32},
+                   290.0, 300.0, 8192),
+        TunedEntry("attention", "matrix", "bfloat16", hw, {"block_s": 128},
+                   150.0, 151.0, 32768),
+    ]).save(path)
+    out = tmp_path / "runs"
+    bench_run.main(["stencil", "attention", "--device", "cpu", "--out",
+                    str(out), "--tuned", path])
+    csv = capsys.readouterr().out
+    assert "tiles=block_rows=32" in csv and "tiles=block_s=128" in csv
+    recs = {rs.kernel: rs.records for rs in load_dir(str(out))}
+    for rec in recs["stencil"]:
+        want = ({"params": {"block_rows": 32}, "tuned_us": 290.0,
+                 "default_us": 300.0, "source": "cuda"}
+                if rec.engine == "vector" else None)
+        assert rec.tile_config == want
+    tiled = [r for r in recs["attention"] if r.tile_config]
+    assert {(r.engine, r.dtype) for r in tiled} == {("matrix", "bfloat16")}
+    assert tiled[0].tuned_speedup == pytest.approx(151.0 / 150.0)
+    assert not violations(check_records(load_dir(str(out))))
 
 
 @pytest.mark.parametrize("argv,match", [

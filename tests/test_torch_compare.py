@@ -3,9 +3,11 @@ reference's ``repro.report`` and ``benchmarks/compare.py``.
 
 * On the committed serving record sets the port's ``check_records``
   gives the reference's ``(claim, passed, detail)`` list, record for
-  record; sets that need claims the port does not have yet (online
-  tuning, chaos / mesh) raise ``NotImplementedError`` naming their
-  ROADMAP item.
+  record, the online-tuned sets' ``online_ceiling`` included; sets that
+  need claims the port does not have yet (chaos / mesh) raise
+  ``NotImplementedError`` naming their ROADMAP item.
+* The online regret gate gives the reference's failure lists on joined
+  online pairs.
 * On the baseline / candidate directories the reference's own tests
   build, ``repro_torch.bench.compare`` gives the reference's pass / fail
   and failure list, message for message.
@@ -25,8 +27,8 @@ from repro.report import check_records as j_check_records  # noqa: E402
 from repro.report import load_dir as j_load_dir  # noqa: E402
 
 from repro_torch.bench import compare as p_compare  # noqa: E402
-from repro_torch.report import (MODEL_CLAIMS, SERVING_CLAIMS,  # noqa: E402
-                                TRACE_CLAIMS, check_records,
+from repro_torch.report import (MODEL_CLAIMS, ONLINE_CLAIMS,  # noqa: E402
+                                SERVING_CLAIMS, TRACE_CLAIMS, check_records,
                                 check_serving_record, hw_for, load_dir,
                                 violations)
 
@@ -118,14 +120,105 @@ def test_edited_session_fails_the_same_claim(tmp_path, name, how, claim):
 
 
 @pytest.mark.parametrize("name,item", [
-    ("BENCH_serve_scale_online.json", "item 12"),
-    ("BENCH_serve_axpy_online.json", "item 12"),
     ("BENCH_serve_scale_mesh2.json", "items 13-14"),
 ])
 def test_serving_sets_needing_unported_claims_raise(tmp_path, name, item):
     shutil.copy(RUNS / name, tmp_path)
     with pytest.raises(NotImplementedError, match=item):
         check_records(load_dir(str(tmp_path)))
+
+
+@pytest.mark.parametrize("name", ["scale", "axpy"])
+def test_online_sets_match_reference_verdicts(tmp_path, name):
+    shutil.copy(RUNS / f"BENCH_serve_{name}_online.json", tmp_path)
+    got = check_records(load_dir(str(tmp_path)))
+    want = j_check_records(j_load_dir(str(tmp_path)))
+    assert _triples(got) == _triples(want)
+    online = [r for r in got if r.claim in ONLINE_CLAIMS]
+    assert len(online) == 1 and online[0].passed
+    assert "decisions replayed" in online[0].detail
+
+
+def _online_payload(name="scale"):
+    return json.loads(
+        (RUNS / f"BENCH_serve_{name}_online.json").read_text())
+
+
+def _tamper_events(payload):
+    """Swap two logged arms: the recorded sequence no longer replays."""
+    (key,) = payload["records"][0]["tuning"]["keys"]
+    events = payload["records"][0]["tuning"]["keys"][key]["events"]
+    events[1]["arm"], events[2]["arm"] = events[2]["arm"], events[1]["arm"]
+
+
+def _tamper_engine(payload):
+    """Tune a memory-bound kernel on the matrix engine."""
+    t = payload["records"][0]["tuning"]
+    (key,) = t["keys"]
+    kd = t["keys"].pop(key)
+    kd["engine"] = "matrix"
+    t["keys"][key.replace("|vector|", "|matrix|")] = kd
+
+
+@pytest.mark.parametrize("tamper", [_tamper_events, _tamper_engine])
+def test_tampered_online_record_fails_as_in_reference(tmp_path, tamper):
+    payload = _online_payload()
+    tamper(payload)
+    (tmp_path / "BENCH_serve_scale_online.json").write_text(
+        json.dumps(payload))
+    got = check_records(load_dir(str(tmp_path)))
+    assert _triples(got) == _triples(j_check_records(j_load_dir(
+        str(tmp_path))))
+    assert [r.claim for r in violations(got)] == ["online_ceiling"]
+
+
+def _scaled_regret(factor):
+    def edit(payload):
+        t = payload["records"][0]["tuning"]
+        t["regret_us_total"] = round(t["regret_us_total"] * factor, 3)
+    return edit
+
+
+def _other_budget(payload):
+    payload["records"][0]["tuning"]["budget"] = 4
+
+
+ONLINE_CANDIDATES = {
+    "identical": lambda payload: None,
+    "more_regret": _scaled_regret(2.0),
+    "less_regret": _scaled_regret(0.5),
+    "budget": _other_budget,
+    "dropped": None,
+}
+
+
+@pytest.mark.parametrize("threshold", [0.25, 5.0])
+@pytest.mark.parametrize("case", sorted(ONLINE_CANDIDATES))
+def test_regret_gate_matches_reference(tmp_path, case, threshold):
+    base, cand = _dirs(tmp_path)
+    for name in ("scale", "axpy"):
+        shutil.copy(RUNS / f"BENCH_serve_{name}_online.json", base)
+    shutil.copy(RUNS / "BENCH_serve_axpy_online.json", cand)
+    if ONLINE_CANDIDATES[case] is not None:
+        payload = _online_payload()
+        ONLINE_CANDIDATES[case](payload)
+        (cand / "BENCH_serve_scale_online.json").write_text(
+            json.dumps(payload))
+    msgs = _both(base, cand, threshold=threshold)
+    got = p_compare.gate(str(base), str(cand), threshold=threshold)
+    want = j_compare.gate(str(base), str(cand), threshold=threshold)
+    assert got.summary_table() == want.summary_table()
+    if case == "identical":
+        assert msgs == ""
+    elif case == "more_regret":
+        # the edited total no longer sums its events: a claim violation
+        # at any threshold, and a regret regression past 25%
+        assert "[online_ceiling]" in msgs
+        assert ("perf regression" in msgs) == (threshold < 1)
+    elif case == "budget":
+        assert "config mismatch" in msgs and "tune_budget=8 vs 4" in msgs
+    elif case == "dropped":
+        assert "missing: serving" in msgs
 
 
 def test_sharded_session_without_events_raises(tmp_path):
@@ -345,7 +438,6 @@ def test_engine_and_oracle_medians_never_gate_each_other(tmp_path):
 
 
 @pytest.mark.parametrize("name,item", [
-    ("BENCH_serve_scale_online.json", "item 12"),
     ("BENCH_serve_scale_mesh2.json", "items 13-14"),
     ("BENCH_scale_mesh2.json", "item 13"),
 ])
@@ -390,14 +482,53 @@ def test_serve_cli_lm_records_verify(tmp_path):
 
 @pytest.mark.parametrize("argv,item", [
     (["--chaos", "fail@0.1:1"], "items 13-14"),
-    (["--online-tune"], "item 12"), (["--slo-route"], "item 12"),
-    (["--tuned", "t.json"], "item 12"),
+    (["--online-tune", "--slo-route"], "item 13"), (["--slo-route"],
+                                                    "item 13"),
+    (["--online-tune", "--workload", "lm"], "kernel sessions only"),
     (["--mesh", "2"], "item 13"), (["--real"], "item 13"),
 ])
 def test_serve_cli_refuses_what_waits(argv, item):
     from repro_torch.bench import serve
     with pytest.raises(SystemExit, match=item):
         serve.main(["--device", "cpu"] + argv)
+
+
+def test_serve_cli_online_tune_persists_and_gates(tmp_path):
+    """--tuned loads a cache the bandit warm-starts from; the online
+    sessions' records pass every claim and gate against themselves with
+    the regret gate, and tuned-online.json adds their winners to the
+    loaded entries."""
+    from repro_torch.bench import serve
+    from repro_torch.core.dispatch import DEFAULT_DISPATCHER
+    from repro_torch.tuning import TunedEntry, TuningCache
+    hw = DEFAULT_DISPATCHER.hw.name
+    tuned = str(tmp_path / "tuned.json")
+    warm = {"block_rows": 512, "lanes": 512}
+    # a kernel time no batch wall can beat: the loaded entry survives
+    TuningCache([TunedEntry("scale", "vector", "float32", hw, warm, 0.001,
+                            0.002, 2**26)]).save(tuned)
+    out = tmp_path / "serve"
+    try:
+        assert serve.main(["--device", "cpu", "--size", "4096",
+                           "--duration", "0.2", "--kernels", "scale,axpy",
+                           "--online-tune", "--tune-budget", "3",
+                           "--tuned", tuned, "--out", str(out)]) == 0
+    finally:
+        DEFAULT_DISPATCHER.set_tuning_cache(None)
+    names = sorted(p.name for p in out.iterdir())
+    assert names == ["BENCH_serve_axpy.json", "BENCH_serve_axpy_online.json",
+                     "BENCH_serve_scale.json",
+                     "BENCH_serve_scale_online.json", "tuned-online.json"]
+    sets = load_dir(str(out))
+    assert not violations(check_records(sets))
+    (scale,) = [rs for rs in sets if rs.path.endswith("scale_online.json")]
+    kd = scale.records[0].tuning["keys"]["scale|vector|float32|full"]
+    assert kd["warm_source"] == "cache" and kd["arms"][0] == warm
+    assert kd["committed_us"] == 0.001
+    assert p_compare.compare(str(out), str(out)) == []
+    persisted = TuningCache.load(str(out / "tuned-online.json"))
+    got = {(e.kernel, e.source) for e in persisted}
+    assert got == {("scale", "cuda"), ("axpy", "online")}
 
 
 def test_launch_serve_on_the_cpu(capsys):

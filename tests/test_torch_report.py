@@ -6,8 +6,8 @@
 * A hand-edited record fails the same claim in both packages.
 * Where the reference passes silently the port refuses: an unknown
   ``hw_model`` raises, and record sets needing claims the port does not
-  have yet (mesh, chaos and online-tuned sessions) raise
-  ``NotImplementedError`` naming their ROADMAP item.
+  have yet (mesh and chaos sessions) raise ``NotImplementedError``
+  naming their ROADMAP item.
 """
 import json
 import pathlib
@@ -134,7 +134,6 @@ def test_known_hw_models_resolve(tmp_path, hw_model):
 
 
 @pytest.mark.parametrize("name,item", [
-    ("BENCH_serve_scale_online.json", "item 12"),
     ("BENCH_serve_scale_mesh2.json", "items 13-14"),
     ("BENCH_scale_mesh2.json", "item 13"),
     ("BENCH_stencil_mesh2.json", "item 13"),

@@ -20,6 +20,8 @@ What must agree, and how closely:
 
 The reference's policy, starvation, fairness, tie-break and
 oversized-batch tests run here as cases over seeds against the port.
+The SLO router decides as the reference's on the same signals, and an
+online-tuned session's record replays through ``online_ceiling``.
 """
 import dataclasses
 import json
@@ -475,9 +477,10 @@ def test_session_end_to_end_verifies(tmp_path):
 
 
 @pytest.mark.parametrize("kwargs,exc,match", [
-    ({"online_tune": True}, NotImplementedError, "item 12"),
+    ({"online_tune": True, "num_shards": 2}, NotImplementedError,
+     "item 13"),
     ({"online_tune": True, "slo_route": True}, NotImplementedError,
-     "item 12"),
+     "item 13"),
     ({"slo_route": True}, ValueError, "requires online_tune"),
     ({"num_shards": 2}, NotImplementedError, "item 13"),
     ({"real_mesh": True}, NotImplementedError, "item 13"),
@@ -552,3 +555,76 @@ def test_card_packed_batch_bit_equal_per_request_kernel(card, kernel,
         assert torch.equal(out[off:off + n], op(*args, engine=engine, **kw))
         off += n
     assert not bool(out[off:].any())
+
+
+# -- online tuning and the SLO router ------------------------------------------
+
+_SIGNALS = [(0.001 * i, depth, wait) for i, (depth, wait) in enumerate(
+    [(1, 0.0), (20, 30.0), (20, 45.0), (17, 10.0), (3, 5.0), (2, 1.0),
+     (0, 0.0), (16, 26.0), (40, 49.0), (15, 24.9), (1, 60.0)])]
+
+
+@pytest.mark.parametrize("max_width,grow,shrink", [(1, 16, 2), (4, 16, 2),
+                                                   (8, 4, 0)])
+def test_slo_router_decides_as_the_reference(max_width, grow, shrink):
+    from repro.serving.router import SLORouter as JRouter
+    kw = dict(slo_ms=50.0, max_width=max_width, grow_depth=grow,
+              shrink_depth=shrink)
+    router, jrouter = P.SLORouter(**kw), JRouter(**kw)
+    for clock, depth, wait in _SIGNALS:
+        got = router.decide(clock_s=clock, engine="vector",
+                            queue_depth=depth, oldest_wait_ms=wait)
+        want = jrouter.decide(clock_s=clock, engine="vector",
+                              queue_depth=depth, oldest_wait_ms=wait)
+        assert got.to_json() == want.to_json()
+    assert router.payload() == jrouter.payload()
+
+
+def test_online_executor_refuses_widths_above_one():
+    with pytest.raises(NotImplementedError, match="item 13"):
+        P.OnlineKernelBatchExecutor(backend="plain",
+                                    router=P.SLORouter(max_width=2))
+
+
+@pytest.mark.parametrize("kernel", ["scale", "triad", "axpy"])
+def test_online_session_records_replay(kernel):
+    """An online session on the plain backend: one bandit decision per
+    packed batch, the arms the reference's candidates, explored in
+    order."""
+    from repro.tuning.tuner import candidates as j_candidates
+    cfg = P.SessionConfig(kernel=kernel, rate_rps=64.0, duration_s=0.3,
+                          size=4096, device="cpu", backend="plain",
+                          online_tune=True, tune_budget=4)
+    log, summary, record = P.run_session(cfg)
+    t = record["tuning"]
+    key = f"{kernel}|vector|float32|full"
+    assert list(t["keys"]) == [key] and t["budget"] == 4
+    assert t["decisions"] == len(log.batches) == summary.batches
+    arms = t["keys"][key]["arms"]
+    assert arms == [dict(sorted(a.items())) for a in
+                    j_candidates(j_registry.get(kernel), 4)]
+    assert [e["arm"] for e in t["keys"][key]["events"]][:4] == [0, 1, 2, 3]
+    assert record["engine"] == record["engine_auto"] == "vector"
+
+
+def test_online_session_with_a_width_one_router(tmp_path):
+    from repro_torch.bench.common import bench_env, write_serving_json
+    from repro_torch.report import check_records, load_file, violations
+    from repro_torch.tuning import OnlineTuner
+    router = P.SLORouter(slo_ms=50.0, max_width=1)
+    ex = P.OnlineKernelBatchExecutor(backend="plain", tuner=OnlineTuner(3),
+                                     router=router)
+    cfg = P.SessionConfig(kernel="axpy", rate_rps=64.0, duration_s=0.3,
+                          size=4096, device="cpu", backend="plain",
+                          online_tune=True, tune_budget=3)
+    log, _, record = P.run_session(cfg, executor=ex)
+    decisions = record["tuning"]["router"]["decisions"]
+    assert len(decisions) == len(log.batches)
+    assert {d["width"] for d in decisions} == {1}
+    path = write_serving_json("axpy", [record], str(tmp_path),
+                              env=bench_env("cpu", "H100-SXM5"),
+                              suffix="_online")
+    assert path.endswith("BENCH_serve_axpy_online.json")
+    results = check_records([load_file(path)])
+    assert not violations(results)
+    assert "online_ceiling" in {r.claim for r in results}

@@ -71,7 +71,7 @@ def test_op_metadata_matches_reference(name):
         assert getattr(pop, field) == getattr(jop, field), field
     assert dict(pop.tile_space) == dict(jop.tile_space)
     assert dict(pop.tile_defaults) == dict(jop.tile_defaults)
-    assert pop.tune_proxy is None  # arrives with the tuning slice
+    assert pop.tune_proxy is None  # the port times the kernels themselves
 
 
 @pytest.mark.parametrize("name,dtype", CASES, ids=CASE_IDS)
