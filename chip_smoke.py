@@ -11,7 +11,10 @@ traffic of each family through the continuous-batching scheduler, the
 elementwise requests packed into one launch per batch.  LM decode
 serving: Mistral-NeMo-12B at full width and depth (random float32
 weights from a seed) serves seeded traffic through the same scheduler,
-every layer's decode attention through the flash-decode kernel.  Tile
+every layer's decode attention through the flash-decode kernel; then the
+MoE family, DeepSeek-V2-Lite-16B (MLA, 64 + 2 experts) at full width and
+depth and Qwen3-MoE-235B-A22B (128 experts, flash-decode at 16 query
+heads per KV head) at full width, 6 of its 94 layers.  Tile
 tuning and the report: the tunable kernels' tiles searched on the card,
 the STREAM sweep run again with the winners, SCALE / Triad / AXPY served
 with an online tile bandit, and the whole record directory rendered as
@@ -33,14 +36,18 @@ Phases, each fatal on failure:
      mod 4 (the 4-byte load path), domains smaller than one tile, leading
      extents that no block divides, and a 3-D radius-3 star at t = 3 (the
      largest halo); flash-decode at kv_len edges where whole ranges lie
-     past kv_len, each also bit for bit against reading every position;
+     past kv_len, each also bit for bit against reading every position, at
+     G = 4 (head tile 8) and G = 16 and 12 (head tile 16);
   4. the experiment at STREAM size (every array >= 4x the 50 MiB L2):
      launch counts reset before it and read after it, one JSON line per
      point and engine, with the host's enqueue time and torch.profiler's
      device time per call, then each output held against its plain
      version (the stencils and the elementwise kernels bit for bit);
-  5. library yardsticks (one PyTorch call computing the same function),
-     and SpMV's byte bound in CSR;
+     flash-decode at Mistral-NeMo's decode shape (G = 4) and at
+     Qwen3-MoE's (B 4, KH 4, G 16, Dh 128, S 32768, kv_len 28672);
+  5. library yardsticks (one PyTorch call computing the same function;
+     one line per flash-decode point with SDPA's time), and SpMV's byte
+     bound in CSR;
   6. the paper's steps 4-5 through the port's own sweep and claims:
      repro_torch.bench.bench_kernels.records_for for every family at the
      reference's bench_sizes and at the STREAM points, launch counts reset
@@ -73,6 +80,20 @@ Phases, each fatal on failure:
      teacher-forced decode step held against the plain dense-attention
      path, prefill and per-step times; BENCH_serve_lm-mistral-nemo-12b.json
      written and verified, the model verdict at full width included;
+ 8b. the MoE family the same way: DeepSeek-V2-Lite-16B at full width
+     and depth (~63 GB), one session (MLA decodes in latent space: 0
+     flash-decode launches, the engine flag does not apply), the served
+     engine's decode step (absorbed MLA, decode MoE) on the caches of a
+     prefill with the MoE capacity lifted, held against forward over the
+     prompt plus that token, capacity lifted too; Qwen3-MoE-235B-A22B at
+     full width cut to 6 of 94 layers (64.7 GB), one session per
+     flash-decode engine on one set of weights, (batches + 1) x 6 x 15
+     launches each, its step held against the dense-attention path.  Per
+     session: weights_gb, init_s, prefill and per-step times (traced and
+     untraced), the step beside the traits bound (the experts a step
+     touches) and the all-weights bound, the device-busy share and top
+     kernels of one profiled step, the MoE FFNs' device time per step;
+     BENCH_serve_lm-<model>.json written and verified;
   9. tile tuning: repro_torch.tuning.tune_op for SCALE / Triad / AXPY,
      the stencils and flash-decode on both engines at their STREAM
      points (phase 4's inputs), every candidate of the family's tile
@@ -103,6 +124,7 @@ repository's sources beside this file.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import pathlib
 import re
@@ -161,6 +183,9 @@ MODEL = "mistral-nemo-12b"
 MODEL_BATCH, PROMPT_LEN, MAX_GEN = 4, 496, 16
 #: Its traffic: the reference's ``serve --workload lm`` defaults.
 LM_RPS, LM_DURATION_S, LM_SLO_MS = 8.0, 1.0, 30000.0
+#: Phase 8b: Qwen3-MoE-235B-A22B's layers on one card (6 of 94: 64.7 GB
+#: of float32 weights with the embedding and head).
+MOE_QWEN_LAYERS = 6
 #: The families with a tile space, tuned on both engines in phase 9.
 TUNED = ("scale", "triad", "axpy", "stencil", "attention")
 #: The online bandit's exploration pulls per key (the reference's default).
@@ -435,7 +460,8 @@ def main() -> int:
     # S - 16, its unaligned serving lengths, and an all-masked cache
     attn_cases = [(b, s, kh, g, dh, s - 16) for b, s, kh, g, dh in
                   ((1, 512, 2, 4, 64), (2, 1024, 4, 8, 128),
-                   (1, 256, 1, 1, 32))]
+                   (1, 256, 1, 1, 32), (2, 512, 2, 16, 128),
+                   (1, 256, 1, 12, 64))]
     attn_cases += [(2, s, 1, 2, 16, kv) for s, kv in ((12, 9), (24, 24),
                                                       (56, 1))]
     attn_cases += [(1, 512, 2, 4, 64, 0)]
@@ -455,21 +481,23 @@ def main() -> int:
                           floor=ATTN_FLOOR)
                     n_checks += 1
     # flash-decode where whole ranges lie past kv_len: (b, s, kh, g, dh) =
-    # (2, 1024, 2, 4, 128) cuts the cache into ranges of 64 positions. Each
+    # (2, 1024, 2, g, 128) cuts the cache into ranges of 64 positions. Each
     # kv_len >= 1 is also held bit for bit against the same kernel reading
-    # every range and position (end = S), as the reference does.
-    b, s, kh, g, dh, block_s = 2, 1024, 2, 4, 128, 128
+    # every range and position (end = S), as the reference does.  G = 4
+    # runs the head tile of 8; G = 16 (Qwen3-MoE's group) and 12 that of 16
+    b, s, kh, dh, block_s = 2, 1024, 2, 128, 128
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    qkv = [torch.randn(shape, generator=gen).cuda() for shape in
-           ((b, kh, g, dh), (b, s, kh, dh), (b, s, kh, dh))]
-    for kv_len in (0, 1, 15, 16, 17, 63, 64, 65, s - 1, s):
+    for g, kv_len in ((g, kv) for g in (4, 16, 12)
+                      for kv in (0, 1, 15, 16, 17, 63, 64, 65, s - 1, s)):
+        qkv = [torch.randn(shape, generator=gen).cuda() for shape in
+               ((b, kh, g, dh), (b, s, kh, dh), (b, s, kh, dh))]
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = (t.to(dtype) for t in qkv)
-            rows = _ext.attention_ranges(s, block_s, b * kh, sms, kv_len,
-                                         dtype)[0]
             for engine in ("vector", "matrix"):
-                tag = (f"attention/{engine}/{dtype}/kv_len={kv_len} of {s} "
-                       f"in ranges of {rows}")
+                rows = _ext.attention_ranges(s, block_s, b * kh, sms, kv_len,
+                                             dtype, g, engine)[0]
+                tag = (f"attention/{engine}/{dtype}/G={g}/kv_len={kv_len} "
+                       f"of {s} in ranges of {rows}")
                 got = attention_op(q, k, v, kv_len, engine=engine,
                                    block_s=block_s)
                 check(tag, got, plain_of("attention", (q, k, v, kv_len),
@@ -595,6 +623,11 @@ def main() -> int:
     library = {}
     for (op, point, dtype, shape, args, kw, *_rest) in results:
         library[point] = _library_ms(torch, F, op.name, args, kw, time_fn)
+        if op.name == "attention":
+            print(json.dumps({"point": point, "library": "SDPA on the "
+                              "kv_len valid positions",
+                              "library_ms": library[point], "card": card}),
+                  flush=True)
         if op.name == "spmv":
             # the same matrix in CSR: the bytes a CSR SpMV must move
             bell, x = args
@@ -621,7 +654,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 8. LM decode serving at full width through the scheduler ------------
-    model_launches = _model_phase(torch, hw, card, failures)
+    model_launches = {MODEL: _model_phase(torch, hw, card, failures)}
+    torch.cuda.empty_cache()
+
+    # -- 8b. the MoE family: DeepSeek-V2-Lite-16B and Qwen3-MoE-235B-A22B ----
+    model_launches.update(_moe_phase(torch, hw, card, failures))
 
     # -- 9. tile tuning on the card ---------------------------------------
     cache, tune_launches = _tune_phase(torch, hw, card, failures)
@@ -675,9 +712,13 @@ def main() -> int:
         if r["name"] == "stencil_matrix":
             entry["dmma_floor_ms"] = r["dmma_floor_ms"]
         if r["op"] == "attention":
-            # flash-decode's own main path is LM decode serving (phase 7)
+            # flash-decode's own main path is LM decode serving (phases 8
+            # and 8b): its launches summed over the models' sessions
+            per_model = {m: n.get(r["name"], 0)
+                         for m, n in model_launches.items()}
             entry["experiment_launches"] = entry["launches"]
-            entry["launches"] = model_launches[r["name"]]
+            entry["model_launches"] = per_model
+            entry["launches"] = sum(per_model.values())
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     if failures:
@@ -908,8 +949,87 @@ def _model_phase(torch, hw, card, failures):
     verified.  Returns the flash-decode launches of the sessions, per
     kernel.
     """
-    from repro_torch.bench.common import bench_env, write_serving_json
     from repro_torch.configs import get_arch
+    return _serve_model(torch, hw, card, failures, get_arch(MODEL),
+                        ("vector", "matrix"), check="dense")
+
+
+def _moe_phase(torch, hw, card, failures):
+    """The MoE family served on the card (phase 8b).
+
+    DeepSeek-V2-Lite-16B at full width and depth (MLA, 64 routed + 2
+    shared experts, the first layer dense; ~63 GB float32): one session,
+    since MLA decodes in latent space and launches no flash-decode, its
+    decode step held against forward over the prompt plus that token.
+    Qwen3-MoE-235B-A22B at full width (128 experts, top-8, 64 query heads
+    over 4 KV heads: flash-decode at G = 16), cut to MOE_QWEN_LAYERS of its
+    94 layers to fit the card: one session per flash-decode engine on the
+    same weights, its decode step held against the dense-attention path.
+    Returns {model: flash-decode launches per kernel}.
+    """
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    out = {}
+    ds = get_arch("deepseek-v2-lite-16b")
+    out[ds.name] = _serve_model(torch, hw, card, failures, ds, ("vector",),
+                                check="forward")
+    torch.cuda.empty_cache()
+    full = get_arch("qwen3-moe-235b-a22b")
+    qwen = dataclasses.replace(full, n_layers=MOE_QWEN_LAYERS)
+    out[qwen.name] = _serve_model(
+        torch, hw, card, failures, qwen, ("vector", "matrix"),
+        check="dense", share_params=True,
+        reduced={"n_layers": f"{MOE_QWEN_LAYERS} of {full.n_layers}"})
+    torch.cuda.empty_cache()
+    return out
+
+
+def _moe_device_ms(torch, eng, cfg):
+    """Device time of one decode step's MoE FFNs (ms): every MoE layer's
+    moe_ffn on a (B, 1, D) input drawn from SEED, torch.profiler's busy
+    time (the union of the kernels' intervals) per pass.  Every expert
+    runs whatever the routing, so the time does not depend on the input's
+    values."""
+    from repro_torch.core.timing import device_busy_us
+    from repro_torch.models.layers import rmsnorm
+    from repro_torch.models.moe import moe_ffn
+    layers = [layer for layer in eng.params.layers if layer.moe is not None]
+    if not layers:
+        return 0.0
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn((eng.max_batch, 1, cfg.d_model), generator=gen,
+                    device="cuda")
+    xs = [rmsnorm(layer.ln2, x, cfg.norm_eps) for layer in layers]
+
+    @torch.no_grad()
+    def moe_pass():
+        for layer, xn in zip(layers, xs):
+            moe_ffn(layer.moe, xn, cfg)
+    moe_pass()
+    torch.cuda.synchronize()
+    return device_busy_us(moe_pass, calls=3) / 1e3
+
+
+def _serve_model(torch, hw, card, failures, cfg, engines, *, check,
+                 share_params=False, reduced=None):
+    """``cfg`` serves the reference's ``serve --workload lm`` traffic
+    through run_session, once per flash-decode engine in ``engines``.
+
+    Per session: launches held against the log (one flash-decode launch
+    per layer that runs it and decode step, of each batch and of the
+    warm-up: none for MLA), greedy tokens, one teacher-forced decode step
+    held to 1e-4 + 1e-3 |b| against ``check``: "dense" (the same step on
+    the dense-attention path) or "forward" (the served engine's step on
+    the caches of a prefill with the MoE capacity lifted so that no
+    expert overflows, against forward over the prompt plus that token,
+    lifted too, as drops exist only in the batched pass), one profiled
+    step, and the step beside two bounds: the traits' bytes (the experts
+    a step touches) and every weight once.  ``share_params`` draws the weights once for
+    all engines.  The records are written to build/runs_torch and
+    verified.  Returns the sessions' flash-decode launches per kernel.
+    """
+    from repro_torch.bench.common import bench_env, write_serving_json
     from repro_torch.core.dispatch import DEFAULT_DISPATCHER
     from repro_torch.core.timing import busy_us
     from repro_torch.kernels import _ext
@@ -920,30 +1040,49 @@ def _model_phase(torch, hw, card, failures):
                                      SessionConfig, run_session)
     from repro_torch.serving.lm import LMDecodeExecutor
 
-    cfg = get_arch(MODEL)
     steps = MAX_GEN - 1                 # decode steps per generation
-    per_gen = cfg.n_layers * steps      # flash-decode launches per generation
     max_len = PROMPT_LEN + MAX_GEN
     step_bytes = step_traits(cfg, MODEL_BATCH, max_len,
                              dtype_bytes=4).traffic_bytes
     step_bound_ms = step_bytes / hw.mem_bw * 1e3
-    print(f"model: {cfg.name} at full width and depth ({cfg.n_layers} layers,"
-          f" d_model {cfg.d_model}, {cfg.n_heads} query / {cfg.n_kv_heads} KV"
-          f" heads, head_dim {cfg.head_dim}, {cfg.param_count() / 1e9:.2f} B"
-          f" float32 parameters), batch {MODEL_BATCH}, prompt {PROMPT_LEN}, "
-          f"{MAX_GEN} tokens, cache {max_len}", flush=True)
+    attn = (f"MLA (kv_lora_rank {cfg.kv_lora_rank})" if cfg.use_mla else
+            f"{cfg.n_heads} query / {cfg.n_kv_heads} KV heads, head_dim "
+            f"{cfg.head_dim}")
+    ffn = (f"{cfg.n_experts} experts top-{cfg.top_k}"
+           + (f" + {cfg.n_shared_experts} shared" if cfg.n_shared_experts
+              else "")
+           + (f", {cfg.first_dense_layers} dense first" if
+              cfg.first_dense_layers else "") if cfg.n_experts else
+           f"d_ff {cfg.d_ff}")
+    print(f"model: {cfg.name} at full width"
+          f"{' and depth' if reduced is None else f', reduced {reduced}'} "
+          f"({cfg.n_layers} layers, d_model {cfg.d_model}, {attn}, {ffn}, "
+          f"{cfg.param_count() / 1e9:.2f} B float32 parameters), batch "
+          f"{MODEL_BATCH}, prompt {PROMPT_LEN}, {MAX_GEN} tokens, cache "
+          f"{max_len}", flush=True)
     kernel = f"lm-{cfg.name}"
     launches, tokens, records = {}, {}, []
-    for engine in ("vector", "matrix"):
+    params = None
+    for engine in engines:
         other = "matrix" if engine == "vector" else "vector"
         t0 = time.perf_counter()
         ex = LMDecodeExecutor(cfg, max_batch=MODEL_BATCH,
                               prompt_len=PROMPT_LEN, max_gen=MAX_GEN,
                               dtype=torch.float32, seed=SEED, engine=engine,
-                              verdict_cfg=cfg)
+                              verdict_cfg=cfg, params=params)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
+        eng = ex.engine
+        if share_params:
+            params = eng.params
         mem_gb = torch.cuda.memory_allocated() / 1e9
+        weights_bytes = sum(t.numel() * t.element_size()
+                            for t in eng.params.parameters())
+        weights_ms = weights_bytes / hw.mem_bw * 1e3
+        per_gen = eng.flash_decode_layers * steps
+        fd_engine = (engine if eng.flash_decode_layers else
+                     "not applicable: MLA decodes in latent space, no "
+                     "flash-decode")
         # the main path: the reference's serve --workload lm traffic
         # through the scheduler; the first batch also runs one untimed
         # warm-up generation
@@ -967,22 +1106,25 @@ def _model_phase(torch, hw, card, failures):
         want = (len(log.batches) + 1) * per_gen
         if launches[f"attention_{engine}"] != want:
             failures.append(
-                f"model/{engine}: {launches[f'attention_{engine}']} "
-                f"flash-decode launches for {len(log.batches)} batches, "
-                f"expected {want} (one per layer and decode step of each "
-                f"batch and of the warm-up)")
+                f"model {cfg.name}/{engine}: "
+                f"{launches[f'attention_{engine}']} flash-decode launches "
+                f"for {len(log.batches)} batches, expected {want} (one per "
+                f"flash-decode layer and decode step of each batch and of "
+                f"the warm-up)")
         if counts.get(f"attention_{other}", 0):
-            failures.append(f"model/{engine}: the {other} kernel ran "
-                            f"{counts[f'attention_{other}']} times")
+            failures.append(f"model {cfg.name}/{engine}: the {other} kernel "
+                            f"ran {counts[f'attention_{other}']} times")
         if record["engine"] != engine or log.completed != log.offered:
-            failures.append(f"model/{engine}: engine {record['engine']}, "
-                            f"{log.completed}/{log.offered} served")
+            failures.append(f"model {cfg.name}/{engine}: engine "
+                            f"{record['engine']}, {log.completed}/"
+                            f"{log.offered} served")
         records.append(record)
         extras = record["phases"]
         per_step_ms = extras["per_step_ms"]
         prefill_ms = extras["prefill_ms"] / extras["launches"]
         print(json.dumps({
             "phase": "model_serving", "kernel": kernel, "engine": engine,
+            "flash_decode_engine": fd_engine,
             "offered": log.offered, "completed": log.completed,
             "batches": summary.batches, "mean_batch": summary.mean_batch,
             "p50_ms": summary.p50_ms, "p99_ms": summary.p99_ms,
@@ -997,7 +1139,6 @@ def _model_phase(torch, hw, card, failures):
             "session_s": session_s, "card": card}), flush=True)
 
         # greedy tokens of the main path's prompt batch
-        eng = ex.engine
         batch = eng.make_prompt_batch(seed=SEED)
         result = eng.generate(batch)
         # the same generation outside the session's trace capture, where
@@ -1006,26 +1147,56 @@ def _model_phase(torch, hw, card, failures):
         tokens[engine] = result.tokens.cpu()
         if tuple(result.tokens.shape) != (MODEL_BATCH, MAX_GEN) or \
                 not bool(torch.isfinite(result.logits).all()):
-            failures.append(f"model/{engine}: tokens "
+            failures.append(f"model {cfg.name}/{engine}: tokens "
                             f"{tuple(result.tokens.shape)}, finite logits "
                             f"{bool(torch.isfinite(result.logits).all())}")
         del result
 
-        # one teacher-forced step through the kernel against the plain
-        # dense-attention path: same weights, caches and token
+        # one teacher-forced step of the served engine `eng`, same
+        # weights, held as `step` against `want`
         logits, caches = eng.prefill(batch)
         tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
-        twin = {"attn": {n: t.clone() for n, t in caches["attn"].items()}}
-        got, _ = eng.decode_step(tok, caches, PROMPT_LEN)
-        dense = DecodeEngine(cfg, max_batch=MODEL_BATCH,
-                             prompt_len=PROMPT_LEN, max_gen=MAX_GEN,
-                             dtype=torch.float32, engine=engine,
-                             attention_impl="dense", params=eng.params)
-        want, _ = dense.decode_step(tok, twin, PROMPT_LEN)
-        step_err = (got - want).abs().max().item()
-        if not torch.allclose(got, want, rtol=STEP_RTOL, atol=STEP_ATOL):
-            failures.append(f"model/{engine}: decode step differs from the "
-                            f"dense path by {step_err}")
+        if check == "dense":
+            # through the kernel against the plain dense-attention path,
+            # on the same caches
+            twin = {g: {n: t.clone() for n, t in c.items()}
+                    for g, c in caches.items()}
+            step, _ = eng.decode_step(tok, caches, PROMPT_LEN)
+            ref = DecodeEngine(cfg, max_batch=MODEL_BATCH,
+                               prompt_len=PROMPT_LEN, max_gen=MAX_GEN,
+                               dtype=torch.float32, engine=engine,
+                               attention_impl="dense", params=eng.params)
+            want, _ = ref.decode_step(tok, twin, PROMPT_LEN)
+            del twin
+            # the profiled step below is the next one on these caches
+            tok, at = torch.argmax(step[:, 0], dim=-1)[:, None], \
+                PROMPT_LEN + 1
+            against = "dense_attention_path"
+        else:
+            # capacity E / k: every token of a group fits every expert
+            lifted = dataclasses.replace(
+                cfg, capacity_factor=cfg.n_experts / cfg.top_k * (1 + 1e-6))
+            ref = DecodeEngine(lifted, max_batch=MODEL_BATCH,
+                               prompt_len=PROMPT_LEN, max_gen=MAX_GEN,
+                               dtype=torch.float32, engine=engine,
+                               params=eng.params)
+            lat, lcaches = ref.prefill(batch)
+            ltok = torch.argmax(lat[:, -1], dim=-1)[:, None]
+            # the served engine's step on the lifted prefill's caches: a
+            # decode step's groups of MODEL_BATCH tokens never overflow
+            # the capacity floor of 4, so it drops nothing either
+            step, _ = eng.decode_step(ltok, lcaches, PROMPT_LEN)
+            del lcaches, lat
+            # forward over the prompt plus that token: its last position
+            want, _ = ref.prefill(dict(batch, tokens=torch.cat(
+                [batch["tokens"], ltok.to(batch["tokens"].dtype)], dim=1)))
+            # the profiled step below is the first one on eng's caches
+            at = PROMPT_LEN
+            against = "forward_over_prompt_plus_token_capacity_lifted"
+        step_err = (step - want).abs().max().item()
+        if not torch.allclose(step, want, rtol=STEP_RTOL, atol=STEP_ATOL):
+            failures.append(f"model {cfg.name}/{engine}: decode step "
+                            f"differs from the {against} by {step_err}")
 
         # where a decode step's time goes: one more step under
         # torch.profiler, device time summed by kernel
@@ -1033,8 +1204,7 @@ def _model_phase(torch, hw, card, failures):
                 torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            eng.decode_step(torch.argmax(got[:, 0], dim=-1)[:, None], caches,
-                            PROMPT_LEN + 1)
+            eng.decode_step(tok, caches, at)
             torch.cuda.synchronize()
             profiled_ms = (time.perf_counter() - t0) * 1e3
         kernel_us = {}
@@ -1051,7 +1221,8 @@ def _model_phase(torch, hw, card, failures):
         attn_ms = busy_us((a, b) for n, a, b in spans
                           if "attention_" in n) / 1e3
         top = sorted(kernel_us.items(), key=lambda kv: -kv[1])[:6]
-        print(json.dumps({"phase": "model_profile", "engine": engine,
+        print(json.dumps({"phase": "model_profile", "model": cfg.name,
+                          "engine": engine,
                           "profiled_step_ms": profiled_ms,
                           "device_ms": device_ms,
                           "top_kernels_ms": [[n[:90], t / 1e3]
@@ -1059,6 +1230,7 @@ def _model_phase(torch, hw, card, failures):
         measured = device_ms > 0
         line = {
             "phase": "model", "model": cfg.name, "engine": engine,
+            "flash_decode_engine": fd_engine,
             "layers": cfg.n_layers, "batch": MODEL_BATCH,
             "prompt_len": PROMPT_LEN, "max_gen": MAX_GEN,
             "init_s": init_s, "weights_gb": mem_gb,
@@ -1066,31 +1238,46 @@ def _model_phase(torch, hw, card, failures):
             "untraced_per_step_ms": untraced_step_ms,
             "step_bytes": step_bytes, "step_bound_ms": step_bound_ms,
             "step_bound_share": step_bound_ms / per_step_ms,
+            "all_weights_bytes": weights_bytes,
+            "all_weights_bound_ms": weights_ms,
             "device_busy_share": (device_ms / profiled_ms if measured
                                   else "not measured"),
+            "device_ms_over_untraced_step": (
+                device_ms / untraced_step_ms if measured else
+                "not measured"),
             "attention_ms_per_step": attn_ms if measured else "not measured",
             "attention_share_of_step": (attn_ms / per_step_ms if measured
                                         else "not measured"),
             "flash_decode_launches": launches[f"attention_{engine}"],
-            "decode_step_max_abs_err_vs_dense": step_err,
+            "decode_step_max_abs_err": step_err,
+            "decode_step_against": against,
             "card": card,
         }
+        if reduced is not None:
+            line["reduced"] = reduced
+        if cfg.n_experts:
+            moe_ms = _moe_device_ms(torch, eng, cfg)
+            line["moe_device_ms_per_step"] = moe_ms
+            line["moe_share_of_device"] = (moe_ms / device_ms if measured
+                                           else "not measured")
         print(json.dumps(line), flush=True)
-        del ex, eng, dense, batch, logits, caches, twin, got, want, tok, prof
-        del log
+        del ex, eng, ref, batch, logits, caches, step, want, tok, prof, log
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
-    agree = (tokens["vector"] == tokens["matrix"]).float().mean().item()
-    print(f"model: greedy tokens agree between the vector and matrix "
-          f"flash-decode engines on {agree:.1%} of {tokens['vector'].numel()} "
-          f"positions", flush=True)
+    if len(engines) == 2:
+        agree = (tokens["vector"] == tokens["matrix"]).float().mean().item()
+        print(f"model {cfg.name}: greedy tokens agree between the vector "
+              f"and matrix flash-decode engines on {agree:.1%} of "
+              f"{tokens['vector'].numel()} positions", flush=True)
+    del params
+    torch.cuda.empty_cache()
     path = write_serving_json(kernel, records, str(ROOT / "build" /
                                                    "runs_torch"),
                               env=bench_env("cuda", DEFAULT_DISPATCHER.hw.name))
     try:
         results = check_records([load_file(path)])
     except (OSError, ValueError, NotImplementedError) as exc:
-        failures.append(f"model records: {exc}")
+        failures.append(f"model records {cfg.name}: {exc}")
         return launches
     by_claim = {}
     for r in results:
@@ -1098,10 +1285,12 @@ def _model_phase(torch, hw, card, failures):
         c["checked"] += 1
         c["violations"] += int(not r.passed)
         if r.claim in ("model_verdict", "trace_reconciliation"):
-            print(json.dumps({"claim": r.claim, "engine": r.record.engine,
+            print(json.dumps({"claim": r.claim, "model": cfg.name,
+                              "engine": r.record.engine,
                               "passed": r.passed, "detail": r.detail}),
                   flush=True)
-    print(json.dumps({"model_claims": by_claim}), flush=True)
+    print(json.dumps({"model_claims": by_claim, "model": cfg.name}),
+          flush=True)
     for r in violations(results):
         failures.append(f"model claim {r.claim} violated by "
                         f"{r.record.kernel}/{r.record.engine}: {r.detail}")
@@ -1119,7 +1308,13 @@ def _launch_check(tag, launches, names, failures):
 def _tune_phase(torch, hw, card, failures):
     """Tile search on the card for every tunable family, both engines, at
     the STREAM points (phase 4's inputs).  Returns the cache written to
-    build/runs_torch/tuned.json and the phase's launches per kernel."""
+    build/runs_torch/tuned.json and the phase's launches per kernel.
+
+    The cache's key (kernel, engine, dtype, hardware, shards) has no
+    size or shape, so it holds the winner of the first STREAM point that
+    meets it: the 2-D stencil's, and Mistral-NeMo's flash-decode point
+    (G = 4).  The later points' searches are printed with
+    ``"cached": false``."""
     import numpy as np
 
     from repro_torch.bench.bench_kernels import stream_points
@@ -1130,7 +1325,7 @@ def _tune_phase(torch, hw, card, failures):
     path = ROOT / "build" / "runs_torch" / "tuned.json"
     cache = TuningCache(fingerprint=env_fingerprint())
     t_phase = time.perf_counter()
-    searches = 0
+    searches, keyed = 0, set()
     torch.cuda.synchronize()
     _ext.reset_launches()
     for name in TUNED:
@@ -1158,11 +1353,13 @@ def _tune_phase(torch, hw, card, failures):
                     continue
                 searches += 1
                 failures.extend(f"tune/{label}: {m}" for m in skipped)
-                # a family's key holds one entry: the faster point's
-                # winner (the 2-D stencil's over the 3-D one)
-                cache.merge(TuningCache([entry]))
+                cached = (name, engine, pt.dtype) not in keyed
+                if cached:
+                    keyed.add((name, engine, pt.dtype))
+                    cache.merge(TuningCache([entry]))
                 print(json.dumps({
                     "phase": "tune", "point": label, "engine": engine,
+                    "cached": cached,
                     "params": dict(entry.params),
                     "best_us": entry.best_us,
                     "default_us": entry.default_us,
@@ -1199,11 +1396,9 @@ def _tuned_sweep_phase(torch, hw, card, failures, cache):
 
     out_dir = ROOT / "build" / "runs_torch_tuned"
     shutil.rmtree(out_dir, ignore_errors=True)
-    untuned = {}
-    for rs in load_dir(str(ROOT / "build" / "runs_torch")):
-        if rs.kind == "bench":
-            for rec in rs.records:
-                untuned[(rec.kernel, rec.engine, rec.size, rec.dtype)] = rec
+    untuned = {rec.point: rec
+               for rs in load_dir(str(ROOT / "build" / "runs_torch"))
+               if rs.kind == "bench" for rec in rs.records}
     t_phase = time.perf_counter()
     torch.cuda.synchronize()
     _ext.reset_launches()
@@ -1232,7 +1427,7 @@ def _tuned_sweep_phase(torch, hw, card, failures, cache):
             if rec.kernel in TUNED and not rec.tile_config:
                 failures.append(f"tuned sweep: {rec.kernel}/{rec.engine}/"
                                 f"{rec.dtype} has no tile_config")
-            base = untuned.get((rec.kernel, rec.engine, rec.size, rec.dtype))
+            base = untuned.get(rec.point)
             gap = (rec.us_per_call - base.us_per_call
                    if base is not None else None)
             beyond = bool(gap is not None and gap > base.iqr_us)
@@ -1240,7 +1435,7 @@ def _tuned_sweep_phase(torch, hw, card, failures, cache):
             print(json.dumps({
                 "phase": "tuned_sweep", "kernel": rec.kernel,
                 "engine": rec.engine, "size": rec.size, "dtype": rec.dtype,
-                "tile": dict(rec.tile_params or {}),
+                "shape": list(rec.shape), "tile": dict(rec.tile_params or {}),
                 "tuned_us": rec.us_per_call, "tuned_iqr_us": rec.iqr_us,
                 "untuned_us": base.us_per_call if base else None,
                 "untuned_iqr_us": base.iqr_us if base else None,
@@ -1420,7 +1615,8 @@ def _point_label(name, pt):
         side = "^".join((str(u.shape[0]), str(u.ndim)))
         return f"stencil/{spec.name}/{side}", tuple(u.shape)
     q, k, _, _ = pt.args
-    return (f"attention/{pt.dtype}/B{q.shape[0]}xS{k.shape[1]}",
+    b, kh, g, _ = q.shape
+    return (f"attention/{pt.dtype}/B{b}xS{k.shape[1]}xKH{kh}xG{g}",
             tuple(k.shape))
 
 
@@ -1496,6 +1692,7 @@ def _records_phase(torch, hw, card, failures):
             if not rec.l2_resident:
                 s["stream"].append({
                     "size": rec.size, "dtype": rec.dtype,
+                    "shape": list(rec.shape),
                     "us_per_call": rec.us_per_call, "iqr_us": rec.iqr_us,
                     "profiler_device_us": rec.profiler_device_us,
                     "ref_us_per_call": rec.ref_us_per_call,

@@ -62,9 +62,13 @@ SEED = 0
 #: (warmup, timed) calls per measurement: on the card the CUDA-event
 #: median of 20 calls; on the CPU the reference's time_fn defaults.
 _COUNTS = {"cuda": (3, 20), "cpu": (2, 5)}
-#: Flash-decode's STREAM shape: Mistral-NeMo-12B's decode heads (G = 32 /
-#: 8 query heads per KV head, Dh = 128) over a long cache.
-_ATTN_STREAM = {"b": 4, "kh": 8, "g": 4, "dh": 128, "s": 32768}
+#: Flash-decode's STREAM shapes: Mistral-NeMo-12B's decode heads (G = 32 /
+#: 8 query heads per KV head, Dh = 128), then Qwen3-MoE-235B-A22B's (G =
+#: 64 / 4 = 16, the kernels' widest head tile), over a long cache.  Both
+#: record as size S and differ in ``shape``, which ends a port record's
+#: ``BenchRecord.point``, so the compare gate keeps them apart.
+_ATTN_STREAM = ({"b": 4, "kh": 8, "g": 4, "dh": 128, "s": 32768},
+                {"b": 4, "kh": 4, "g": 16, "dh": 128, "s": 32768})
 
 
 @dataclasses.dataclass
@@ -120,14 +124,15 @@ def stream_points(op, rng: np.random.Generator,
         yield Point(512, "float32", (u3, suite()["3d7pt"]),
                     {"steps": TABLE3_DEPTH["3d7pt"]})
     elif op.name == "attention":
-        p = _ATTN_STREAM
-        for dtype in ("float32", "bfloat16"):
-            q = _normal(rng, (p["b"], p["kh"], p["g"], p["dh"]), dtype,
-                        device)
-            k, v = (_normal(rng, (p["b"], p["s"], p["kh"], p["dh"]), dtype,
-                            device) for _ in range(2))
-            yield Point(p["s"], dtype, (q, k, v, p["s"] - p["s"] // 8), {})
-            del q, k, v
+        for p in _ATTN_STREAM:
+            for dtype in ("float32", "bfloat16"):
+                q = _normal(rng, (p["b"], p["kh"], p["g"], p["dh"]), dtype,
+                            device)
+                k, v = (_normal(rng, (p["b"], p["s"], p["kh"], p["dh"]),
+                                dtype, device) for _ in range(2))
+                yield Point(p["s"], dtype, (q, k, v, p["s"] - p["s"] // 8),
+                            {})
+                del q, k, v
     else:
         raise KeyError(f"no STREAM point for kernel {op.name!r}")
 

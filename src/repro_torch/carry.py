@@ -66,45 +66,54 @@ def from_numpy(args: tuple, kwargs: dict, device: str = "cuda"):
 # model weights
 # --------------------------------------------------------------------------
 
+#: The reference's stacked layer groups: one leading layer axis each.
+STACKED = ("layers", "first_dense")
+
+
 def params_from_numpy(tree: dict, cfg, device: str = "cuda"):
     """The reference's LM parameter pytree as the port's ``lm.LM``.
 
     ``tree`` holds numpy arrays laid out as the reference keeps them:
     ``(d_in, d_out)`` weights for ``x @ W``, and one stacked leading layer
-    axis under ``"layers"``.  Layer ``i`` of ``layers/attn/wq`` becomes
-    ``layers.<i>.attn.wq``; every value crosses bit for bit.
+    axis under ``"layers"`` (and ``"first_dense"``).  Layer ``i`` of
+    ``layers/attn/wq`` becomes ``layers.<i>.attn.wq``, of
+    ``layers/moe/shared/w_up`` ``layers.<i>.moe.shared.w_up``; every value
+    crosses bit for bit.
     """
     from .models.lm import LM
     flat = {}
     for key, val in tree.items():
-        if key != "layers":
+        if key not in STACKED:
             flat[key] = tensor(val, device)
-    for path, leaf in _leaves(tree["layers"]):
-        arr = np.asarray(leaf)
-        for i in range(arr.shape[0]):
-            flat[f"layers.{i}.{path}"] = tensor(arr[i], device)
+            continue
+        for path, leaf in _leaves(val):
+            arr = np.asarray(leaf)
+            for i in range(arr.shape[0]):
+                flat[f"{key}.{i}.{path}"] = tensor(arr[i], device)
     return LM(cfg, flat)
 
 
 def params_to_numpy(p) -> dict:
     """The inverse of ``params_from_numpy``: the reference's pytree."""
     tree: dict = {}
-    layers: dict = {}
+    stacks: dict = {}
     for key, val in p.state_dict().items():
         arr = val.detach().cpu().numpy()
-        if not key.startswith("layers."):
+        group, _, rest = key.partition(".")
+        if group not in STACKED:
             tree[key] = arr
             continue
-        i, path = key[len("layers."):].split(".", 1)
-        layers.setdefault(path, {})[int(i)] = arr
-    nested: dict = {}
-    for path, per_layer in layers.items():
-        node = nested
-        *parents, leaf = path.split(".")
-        for name in parents:
-            node = node.setdefault(name, {})
-        node[leaf] = np.stack([per_layer[i] for i in sorted(per_layer)])
-    tree["layers"] = nested
+        i, path = rest.split(".", 1)
+        stacks.setdefault(group, {}).setdefault(path, {})[int(i)] = arr
+    for group, layers in stacks.items():
+        nested: dict = {}
+        for path, per_layer in layers.items():
+            node = nested
+            *parents, leaf = path.split(".")
+            for name in parents:
+                node = node.setdefault(name, {})
+            node[leaf] = np.stack([per_layer[i] for i in sorted(per_layer)])
+        tree[group] = nested
     return tree
 
 

@@ -30,8 +30,9 @@ import torch
 
 __all__ = ["CTAS_PER_SM", "ELEMENTWISE_THREADS", "LAUNCHES", "attention",
            "attention_launch", "attention_ranges", "attention_split", "build",
-           "elementwise", "elementwise_grid", "mma_instructions",
-           "reset_launches", "spmv", "stencil", "stencil_offsets"]
+           "ctas_per_sm", "elementwise", "elementwise_grid",
+           "mma_instructions", "reset_launches", "spmv", "stencil",
+           "stencil_offsets"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
@@ -349,9 +350,9 @@ def stencil(u: torch.Tensor, spec, *, steps: int, engine: str,
     return out
 
 
-#: Query heads per KV head the attention kernels take (the matrix kernel's
-#: MMA N).
-MAX_GROUP = 8
+#: Query heads per KV head the attention kernels take: two of the matrix
+#: kernels' MMA N tiles of 8 (a head tile of 8 for G <= 8, of 16 above).
+MAX_GROUP = 16
 #: Head dims the attention kernels are instantiated for.
 HEAD_DIMS = (16, 32, 64, 128)
 
@@ -361,6 +362,18 @@ HEAD_DIMS = (16, 32, 64, 128)
 #: best as one long range; the float32 kernels load straight from global
 #: memory and need two CTAs per SM.
 CTAS_PER_SM = {torch.bfloat16: 1, torch.float32: 2}
+
+
+def ctas_per_sm(dtype: torch.dtype, g: int, engine: str) -> int:
+    """CTAs per SM for one call: ``CTAS_PER_SM``, but two for the bfloat16
+    vector kernel at a head tile of 16 (G > 8), whose FFMAs per cache byte
+    are four times G = 4's: with one CTA of four warps per SM it waits on
+    their latency (0.163 against 0.276 ms at Qwen3-MoE's decode shape on
+    an H100, ``tools/decode_audit.py --parts slots``; the matrix kernel is
+    fastest at one)."""
+    if dtype == torch.bfloat16 and g > 8 and engine == "vector":
+        return 2
+    return CTAS_PER_SM[dtype]
 
 
 def attention_split(s: int, block_s: int, pairs: int, slots: int,
@@ -388,8 +401,10 @@ def attention_split(s: int, block_s: int, pairs: int, slots: int,
 
 
 def attention_ranges(s: int, block_s: int, pairs: int, sms: int,
-                     kv_len: int, dtype: torch.dtype):
-    """``(rows, nsplit, end)``: the CTAs one flash-decode call launches.
+                     kv_len: int, dtype: torch.dtype, g: int,
+                     engine: str):
+    """``(rows, nsplit, end)``: the CTAs one flash-decode call launches
+    (``ctas_per_sm(dtype, g, engine)`` slots per SM).
 
     The kernels read cache positions ``[0, end)``: ``end = min(kv_len, S)``
     for ``kv_len >= 1``, and all of S for ``kv_len <= 0``, where the output
@@ -398,8 +413,8 @@ def attention_ranges(s: int, block_s: int, pairs: int, sms: int,
     same ``rows`` (``end = S``) changes no bit of the result.
     """
     end = min(kv_len, s) if kv_len >= 1 else s
-    rows, nsplit = attention_split(s, block_s, pairs, CTAS_PER_SM[dtype] * sms,
-                                   end)
+    rows, nsplit = attention_split(s, block_s, pairs,
+                                   ctas_per_sm(dtype, g, engine) * sms, end)
     return rows, nsplit, end
 
 
@@ -417,7 +432,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash-decode takes float32/bfloat16, got {dtype}")
     if not 1 <= g <= MAX_GROUP:
         raise ValueError(f"flash-decode takes 1..{MAX_GROUP} query heads per "
-                         f"KV head, got {g}")
+                         f"KV head, got {g}: a wider head group waits for "
+                         f"ROADMAP.md Queue 2 item 2 (K4)")
     if dh not in HEAD_DIMS:
         raise ValueError(f"flash-decode takes head dim in {HEAD_DIMS}, got "
                          f"{dh}")
@@ -425,7 +441,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _need(t, f"flash-decode {what}", dtype)
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
     rows, nsplit, end = attention_ranges(s, block_s, b * kh, sms,
-                                         int(kv_len), dtype)
+                                         int(kv_len), dtype, g, engine)
     return attention_launch(q, k, v, int(kv_len), rows=rows, nsplit=nsplit,
                             end=end, engine=engine)
 

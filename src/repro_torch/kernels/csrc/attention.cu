@@ -36,8 +36,17 @@
 // reference's two kernel bodies do: a warp takes 16 cache positions per
 // tile; lane (g, t) (g = lane / 4, t = lane % 4) keeps the online-softmax
 // state of query heads 2t and 2t+1 over the tile's positions g and g + 8.
-// The heads are padded to 8, the MMA's N, so G of the 8 head columns do
-// useful work: 4 of 8 at the Mistral-NeMo shape.
+// The heads are padded to a head tile HT of 8, the MMA's N, so G of the 8
+// head columns do useful work: 4 of 8 at the Mistral-NeMo shape.  For
+// 8 < G <= 16 (Qwen3-MoE: 64 query heads over 4 KV heads) the kernels are
+// instantiated with HT = 16, two N tiles: lane (g, t) then keeps heads 2t,
+// 2t+1, 2t+8 and 2t+9, every MMA of a tile is issued once per N tile on
+// the same K / V fragments, and each K and V row is still read once for
+// all G heads of its pair.  HT is a template parameter, so the G <= 8
+// kernels are compiled as before.  The float32 matrix kernel at HT = 16
+// keeps q in shared memory and its accumulator in float, each tile's p.V
+// summed exactly in double by DMMA and rounded once: a double accumulator
+// of 16 heads x Dh would take 128 registers a lane.
 //
 // float32: each lane loads elements [t*Dh/4, (t+1)*Dh/4) of K rows g and
 // g + 8 and elements [g*Dh/8, (g+1)*Dh/8) of V rows straight from global
@@ -86,7 +95,7 @@ constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kNegInf = -1e30f;  // the reference's mask value
-constexpr int kMaxHeads = 8;       // query heads per KV head (MMA N)
+constexpr int kMaxHeads = 16;      // query heads per KV head: 2 MMA N tiles
 constexpr int kTile = 16;          // cache positions per warp tile
 constexpr int kRing = 3;           // bfloat16: tiles in a warp's ring
 
@@ -123,6 +132,12 @@ __device__ __forceinline__ void load_span(const float* p, bool ok,
       o[2 * i] = x.x, o[2 * i + 1] = x.y;
     }
   }
+}
+
+// The query head of lane slot j (j < HT / 4) of lane t: 2t, 2t+1 in the
+// first N tile, 2t+8, 2t+9 in the second.
+__device__ __forceinline__ int lane_head(int j, int t) {
+  return 8 * (j >> 1) + 2 * t + (j & 1);
 }
 
 template <typename T>
@@ -168,16 +183,17 @@ __device__ __forceinline__ void score_mma(const float (&k0)[DH / 4],
 // heads, q read from
 // shared memory (sq: [head][t][DH/4 + 4], padded so that the four t lanes
 // hit different banks; the eight g lanes read the same words, one
-// broadcast), then a reduce-scatter over the four t lanes.
-template <int DH, int NH>
+// broadcast), then a reduce-scatter over the four t lanes, one per N tile
+// of 8 heads.
+template <int DH, int NH, int HT>
 __device__ __forceinline__ void score_fma(const float (&k0)[DH / 4],
                                           const float (&k1)[DH / 4],
                                           const float* sq, int heads, int t,
-                                          float (&s)[2][2]) {
+                                          float (&s)[2][HT / 4]) {
   constexpr int KS = DH / 4, QS = KS + 4;
-  float part[2][kMaxHeads];
+  float part[2][HT];
 #pragma unroll
-  for (int h = 0; h < kMaxHeads; ++h) {
+  for (int h = 0; h < HT; ++h) {
     part[0][h] = part[1][h] = 0.f;
     if (h < NH && h < heads) {
       const float4* q4 = reinterpret_cast<const float4*>(sq + (h * 4 + t) * QS);
@@ -199,32 +215,36 @@ __device__ __forceinline__ void score_fma(const float (&k0)[DH / 4],
   // t bit 1 picks heads 4..7 or 0..3, t bit 0 the upper or lower pair
   const bool b1 = t & 2, b0 = t & 1;
 #pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    float r[4];
+  for (int hf = 0; hf < 2; ++hf)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float lo = part[hf][i], hi = part[hf][4 + i];
-      r[i] = (b1 ? hi : lo) + __shfl_xor_sync(kFull, b1 ? lo : hi, 2);
-    }
+    for (int n = 0; n < HT / 8; ++n) {
+      float r[4];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float lo = r[i], hi = r[2 + i];
-      s[hf][i] = (b0 ? hi : lo) + __shfl_xor_sync(kFull, b0 ? lo : hi, 1);
+      for (int i = 0; i < 4; ++i) {
+        const float lo = part[hf][8 * n + i], hi = part[hf][8 * n + 4 + i];
+        r[i] = (b1 ? hi : lo) + __shfl_xor_sync(kFull, b1 ? lo : hi, 2);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float lo = r[i], hi = r[2 + i];
+        s[hf][2 * n + i] =
+            (b0 ? hi : lo) + __shfl_xor_sync(kFull, b0 ? lo : hi, 1);
+      }
     }
-  }
 }
 
 // The online-softmax step shared by every path: scale and mask the tile's
-// scores s (positions rows[hf], heads 2t+i), update (m, l), and return the
-// probabilities p and the old state's factor corr.
-__device__ __forceinline__ void softmax_step(float (&s)[2][2],
+// scores s (positions rows[hf], heads lane_head(j, t)), update (m, l), and
+// return the probabilities p and the old state's factor corr.
+template <int NI>
+__device__ __forceinline__ void softmax_step(float (&s)[2][NI],
                                              const int (&rows)[2],
                                              const bool (&in)[2],
-                                             const Shape& sh, float (&m)[2],
-                                             float (&l)[2], float (&p)[2][2],
-                                             float (&corr)[2]) {
+                                             const Shape& sh, float (&m)[NI],
+                                             float (&l)[NI], float (&p)[2][NI],
+                                             float (&corr)[NI]) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
+  for (int i = 0; i < NI; ++i) {
     float mx = m[i];
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
@@ -252,7 +272,7 @@ __device__ __forceinline__ void softmax_step(float (&s)[2][2],
 // Merge the CTA's warps' states (sm_m, sm_l: [warp][head]; sm_acc:
 // [warp][head][DH]); store the output (one range per pair) or this range's
 // float32 partial.
-template <typename T, int DH>
+template <typename T, int DH, int HT>
 __device__ __forceinline__ void merge_warps(const float* sm_m,
                                             const float* sm_l,
                                             const float* sm_acc,
@@ -265,12 +285,12 @@ __device__ __forceinline__ void merge_warps(const float* sm_m,
     const int hh = idx / DH, d = idx - hh * DH;
     float mx = sm_m[hh];
     for (int w = 1; w < kWarps; ++w)
-      mx = fmaxf(mx, sm_m[w * kMaxHeads + hh]);
+      mx = fmaxf(mx, sm_m[w * HT + hh]);
     float lsum = 0.f, asum = 0.f;
     for (int w = 0; w < kWarps; ++w) {
-      const float wt = expf(sm_m[w * kMaxHeads + hh] - mx);
-      lsum = fmaf(sm_l[w * kMaxHeads + hh], wt, lsum);
-      asum = fmaf(sm_acc[(w * kMaxHeads + hh) * DH + d], wt, asum);
+      const float wt = expf(sm_m[w * HT + hh] - mx);
+      lsum = fmaf(sm_l[w * HT + hh], wt, lsum);
+      asum = fmaf(sm_acc[(w * HT + hh) * DH + d], wt, asum);
     }
     if (sh.nsplit == 1) {
       out[(static_cast<size_t>(pair) * sh.g + hh) * DH + d] =
@@ -290,7 +310,7 @@ __device__ __forceinline__ void merge_warps(const float* sm_m,
 // float32: the tile loop with direct loads, one per engine
 // ---------------------------------------------------------------------------
 
-template <int DH, bool kMMA>
+template <int DH, bool kMMA, int HT>
 __device__ __forceinline__ void attention_tiles_f32(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, float* __restrict__ out,
@@ -298,11 +318,15 @@ __device__ __forceinline__ void attention_tiles_f32(
     const Shape& sh) {
   constexpr int KS = DH / 4;  // a lane's span of a K row
   constexpr int VS = DH / 8;  // a lane's span of a V row = its acc chunks
-  constexpr int QS = KS + 4;  // padded row of the staged q (vector engine)
-  __shared__ __align__(16) float sm_p[kWarps][kTile][kMaxHeads];
-  __shared__ float sm_m[kWarps * kMaxHeads], sm_l[kWarps * kMaxHeads];
-  __shared__ float sm_acc[kWarps * kMaxHeads * DH];
-  __shared__ __align__(16) float sm_q[kMMA ? 4 : kMaxHeads * 4 * QS];
+  constexpr int QS = KS + 4;  // padded row of the staged q
+  constexpr int NI = HT / 4;  // heads per lane
+  constexpr int NT = HT / 8;  // MMA N tiles
+  // matrix, HT = 8: q's B fragment in registers and a double accumulator
+  constexpr bool kNarrowMMA = kMMA && HT == 8;
+  __shared__ __align__(16) float sm_p[kWarps][kTile][HT];
+  __shared__ float sm_m[kWarps * HT], sm_l[kWarps * HT];
+  __shared__ float sm_acc[kWarps * HT * DH];
+  __shared__ __align__(16) float sm_q[kNarrowMMA ? 4 : HT * 4 * QS];
 
   const int pair = blockIdx.x;
   const int b = pair / sh.kh, h = pair - b * sh.kh;
@@ -318,21 +342,24 @@ __device__ __forceinline__ void attention_tiles_f32(
   const float* qp = q + static_cast<size_t>(pair) * sh.g * DH;
 
   // the matrix engine's B fragment: head g's span [t*KS, (t+1)*KS) of q
-  float qs[KS];
-  if constexpr (kMMA) {
+  float qs[kNarrowMMA ? KS : 1];
+  if constexpr (kNarrowMMA) {
     load_span<KS>(qp + static_cast<size_t>(g) * DH + t * KS, g < sh.g, qs);
   } else {
-    for (int i = threadIdx.x; i < kMaxHeads * DH; i += kThreads) {
+    for (int i = threadIdx.x; i < HT * DH; i += kThreads) {
       const int hh = i / DH, d = i - hh * DH;
       sm_q[(hh * 4 + d / KS) * QS + d % KS] = hh < sh.g ? qp[i] : 0.f;
     }
     __syncthreads();
   }
 
-  // acc[d = g*VS + c][head 2t + i], in double on the tensor cores
-  using Acc = typename std::conditional<kMMA, double, float>::type;
-  Acc acc[VS][2] = {};
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};  // heads 2t, 2t+1
+  // acc[d = g*VS + c][head lane_head(j, t)], in double on the tensor cores
+  // at HT = 8
+  using Acc = typename std::conditional<kNarrowMMA, double, float>::type;
+  Acc acc[VS][NI] = {};
+  float m[NI], l[NI];
+#pragma unroll
+  for (int j = 0; j < NI; ++j) m[j] = kNegInf, l[j] = 0.f;
 
   // tile0 is uniform across the warp, as mma.sync and the shuffles need
   for (int tile0 = s0 + warp * kTile; tile0 < e1; tile0 += kWarps * kTile) {
@@ -341,26 +368,47 @@ __device__ __forceinline__ void attention_tiles_f32(
     float k0[KS], k1[KS];
     load_span<KS>(kb + rows[0] * stride, in[0], k0);
     load_span<KS>(kb + rows[1] * stride, in[1], k1);
-    float s[2][2];
-    if constexpr (kMMA) {
+    float s[2][NI];
+    if constexpr (kNarrowMMA) {
       score_mma<DH>(k0, k1, qs, s);
-    } else {
-      score_fma<DH, kMaxHeads>(k0, k1, sm_q, sh.g, t, s);
-    }
-    float p[2][2], corr[2];
-    softmax_step(s, rows, in, sh, m, l, p, corr);
+    } else if constexpr (kMMA) {
+      // one N tile at a time, its B fragment from the staged q
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+      for (int nt = 0; nt < NT; ++nt) {
+        float qn[KS];
+        const float4* q4 = reinterpret_cast<const float4*>(
+            sm_q + ((8 * nt + g) * 4 + t) * QS);
+#pragma unroll
+        for (int j = 0; j < KS / 4; ++j) {
+          const float4 x = q4[j];
+          qn[4 * j] = x.x, qn[4 * j + 1] = x.y, qn[4 * j + 2] = x.z,
+          qn[4 * j + 3] = x.w;
+        }
+        float sn[2][2];
+        score_mma<DH>(k0, k1, qn, sn);
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+          for (int i = 0; i < 2; ++i) s[hf][2 * nt + i] = sn[hf][i];
+      }
+    } else {
+      score_fma<DH, HT, HT>(k0, k1, sm_q, sh.g, t, s);
+    }
+    float p[2][NI], corr[NI];
+    softmax_step<NI>(s, rows, in, sh, m, l, p, corr);
+#pragma unroll
+    for (int i = 0; i < NI; ++i)
 #pragma unroll
       for (int c = 0; c < VS; ++c) acc[c][i] *= static_cast<Acc>(corr[i]);
-    // p (16 positions x 8 heads) through shared memory to the lanes that
+    // p (16 positions x HT heads) through shared memory to the lanes that
     // multiply it into V
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf)
 #pragma unroll
-      for (int i = 0; i < 2; ++i) sm_p[warp][8 * hf + g][2 * t + i] = p[hf][i];
+      for (int j = 0; j < NI; ++j)
+        sm_p[warp][8 * hf + g][lane_head(j, t)] = p[hf][j];
     __syncwarp();
-    if constexpr (kMMA) {
+    if constexpr (kNarrowMMA) {
       // B fragment: p[position 4ks + t][head g]; A: V row 4ks + t
 #pragma unroll
       for (int ks = 0; ks < kTile / 4; ++ks) {
@@ -371,6 +419,35 @@ __device__ __forceinline__ void attention_tiles_f32(
 #pragma unroll
         for (int c = 0; c < VS; ++c)
           dmma_884(acc[c][0], acc[c][1], vs[c], pb, acc[c][0], acc[c][1]);
+      }
+    } else if constexpr (kMMA) {
+      // the tile's p.V exactly in double, one Dh chunk c at a time, then
+      // rounded once into the float accumulator: A = V rows 4ks + t (all
+      // four loaded first), B = p[position 4ks + t][head 8nt + g]
+      float vr[kTile / 4][VS];
+      double pb[kTile / 4][NT];
+#pragma unroll
+      for (int ks = 0; ks < kTile / 4; ++ks) {
+        const int r = tile0 + 4 * ks + t;
+        load_span<VS>(vb + r * stride, r < s1, vr[ks]);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          pb[ks][nt] = sm_p[warp][4 * ks + t][8 * nt + g];
+      }
+#pragma unroll
+      for (int c = 0; c < VS; ++c) {
+        double d[NT][2] = {};
+#pragma unroll
+        for (int ks = 0; ks < kTile / 4; ++ks)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+            dmma_884(d[nt][0], d[nt][1], vr[ks][c], pb[ks][nt], d[nt][0],
+                     d[nt][1]);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            acc[c][2 * nt + i] += __double2float_rn(d[nt][i]);
       }
     } else {
 #pragma unroll
@@ -383,12 +460,15 @@ __device__ __forceinline__ void attention_tiles_f32(
         }
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
-          const float2 pu = *reinterpret_cast<const float2*>(
-              &sm_p[warp][4 * ks + u][2 * t]);
 #pragma unroll
-          for (int c = 0; c < VS; ++c) {
-            acc[c][0] = fmaf(pu.x, vs[u][c], acc[c][0]);
-            acc[c][1] = fmaf(pu.y, vs[u][c], acc[c][1]);
+          for (int nt = 0; nt < NT; ++nt) {
+            const float2 pu = *reinterpret_cast<const float2*>(
+                &sm_p[warp][4 * ks + u][8 * nt + 2 * t]);
+#pragma unroll
+            for (int c = 0; c < VS; ++c) {
+              acc[c][2 * nt] = fmaf(pu.x, vs[u][c], acc[c][2 * nt]);
+              acc[c][2 * nt + 1] = fmaf(pu.y, vs[u][c], acc[c][2 * nt + 1]);
+            }
           }
         }
       }
@@ -398,19 +478,19 @@ __device__ __forceinline__ void attention_tiles_f32(
 
   if (g == 0) {
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      sm_m[warp * kMaxHeads + 2 * t + i] = m[i];
-      sm_l[warp * kMaxHeads + 2 * t + i] = l[i];
+    for (int j = 0; j < NI; ++j) {
+      sm_m[warp * HT + lane_head(j, t)] = m[j];
+      sm_l[warp * HT + lane_head(j, t)] = l[j];
     }
   }
 #pragma unroll
   for (int c = 0; c < VS; ++c)
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
-      sm_acc[(warp * kMaxHeads + 2 * t + i) * DH + g * VS + c] =
-          static_cast<float>(acc[c][i]);
+    for (int j = 0; j < NI; ++j)
+      sm_acc[(warp * HT + lane_head(j, t)) * DH + g * VS + c] =
+          static_cast<float>(acc[c][j]);
   __syncthreads();
-  merge_warps<float, DH>(sm_m, sm_l, sm_acc, out, part_ml, part_acc, sh);
+  merge_warps<float, DH, HT>(sm_m, sm_l, sm_acc, out, part_ml, part_acc, sh);
 }
 
 // ---------------------------------------------------------------------------
@@ -435,20 +515,20 @@ struct KVTile {
 // (heads x positions) per warp, the warps' (m, l), and q staged as float32
 // (vector engine; [head][t][DH/4 + 4]).  After the tile loop sm_acc reuses
 // the ring.
-template <int DH>
+template <int DH, int HT>
 struct Aux {
-  float p[kWarps][kMaxHeads][kTile];
-  float m[kWarps * kMaxHeads], l[kWarps * kMaxHeads];
-  float q[kMaxHeads * 4 * (DH / 4 + 4)];
+  float p[kWarps][HT][kTile];
+  float m[kWarps * HT], l[kWarps * HT];
+  float q[HT * 4 * (DH / 4 + 4)];
 };
 
 template <int DH>
 __host__ __device__ constexpr int ring_bytes() {
   return kWarps * kRing * static_cast<int>(sizeof(KVTile<DH>));
 }
-template <int DH>
+template <int DH, int HT>
 __host__ __device__ constexpr int smem_bytes() {
-  return ring_bytes<DH>() + static_cast<int>(sizeof(Aux<DH>));
+  return ring_bytes<DH>() + static_cast<int>(sizeof(Aux<DH, HT>));
 }
 
 // cp.async of tile rows tile0 .. tile0 + 15 of K and V into a stage; rows at
@@ -513,8 +593,8 @@ __device__ __forceinline__ void split_bf16(float2 p, uint32_t& hi,
 }
 
 // NH: the vector engine's heads, a power of two >= G (the matrix engine
-// always takes 8, the MMA's N)
-template <int DH, bool kMMA, int NH>
+// always takes HT, one or two MMA N tiles); HT: the head tile, 8 or 16
+template <int DH, bool kMMA, int NH, int HT>
 __device__ __forceinline__ void attention_tiles_bf16(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
@@ -525,8 +605,13 @@ __device__ __forceinline__ void attention_tiles_bf16(
   constexpr int QS = KS + 4;       // padded row of the staged q
   constexpr int LR = DH / 4;       // vector p.V: lanes per V row, 4 each
   constexpr int NP = kTile * LR / 32;  // its positions per lane and tile
+  constexpr int NI = HT / 4;           // heads per lane
+  constexpr int NT = HT / 8;           // MMA N tiles
+  static_assert(kWarps * HT * DH * 4 <= ring_bytes<DH>(),
+                "sm_acc must fit in the ring it reuses");
   extern __shared__ __align__(16) unsigned char smem[];
-  Aux<DH>& aux = *reinterpret_cast<Aux<DH>*>(smem + ring_bytes<DH>());
+  Aux<DH, HT>& aux =
+      *reinterpret_cast<Aux<DH, HT>*>(smem + ring_bytes<DH>());
   auto& sm_p = aux.p;
   float* sm_m = aux.m;
   float* sm_l = aux.l;
@@ -544,10 +629,13 @@ __device__ __forceinline__ void attention_tiles_bf16(
   const __nv_bfloat16* qp = q + static_cast<size_t>(pair) * sh.g * DH;
   Tile* ring = reinterpret_cast<Tile*>(smem) + warp * kRing;
 
-  // matrix: acc[dc] is the HMMA C fragment of Dh rows 16dc + g (+ 8) and
-  // heads 2t, 2t+1; vector: acc[e][head] for Dh element 4 * (lane % LR) + e
-  float acc[kMMA ? DH / 16 : 4][kMMA ? 4 : kMaxHeads] = {};
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};  // heads 2t, 2t+1
+  // matrix: acc[dc][4nt ..] is the HMMA C fragment of Dh rows 16dc + g
+  // (+ 8) and heads 8nt + 2t, 8nt + 2t + 1; vector: acc[e][head] for Dh
+  // element 4 * (lane % LR) + e
+  float acc[kMMA ? DH / 16 : 4][kMMA ? 4 * NT : HT] = {};
+  float m[NI], l[NI];  // heads lane_head(j, t)
+#pragma unroll
+  for (int j = 0; j < NI; ++j) m[j] = kNegInf, l[j] = 0.f;
 
   // this warp's tiles start at first + i * kWarps * kTile, i < n (uniform
   // across the warp, as mma.sync and the shuffles need)
@@ -565,19 +653,23 @@ __device__ __forceinline__ void attention_tiles_bf16(
     cp_async_commit();
   }
   // with the first tiles in flight: q as the score HMMA's B fragments
-  // (matrix; (2t, 2t+1) and (2t+8, 2t+9) of head g's 16-element step kk), or
-  // staged in shared memory as float32 (vector)
-  uint32_t qf[kMMA ? DH / 16 : 1][2];
+  // (matrix; (2t, 2t+1) and (2t+8, 2t+9) of head 8nt + g's 16-element step
+  // kk), or staged in shared memory as float32 (vector)
+  uint32_t qf[kMMA ? NT : 1][kMMA ? DH / 16 : 1][2];
   if constexpr (kMMA) {
-    const unsigned int* q32 = reinterpret_cast<const unsigned int*>(
-        qp + static_cast<size_t>(g) * DH + 2 * t);
 #pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) {
-      qf[kk][0] = g < sh.g ? __ldg(q32 + 8 * kk) : 0u;
-      qf[kk][1] = g < sh.g ? __ldg(q32 + 8 * kk + 4) : 0u;
+    for (int nt = 0; nt < NT; ++nt) {
+      const bool ok = 8 * nt + g < sh.g;
+      const unsigned int* q32 = reinterpret_cast<const unsigned int*>(
+          qp + static_cast<size_t>(ok ? 8 * nt + g : 0) * DH + 2 * t);
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        qf[nt][kk][0] = ok ? __ldg(q32 + 8 * kk) : 0u;
+        qf[nt][kk][1] = ok ? __ldg(q32 + 8 * kk + 4) : 0u;
+      }
     }
   } else {
-    for (int i = threadIdx.x; i < kMaxHeads * DH; i += kThreads) {
+    for (int i = threadIdx.x; i < HT * DH; i += kThreads) {
       const int hh = i / DH, d = i - hh * DH;
       sm_q[(hh * 4 + d / KS) * QS + d % KS] =
           hh < sh.g ? __bfloat162float(qp[i]) : 0.f;
@@ -594,60 +686,77 @@ __device__ __forceinline__ void attention_tiles_bf16(
     const int tile0 = first + i * kWarps * kTile;
     const int rows[2] = {tile0 + g, tile0 + 8 + g};
     const bool in[2] = {rows[0] < s1, rows[1] < s1};
-    float s[2][2];
+    float s[2][NI];
     if constexpr (kMMA) {
       // A: positions on M from ldmatrix (matrix j: rows 8(j & 1) + 0..7,
-      // chunk 2kk + j / 2); two accumulator chains
+      // chunk 2kk + j / 2), shared by the N tiles; two accumulator chains
       const int r = (lane & 7) + 8 * ((lane >> 3) & 1), hc = lane >> 4;
-      float c[2][4] = {};
+      float c[2][NT][4] = {};
 #pragma unroll
       for (int kk = 0; kk < DH / 16; ++kk) {
         uint32_t a[4];
         ldmatrix_x4(a, &st.k[Tile::at(r, 2 * kk + hc)]);
-        hmma_16816_bf16(c[kk & 1], a, qf[kk][0], qf[kk][1], c[kk & 1]);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          hmma_16816_bf16(c[kk & 1][nt], a, qf[nt][kk][0], qf[nt][kk][1],
+                          c[kk & 1][nt]);
       }
-      s[0][0] = c[0][0] + c[1][0], s[0][1] = c[0][1] + c[1][1];
-      s[1][0] = c[0][2] + c[1][2], s[1][1] = c[0][3] + c[1][3];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        s[0][2 * nt] = c[0][nt][0] + c[1][nt][0];
+        s[0][2 * nt + 1] = c[0][nt][1] + c[1][nt][1];
+        s[1][2 * nt] = c[0][nt][2] + c[1][nt][2];
+        s[1][2 * nt + 1] = c[0][nt][3] + c[1][nt][3];
+      }
     } else {
       float k0[KS], k1[KS];
       k_span<DH>(st, g, t, k0);
       k_span<DH>(st, g + 8, t, k1);
-      score_fma<DH, NH>(k0, k1, sm_q, NH, t, s);
+      score_fma<DH, NH, HT>(k0, k1, sm_q, NH, t, s);
     }
-    float p[2][2], corr[2];
-    softmax_step(s, rows, in, sh, m, l, p, corr);
-    // p^T (8 heads x 16 positions) through shared memory to the lanes that
-    // multiply it into V
+    float p[2][NI], corr[NI];
+    softmax_step<NI>(s, rows, in, sh, m, l, p, corr);
+    // p^T (HT heads x 16 positions) through shared memory to the lanes
+    // that multiply it into V
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf)
 #pragma unroll
-      for (int i2 = 0; i2 < 2; ++i2)
-        sm_p[warp][2 * t + i2][8 * hf + g] = p[hf][i2];
+      for (int j = 0; j < NI; ++j)
+        sm_p[warp][lane_head(j, t)][8 * hf + g] = p[hf][j];
     __syncwarp();
     if constexpr (kMMA) {
 #pragma unroll
       for (int dc = 0; dc < DH / 16; ++dc)
 #pragma unroll
-        for (int i2 = 0; i2 < 2; ++i2) {
-          acc[dc][i2] *= corr[i2];
-          acc[dc][2 + i2] *= corr[i2];
-        }
-      // B: p[positions 2t, 2t+1 (+ 8)][head g], split in two bf16 terms
-      uint32_t ph[2], pl[2];
+        for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
-        split_bf16(*reinterpret_cast<const float2*>(
-                       &sm_p[warp][g][2 * t + 8 * j]),
-                   ph[j], pl[j]);
+          for (int i2 = 0; i2 < 2; ++i2) {
+            acc[dc][4 * nt + i2] *= corr[2 * nt + i2];
+            acc[dc][4 * nt + 2 + i2] *= corr[2 * nt + i2];
+          }
+      // B: p[positions 2t, 2t+1 (+ 8)][head 8nt + g], split in two bf16
+      // terms
+      uint32_t ph[NT][2], pl[NT][2];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          split_bf16(*reinterpret_cast<const float2*>(
+                         &sm_p[warp][8 * nt + g][2 * t + 8 * j]),
+                     ph[nt][j], pl[nt][j]);
       // A: V^T from ldmatrix.trans (matrix j: positions 8(j / 2) + 0..7,
-      // chunk 2dc + (j & 1))
+      // chunk 2dc + (j & 1)), shared by the N tiles
       const int r = (lane & 7) + 8 * (lane >> 4), hc = (lane >> 3) & 1;
 #pragma unroll
       for (int dc = 0; dc < DH / 16; ++dc) {
         uint32_t a[4];
         ldmatrix_x4_trans(a, &st.v[Tile::at(r, 2 * dc + hc)]);
-        hmma_16816_bf16(acc[dc], a, ph[0], ph[1], acc[dc]);
-        hmma_16816_bf16(acc[dc], a, pl[0], pl[1], acc[dc]);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          float(&d)[4] = *reinterpret_cast<float(*)[4]>(&acc[dc][4 * nt]);
+          hmma_16816_bf16(d, a, ph[nt][0], ph[nt][1], d);
+          hmma_16816_bf16(d, a, pl[nt][0], pl[nt][1], d);
+        }
       }
     } else {
       // lane = rg * LR + dl owns Dh elements 4dl .. 4dl + 3 of positions
@@ -663,7 +772,9 @@ __device__ __forceinline__ void attention_tiles_bf16(
       }
 #pragma unroll
       for (int hh = 0; hh < NH; ++hh) {
-        const float ch = __shfl_sync(kFull, corr[hh & 1], hh >> 1);
+        // head hh's factor, from lane t = (hh % 8) / 2, slot 2(hh / 8) + hh % 2
+        const float ch =
+            __shfl_sync(kFull, corr[2 * (hh >> 3) + (hh & 1)], (hh & 7) >> 1);
         float pv[NP];
         const float* ps = &sm_p[warp][hh][rg * NP];
         if constexpr (NP % 4 == 0) {
@@ -693,20 +804,22 @@ __device__ __forceinline__ void attention_tiles_bf16(
   float* sm_acc = reinterpret_cast<float*>(smem);
   if (g == 0) {
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      sm_m[warp * kMaxHeads + 2 * t + i] = m[i];
-      sm_l[warp * kMaxHeads + 2 * t + i] = l[i];
+    for (int j = 0; j < NI; ++j) {
+      sm_m[warp * HT + lane_head(j, t)] = m[j];
+      sm_l[warp * HT + lane_head(j, t)] = l[j];
     }
   }
   if constexpr (kMMA) {
 #pragma unroll
     for (int dc = 0; dc < DH / 16; ++dc)
 #pragma unroll
-      for (int hf = 0; hf < 2; ++hf)
+      for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
-          sm_acc[(warp * kMaxHeads + 2 * t + i) * DH + 16 * dc + 8 * hf + g] =
-              acc[dc][2 * hf + i];
+        for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            sm_acc[(warp * HT + 8 * nt + 2 * t + i) * DH + 16 * dc + 8 * hf +
+                   g] = acc[dc][4 * nt + 2 * hf + i];
   } else {
     // add the position groups' sums: lanes dl, dl + LR, ...
 #pragma unroll
@@ -718,18 +831,20 @@ __device__ __forceinline__ void attention_tiles_bf16(
           acc[e][hh] += __shfl_xor_sync(kFull, acc[e][hh], off);
     if (lane < LR) {
 #pragma unroll
-      for (int hh = 0; hh < kMaxHeads; ++hh)
+      for (int hh = 0; hh < HT; ++hh)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          sm_acc[(warp * kMaxHeads + hh) * DH + 4 * lane + e] = acc[e][hh];
+          sm_acc[(warp * HT + hh) * DH + 4 * lane + e] = acc[e][hh];
     }
   }
   __syncthreads();
-  merge_warps<__nv_bfloat16, DH>(sm_m, sm_l, sm_acc, out, part_ml, part_acc,
-                                 sh);
+  merge_warps<__nv_bfloat16, DH, HT>(sm_m, sm_l, sm_acc, out, part_ml,
+                                     part_acc, sh);
 }
 
-template <typename T, int DH>
+// HT: the head tile, 8 for G <= 8 and 16 for 8 < G <= 16 (one kernel each,
+// so the G <= 8 kernels keep their registers)
+template <typename T, int DH, int HT>
 __global__ void __launch_bounds__(kThreads)
     attention_vector_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             const T* __restrict__ v, T* __restrict__ out,
@@ -738,18 +853,25 @@ __global__ void __launch_bounds__(kThreads)
   // the combine kernel may be scheduled now; it waits for this grid
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   if constexpr (std::is_same<T, float>::value)
-    attention_tiles_f32<DH, false>(q, k, v, out, part_ml, part_acc, sh);
+    attention_tiles_f32<DH, false, HT>(q, k, v, out, part_ml, part_acc, sh);
+  else if constexpr (HT == 16)
+    attention_tiles_bf16<DH, false, 16, 16>(q, k, v, out, part_ml, part_acc,
+                                            sh);
   else if (sh.g <= 1)
-    attention_tiles_bf16<DH, false, 1>(q, k, v, out, part_ml, part_acc, sh);
+    attention_tiles_bf16<DH, false, 1, 8>(q, k, v, out, part_ml, part_acc,
+                                          sh);
   else if (sh.g <= 2)
-    attention_tiles_bf16<DH, false, 2>(q, k, v, out, part_ml, part_acc, sh);
+    attention_tiles_bf16<DH, false, 2, 8>(q, k, v, out, part_ml, part_acc,
+                                          sh);
   else if (sh.g <= 4)
-    attention_tiles_bf16<DH, false, 4>(q, k, v, out, part_ml, part_acc, sh);
+    attention_tiles_bf16<DH, false, 4, 8>(q, k, v, out, part_ml, part_acc,
+                                          sh);
   else
-    attention_tiles_bf16<DH, false, 8>(q, k, v, out, part_ml, part_acc, sh);
+    attention_tiles_bf16<DH, false, 8, 8>(q, k, v, out, part_ml, part_acc,
+                                          sh);
 }
 
-template <typename T, int DH>
+template <typename T, int DH, int HT>
 __global__ void __launch_bounds__(kThreads)
     attention_matrix_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             const T* __restrict__ v, T* __restrict__ out,
@@ -758,10 +880,10 @@ __global__ void __launch_bounds__(kThreads)
   // the combine kernel may be scheduled now; it waits for this grid
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   if constexpr (std::is_same<T, float>::value)
-    attention_tiles_f32<DH, true>(q, k, v, out, part_ml, part_acc, sh);
+    attention_tiles_f32<DH, true, HT>(q, k, v, out, part_ml, part_acc, sh);
   else
-    attention_tiles_bf16<DH, true, kMaxHeads>(q, k, v, out, part_ml,
-                                              part_acc, sh);
+    attention_tiles_bf16<DH, true, HT, HT>(q, k, v, out, part_ml, part_acc,
+                                           sh);
 }
 
 // ---------------------------------------------------------------------------
@@ -848,15 +970,15 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int DH>
+template <typename T, int DH, int HT>
 cudaError_t launch_tiles(const T* q, const T* k, const T* v, T* out,
                          float* part_ml, float* part_acc, dim3 grid,
                          const Shape& sh, int matrix, cudaStream_t s) {
-  auto kernel = matrix ? attention_matrix_kernel<T, DH>
-                       : attention_vector_kernel<T, DH>;
+  auto kernel = matrix ? attention_matrix_kernel<T, DH, HT>
+                       : attention_vector_kernel<T, DH, HT>;
   int smem = 0;
   if constexpr (!std::is_same<T, float>::value) {
-    smem = smem_bytes<DH>();
+    smem = smem_bytes<DH, HT>();
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
@@ -879,8 +1001,12 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v,
   switch (sh.dh) {
 #define REPRO_ATTENTION(DH)                                              \
   case DH:                                                               \
-    err = launch_tiles<T, DH>(qt, kt, vt, ot, part_ml, part_acc, grid,   \
-                              sh, matrix, s);                            \
+    err = sh.g <= 8 ? launch_tiles<T, DH, 8>(qt, kt, vt, ot, part_ml,    \
+                                             part_acc, grid, sh, matrix, \
+                                             s)                          \
+                    : launch_tiles<T, DH, 16>(qt, kt, vt, ot, part_ml,   \
+                                              part_acc, grid, sh,        \
+                                              matrix, s);                \
     break;
     REPRO_ATTENTION(16)
     REPRO_ATTENTION(32)
@@ -917,7 +1043,7 @@ REPRO_ERROR_STRING(attention)
 // position); they are cut into nsplit ranges of `rows` positions, one CTA
 // each.  With nsplit > 1, part_ml (pairs * nsplit * G * 2) and part_acc
 // (pairs * nsplit * G * Dh) float32 hold the ranges' partials.  Both
-// kernels take G <= 8 and Dh in {16, 32, 64, 128}.  Returns the
+// kernels take G <= 16 and Dh in {16, 32, 64, 128}.  Returns the
 // cudaError_t.
 extern "C" int attention_launch(const void* q, const void* k, const void* v,
                                 void* out, float* part_ml, float* part_acc,

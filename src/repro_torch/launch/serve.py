@@ -2,8 +2,9 @@
 
 LM inference under traffic: seeded requests from the serving subsystem's
 load generators are queued, continuously batched, and decoded against a
-KV cache (``repro_torch.serving.lm.LMDecodeExecutor``), every layer's
-attention through the flash-decode kernel, with the advisor's
+KV cache (``repro_torch.serving.lm.LMDecodeExecutor``), every GQA
+layer's attention through the flash-decode kernel (MLA layers in the
+absorbed latent form), with the advisor's
 memory-bound analysis of the decode step logged up front (the paper's §6
 technique applied to LM inference) and the session's latency
 percentiles (queue/compute split), goodput and SLO attainment printed at
@@ -11,9 +12,10 @@ the end.
 
 ``--reduced`` (default) serves the smoke-size config; ``--no-reduced``
 serves the full-size architecture.  Runs on the card; ``--device cpu``
-runs the kernels' plain versions on the CPU.  Architectures whose layer
-families are not ported yet raise ``NotImplementedError`` naming their
-ROADMAP item.
+runs the kernels' plain versions on the CPU.  The dense, MoE and MLA
+families run (``--arch deepseek-v2-lite-16b``, ``--arch
+qwen3-moe-235b-a22b``); architectures whose layer families are not
+ported yet raise ``NotImplementedError`` naming their ROADMAP item.
 """
 import argparse
 import time

@@ -1,11 +1,16 @@
-"""Model layer: the dense GQA LM family over the port's kernel stack.
+"""Model layer: the dense GQA, MoE and MLA LM families over the port's
+kernel stack.
 
 * :mod:`repro_torch.models.config` — the reference's frozen
   :class:`ModelConfig` schema (copied, pure Python).
 * :mod:`repro_torch.models.lm` — one module per layer and a Python layer
-  loop: forward / prefill / decode_step for the dense family.
+  loop: forward / prefill / decode_step for the dense and MoE families.
+* :mod:`repro_torch.models.moe` — the GShard top-k MoE FFN with per-group
+  capacity, shared experts and the aux / z losses.
+* :mod:`repro_torch.models.attention` — GQA attention and MLA (prefill
+  decompressed, decode absorbed into latent space).
 * :mod:`repro_torch.models.engine` — the :class:`DecodeEngine` serving
-  entry point: prefill + greedy decode with every layer's decode
+  entry point: prefill + greedy decode with every GQA layer's decode
   attention through the hand-written flash-decode kernel, and a measured
   prefill/decode phase split.
 * :mod:`repro_torch.models.advisor_map` — per-op Eq. 2 traits for one

@@ -1,4 +1,4 @@
-"""Attention: GQA with chunked (flash-style) softmax and KV caches.
+"""Attention: GQA with chunked (flash-style) softmax, KV caches, MLA.
 
 Grouped-query attention never materializes repeated KV heads: scores are
 computed with the (kv_head, group) factorization, query head
@@ -11,8 +11,15 @@ the card, its plain version on the CPU.  The KV cache is updated in
 place (``cache["k"][:, idx] = k``), where the reference builds a new one
 with ``dynamic_update_slice``.
 
-Not ported yet, each raising ``NotImplementedError``: MLA, cross-
-attention and the int8 KV cache (see ``lm.WAITING``).
+MLA (DeepSeek-V2) caches the compressed latent and the shared rope key;
+prefill decompresses them through ``wkv_b``, and decode runs the
+*absorbed* formulation (``w_uk`` folded into q, scores against the
+latent, ``w_uv`` applied after the weighted latent sum), the cache never
+decompressed.  MLA decode runs no flash-decode kernel, as in the
+reference.
+
+Not ported yet, each raising ``NotImplementedError``: cross-attention
+and the int8 KV cache (see ``lm.WAITING``).
 """
 from __future__ import annotations
 
@@ -21,9 +28,9 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from .config import ModelConfig
-from .layers import apply_mrope, apply_rope
+from .layers import apply_mrope, apply_rope, rmsnorm
 
-__all__ = ["attention", "make_cache", "sdpa"]
+__all__ = ["attention", "make_cache", "mla_attention", "sdpa"]
 
 NEG_INF = -1e30
 
@@ -163,10 +170,11 @@ def attention(p, x, cfg: ModelConfig, *, positions,
     decode: cache given + cache_index (a Python int) -> one-step attention
       against the cache, which is updated in place and returned.
     """
-    if cfg.use_mla:
-        raise _waits("mla")
     if kv_x is not None:
         raise _waits("enc_dec")
+    if cfg.use_mla:
+        return mla_attention(p, x, cfg, positions=positions, cache=cache,
+                             cache_index=cache_index)
     del kv_positions
     b, sq, _ = x.shape
     group = cfg.n_heads // cfg.n_kv_heads
@@ -211,11 +219,86 @@ def attention(p, x, cfg: ModelConfig, *, positions,
 
 def make_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device="cuda") -> Dict:
-    """Zero ``(B, max_len, KH, Dh)`` k and v caches for one layer."""
+    """Zero caches for one layer: ``(B, max_len, KH, Dh)`` k and v, or
+    MLA's ``(B, max_len, kv_lora_rank)`` latent and ``(B, max_len,
+    qk_rope_dim)`` rope key (bfloat16 where an int8 cache is asked for,
+    as the reference keeps them)."""
     if cfg.use_mla:
-        raise _waits("mla")
+        lat = torch.bfloat16 if dtype == torch.int8 else dtype
+        return {"latent": torch.zeros((batch, max_len, cfg.kv_lora_rank),
+                                      dtype=lat, device=device),
+                "k_rope": torch.zeros((batch, max_len, cfg.qk_rope_dim),
+                                      dtype=lat, device=device)}
     if dtype == torch.int8:
         raise _waits("int8")
     shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+# --------------------------------------------------------------------------
+# MLA (DeepSeek-V2)
+# --------------------------------------------------------------------------
+
+def _mla_q(p, x, cfg: ModelConfig):
+    if cfg.q_lora_rank:
+        q = rmsnorm(p.q_norm, x @ p.wq_a, cfg.norm_eps) @ p.wq_b
+    else:
+        q = x @ p.wq
+    b, s = x.shape[:2]
+    q = q.reshape(b, s, cfg.n_heads, cfg.qk_nope_dim + cfg.qk_rope_dim)
+    return q[..., :cfg.qk_nope_dim], q[..., cfg.qk_nope_dim:]
+
+
+def mla_attention(p, x, cfg: ModelConfig, *, positions, cache=None,
+                  cache_index: Optional[int] = None):
+    """MLA: latent-compressed KV.  Prefill returns the fresh cache
+    ``{"latent", "k_rope"}``; decode (cache given, ``cache_index`` a
+    Python int) writes the step's rows into it in place and runs the
+    absorbed formulation entirely in latent space."""
+    dtype = x.dtype
+    b, s, _ = x.shape
+    h, r = cfg.n_heads, cfg.kv_lora_rank
+    nope, rd, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+
+    kv_a = x @ p.wkv_a                                      # (B,S,r+rd)
+    latent = rmsnorm(p.kv_norm, kv_a[..., :r], cfg.norm_eps)
+    k_rope = apply_rope(kv_a[..., r:].reshape(b, s, 1, rd), positions,
+                        cfg.rope_theta)
+    q_nope, q_rope = _mla_q(p, x, cfg)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    # the float32 1 / sqrt(nope + rd) as a Python number: a 0-d tensor
+    # made on the host and moved to the card would make the host wait for
+    # the card in every layer
+    scale = float(_scale(nope + rd, "cpu"))
+
+    if cache is None:                                        # train / prefill
+        kv = (latent @ p.wkv_b).reshape(b, s, h, nope + vd)
+        k_nope, v = kv[..., :nope], kv[..., nope:]
+        sc = (torch.einsum("bqhd,bkhd->bhqk", q_nope, k_nope)
+              + torch.einsum("bqhd,bkod->bhqk", q_rope, k_rope)
+              ).float() * scale
+        mask = positions[:, None, :] <= positions[:, :, None]
+        sc = torch.where(mask[:, None], sc, NEG_INF)
+        w = torch.softmax(sc, dim=-1).to(dtype)
+        out = torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(b, s, h * vd)
+        return out @ p.wo, {"latent": latent, "k_rope": k_rope.squeeze(2)}
+
+    # decode: the absorbed path, the cache written in place
+    lat, kr = cache["latent"], cache["k_rope"]
+    lat[:, cache_index:cache_index + s] = latent.to(lat.dtype)
+    kr[:, cache_index:cache_index + s] = k_rope.squeeze(2).to(kr.dtype)
+    wkv_b = p.wkv_b.reshape(r, h, nope + vd)
+    w_uk, w_uv = wkv_b[..., :nope], wkv_b[..., nope:]
+    # absorb: q' = q_nope @ w_uk -> score against the latent directly
+    q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope, w_uk)     # (B,1,H,r)
+    latf = lat.to(dtype)
+    sc = (torch.einsum("bqhr,bkr->bhqk", q_lat, latf)
+          + torch.einsum("bqhd,bkd->bhqk", q_rope, kr.to(dtype))
+          ).float() * scale
+    valid = torch.arange(lat.shape[1], device=x.device) < cache_index + s
+    sc = torch.where(valid, sc, NEG_INF)
+    w = torch.softmax(sc, dim=-1).to(dtype)
+    out_lat = torch.einsum("bhqk,bkr->bqhr", w, latf)        # (B,1,H,r)
+    out = torch.einsum("bqhr,rhd->bqhd", out_lat, w_uv)      # (B,1,H,vd)
+    return out.reshape(b, s, h * vd) @ p.wo, cache

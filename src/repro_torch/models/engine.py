@@ -5,9 +5,11 @@ The executable half of the model-scale verdict (``advisor_map``): one
 points, ``prefill`` (full prompt pass, caches built once) and
 ``decode_step`` (one token against the KV caches through ``lm``'s layer
 loop).  Attention is registry-dispatched by default
-(``attention_impl='registry'``): every layer's cache scan goes through
-the registered flash-decode op, the hand-written kernel on the card,
-and the engine ('vector'|'matrix'|'auto') is a constructor flag.
+(``attention_impl='registry'``): every GQA layer's cache scan goes
+through the registered flash-decode op, the hand-written kernel on the
+card, and the engine ('vector'|'matrix'|'auto') is a constructor flag.
+MLA layers decode in the absorbed latent form and run no flash-decode
+(``flash_decode_layers`` counts the layers that do).
 
 Everything lives on ``device``, ``"cuda"`` by default; the CPU runs the
 kernels' plain versions and is what the tests ask for.  The reference's
@@ -93,6 +95,14 @@ class DecodeEngine:
         self.params = lm.cast_params(params, dtype)
 
     # -- core phases -------------------------------------------------------
+
+    @property
+    def flash_decode_layers(self) -> int:
+        """Layers whose decode step launches the flash-decode op: every
+        layer on the registry path, none for MLA or the dense path."""
+        if self.cfg.use_mla or self.cfg.decode_attention_impl != "registry":
+            return 0
+        return self.cfg.n_layers
 
     @property
     def max_len(self) -> int:

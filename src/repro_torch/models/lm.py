@@ -1,23 +1,27 @@
-"""Causal LM, dense GQA family: one module per layer, a Python layer loop.
+"""Causal LM, dense / MoE / MLA families: a module per layer, a layer loop.
 
 The reference scans a stacked parameter pytree with ``lax.scan``; here
 each layer is an ``nn.Module`` in an ``nn.ModuleList`` and the layer loop
 is a Python loop (PyTorch runs eagerly, so there is nothing to compile).
 The weight names and layouts are the reference's: ``(d_in, d_out)`` for
 ``x @ W``, ``state_dict`` keys ``layers.<i>.attn.wq`` for the pytree's
-``layers/attn/wq[i]``.
+``layers/attn/wq[i]``.  A MoE config's leading dense layers
+(``first_dense_layers``, DeepSeek-V2-Lite's first) are ``first_dense.<i>``
+as the reference stacks them under ``first_dense``; its other layers
+carry a ``moe`` group (router, experts, ``shared`` experts) in place of
+``mlp``.
 
 Modes:
   forward      -- full-sequence pass (logits, optional KV caches)
   prefill      -- prompt pass returning last-position logits + caches
   decode_step  -- one token against the caches, updated in place
 
-Only the dense family is ported so far.  The others raise
+The dense GQA, MoE and MLA families are ported.  The others raise
 ``NotImplementedError`` naming the ROADMAP.md item that ports them.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import torch
 from torch import nn
@@ -25,16 +29,15 @@ from torch import nn
 from .attention import attention, make_cache
 from .config import ModelConfig
 from .layers import dense_init, init_mlp, mlp, rmsnorm
+from .moe import init_moe, moe_ffn
 
 __all__ = ["Block", "DenseLayer", "LM", "cast_params", "check_family",
            "decode_step", "forward", "init_caches", "init_params",
            "loss_fn", "pad_caches", "prefill"]
 
 #: The families and features that wait, with the ROADMAP.md item that
-#: ports each (Queue 1 item 10, in order).
+#: ports each (Queue 1 item 10, in order; 10.1 MoE and 10.2 MLA are done).
 WAITING = {
-    "moe": "MoE layers (models/moe.py): ROADMAP.md Queue 1 item 10.1",
-    "mla": "MLA attention: ROADMAP.md Queue 1 item 10.2",
     "ssm": "SSM layers (models/ssm.py): ROADMAP.md Queue 1 item 10.3",
     "hybrid": "the hybrid SSM + shared-attention family: ROADMAP.md "
               "Queue 1 item 10.4",
@@ -56,10 +59,6 @@ def check_family(cfg: ModelConfig) -> None:
         raise _waits("ssm")
     if cfg.family == "hybrid":
         raise _waits("hybrid")
-    if cfg.n_experts or cfg.first_dense_layers:
-        raise _waits("moe")
-    if cfg.use_mla:
-        raise _waits("mla")
     if cfg.enc_dec:
         raise _waits("enc_dec")
     if cfg.frontend or cfg.rope_kind == "mrope":
@@ -73,38 +72,55 @@ def check_family(cfg: ModelConfig) -> None:
 class Block(nn.Module):
     """A named group of weights: one node of the reference's pytree.
 
-    ``"bq" in block`` tests for an optional weight, as ``"bq" in p`` does
+    A dotted name (``shared.w_gate``) makes a nested group.  ``"bq" in
+    block`` tests for an optional weight or group, as ``"bq" in p`` does
     on the reference's dicts.
     """
 
     def __init__(self, tensors: Mapping[str, torch.Tensor]):
         super().__init__()
+        groups: Dict[str, Dict[str, torch.Tensor]] = {}
         for name, t in tensors.items():
-            self.register_parameter(name, nn.Parameter(t, requires_grad=False))
+            head, _, rest = name.partition(".")
+            if rest:
+                groups.setdefault(head, {})[rest] = t
+            else:
+                self.register_parameter(name,
+                                        nn.Parameter(t, requires_grad=False))
+        for head, sub in groups.items():
+            self.add_module(head, Block(sub))
 
     def __contains__(self, name: str) -> bool:
-        return name in self._parameters
+        return name in self._parameters or name in self._modules
+
+
+def _group(tensors: Mapping[str, torch.Tensor], prefix: str
+           ) -> Dict[str, torch.Tensor]:
+    return {k[len(prefix):]: v for k, v in tensors.items()
+            if k.startswith(prefix)}
 
 
 class DenseLayer(nn.Module):
-    """Pre-norm attention + SwiGLU block of the dense family."""
+    """Pre-norm attention + FFN block: a SwiGLU ``mlp``, or a ``moe``
+    (``mlp`` / ``moe`` is None where the layer has the other)."""
 
     def __init__(self, tensors: Mapping[str, torch.Tensor]):
         super().__init__()
         self.ln1 = nn.Parameter(tensors["ln1"], requires_grad=False)
         self.ln2 = nn.Parameter(tensors["ln2"], requires_grad=False)
-        self.attn = Block({k[5:]: v for k, v in tensors.items()
-                           if k.startswith("attn.")})
-        self.mlp = Block({k[4:]: v for k, v in tensors.items()
-                          if k.startswith("mlp.")})
+        self.attn = Block(_group(tensors, "attn."))
+        moe = _group(tensors, "moe.")
+        self.moe = Block(moe) if moe else None
+        self.mlp = None if moe else Block(_group(tensors, "mlp."))
 
 
 class LM(nn.Module):
     """Embedding, the layer stack and the LM head of one ``ModelConfig``.
 
     ``tensors`` maps ``state_dict`` names (``embed``, ``final_norm``,
-    ``head``, ``layers.<i>.ln1``, ``layers.<i>.attn.wq``, ...) to the
-    weights, which the module takes over without copying.
+    ``head``, ``layers.<i>.ln1``, ``layers.<i>.attn.wq``,
+    ``first_dense.<i>.mlp.w_up``, ...) to the weights, which the module
+    takes over without copying.
     """
 
     def __init__(self, cfg: ModelConfig,
@@ -117,18 +133,18 @@ class LM(nn.Module):
                                        requires_grad=False)
         if not cfg.tie_embeddings:
             self.head = nn.Parameter(tensors["head"], requires_grad=False)
-        layers = []
-        for i in range(cfg.n_layers):
-            pre = f"layers.{i}."
-            layers.append(DenseLayer({k[len(pre):]: v
-                                      for k, v in tensors.items()
-                                      if k.startswith(pre)}))
-        self.layers = nn.ModuleList(layers)
+        nf = cfg.first_dense_layers
+        self.first_dense = nn.ModuleList(
+            DenseLayer(_group(tensors, f"first_dense.{i}."))
+            for i in range(nf))
+        self.layers = nn.ModuleList(
+            DenseLayer(_group(tensors, f"layers.{i}."))
+            for i in range(cfg.n_layers - nf))
 
 
 #: Parameters that stay float32 whatever the compute dtype: the reference
 #: applies them in float32 (``rmsnorm``) and never casts them.
-_NORMS = ("ln1", "ln2", "final_norm")
+_NORMS = ("ln1", "ln2", "final_norm", "kv_norm", "q_norm")
 
 
 def cast_params(p: LM, dtype: torch.dtype) -> LM:
@@ -150,30 +166,59 @@ def cast_params(p: LM, dtype: torch.dtype) -> LM:
 # init
 # --------------------------------------------------------------------------
 
-def _init_dense_layer(gen: torch.Generator, cfg: ModelConfig, device
-                      ) -> Dict[str, torch.Tensor]:
+def _init_attention(gen: torch.Generator, cfg: ModelConfig, device
+                    ) -> Dict[str, torch.Tensor]:
+    d = cfg.d_model
+    if cfg.use_mla:
+        r, h = cfg.kv_lora_rank, cfg.n_heads
+        nope, rd, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+        t = {"wkv_a": dense_init(gen, d, r + rd, device=device),
+             "kv_norm": torch.ones(r, device=device),
+             "wkv_b": dense_init(gen, r, h * (nope + vd), device=device),
+             "wo": dense_init(gen, h * vd, d, device=device)}
+        if cfg.q_lora_rank:
+            t["wq_a"] = dense_init(gen, d, cfg.q_lora_rank, device=device)
+            t["q_norm"] = torch.ones(cfg.q_lora_rank, device=device)
+            t["wq_b"] = dense_init(gen, cfg.q_lora_rank, h * (nope + rd),
+                                   device=device)
+        else:
+            t["wq"] = dense_init(gen, d, h * (nope + rd), device=device)
+        return t
+    t = {"wq": dense_init(gen, d, cfg.q_dim, device=device),
+         "wk": dense_init(gen, d, cfg.kv_dim, device=device),
+         "wv": dense_init(gen, d, cfg.kv_dim, device=device),
+         "wo": dense_init(gen, cfg.n_heads * cfg.head_dim, d, device=device)}
+    if cfg.qkv_bias:
+        t["bq"] = torch.zeros(cfg.q_dim, device=device)
+        t["bk"] = torch.zeros(cfg.kv_dim, device=device)
+        t["bv"] = torch.zeros(cfg.kv_dim, device=device)
+    return t
+
+
+def _init_dense_layer(gen: torch.Generator, cfg: ModelConfig, device,
+                      d_ff: Optional[int]) -> Dict[str, torch.Tensor]:
+    """One layer's weights: attention, then a SwiGLU of ``d_ff``, or the
+    MoE where ``d_ff`` is None."""
     d = cfg.d_model
     t = {"ln1": torch.ones(d, device=device),
-         "attn.wq": dense_init(gen, d, cfg.q_dim, device=device),
-         "attn.wk": dense_init(gen, d, cfg.kv_dim, device=device),
-         "attn.wv": dense_init(gen, d, cfg.kv_dim, device=device),
-         "attn.wo": dense_init(gen, cfg.n_heads * cfg.head_dim, d,
-                               device=device),
          "ln2": torch.ones(d, device=device)}
-    if cfg.qkv_bias:
-        t["attn.bq"] = torch.zeros(cfg.q_dim, device=device)
-        t["attn.bk"] = torch.zeros(cfg.kv_dim, device=device)
-        t["attn.bv"] = torch.zeros(cfg.kv_dim, device=device)
-    for k, v in init_mlp(gen, d, cfg.d_ff, device=device).items():
-        t[f"mlp.{k}"] = v
+    t.update({f"attn.{k}": v
+              for k, v in _init_attention(gen, cfg, device).items()})
+    if d_ff is None:
+        t.update({f"moe.{k}": v
+                  for k, v in init_moe(gen, cfg, device).items()})
+    else:
+        t.update({f"mlp.{k}": v
+                  for k, v in init_mlp(gen, d, d_ff, device=device).items()})
     return t
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> LM:
     """Seeded random float32 weights, drawn on ``device``.
 
-    The reference's distributions (N(0, 1/d_in) matmul weights, 0.02
-    embedding and head, unit norms, zero biases) from a
+    The reference's distributions (N(0, 1/d_in) matmul and expert
+    weights, 0.02 embedding, head and router, unit norms, zero biases)
+    from a
     ``torch.Generator``: not the reference's numbers, which come from
     ``jax.random`` (carry them with ``carry.params_from_numpy``).
     """
@@ -186,8 +231,15 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> LM:
     if not cfg.tie_embeddings:
         t["head"] = dense_init(gen, d, cfg.vocab_padded, scale=0.02,
                                device=device)
-    for i in range(cfg.n_layers):
-        for k, v in _init_dense_layer(gen, cfg, device).items():
+    nf = cfg.first_dense_layers
+    for i in range(nf):
+        for k, v in _init_dense_layer(gen, cfg, device,
+                                      cfg.dense_d_ff or cfg.d_ff).items():
+            t[f"first_dense.{i}.{k}"] = v
+    for i in range(cfg.n_layers - nf):
+        for k, v in _init_dense_layer(
+                gen, cfg, device,
+                None if cfg.n_experts else cfg.d_ff).items():
             t[f"layers.{i}.{k}"] = v
     return LM(cfg, t)
 
@@ -209,11 +261,25 @@ def _positions(batch: Dict, b: int, s: int, device) -> torch.Tensor:
 
 def _dense_block(p: DenseLayer, x, cfg: ModelConfig, *, positions, cache,
                  cache_index, causal=True):
+    """One layer: (x, its cache, the MoE's aux losses, ``{}`` for a
+    dense FFN)."""
     h, new_cache = attention(p.attn, rmsnorm(p.ln1, x, cfg.norm_eps), cfg,
                              positions=positions, cache=cache,
                              cache_index=cache_index, causal=causal)
     x = x + h
-    return x + mlp(p.mlp, rmsnorm(p.ln2, x, cfg.norm_eps)), new_cache
+    if p.moe is not None:
+        h, aux = moe_ffn(p.moe, rmsnorm(p.ln2, x, cfg.norm_eps), cfg)
+    else:
+        h, aux = mlp(p.mlp, rmsnorm(p.ln2, x, cfg.norm_eps)), {}
+    return x + h, new_cache, aux
+
+
+#: Cache groups in layer order: the leading dense layers, then the rest.
+_GROUPS = (("first_dense", "first_dense"), ("attn", "layers"))
+
+
+def _stack(caches) -> Dict[str, torch.Tensor]:
+    return {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
 
 
 # --------------------------------------------------------------------------
@@ -226,25 +292,31 @@ def forward(p: LM, cfg: ModelConfig, batch: Dict, *,
     """Full-sequence pass.  Returns (logits, caches|None, aux).
 
     ``caches`` is ``{"attn": {"k": (L, B, S, KH, Dh), "v": ...}}``, the
-    reference's stacked layout; ``aux`` holds the MoE losses, zero for
+    reference's stacked layout (MLA: ``"latent"`` and ``"k_rope"``), with
+    a ``"first_dense"`` group of the same kind for a MoE config's leading
+    dense layers; ``aux`` holds the MoE layers' losses summed, zero for
     the dense family.  ``return_hidden`` skips the LM head.
     """
     check_family(cfg)
     x = p.embed[batch["tokens"].long()].to(dtype)
     b, s, _ = x.shape
     positions = _positions(batch, b, s, x.device)
-    ks, vs = [], []
-    for layer in p.layers:
-        x, kv = _dense_block(layer, x, cfg, positions=positions, cache=None,
-                             cache_index=None)
-        if want_cache:
-            ks.append(kv["k"])
-            vs.append(kv["v"])
+    aux = {"aux_loss": torch.zeros((), device=x.device),
+           "z_loss": torch.zeros((), device=x.device)}
+    caches = {}
+    for group, name in _GROUPS:
+        kvs = []
+        for layer in getattr(p, name):
+            x, kv, layer_aux = _dense_block(layer, x, cfg,
+                                            positions=positions, cache=None,
+                                            cache_index=None)
+            aux = {k: v + layer_aux.get(k, 0.0) for k, v in aux.items()}
+            if want_cache:
+                kvs.append(kv)
+        if kvs:
+            caches[group] = _stack(kvs)
     x = rmsnorm(p.final_norm, x, cfg.norm_eps)
-    caches = ({"attn": {"k": torch.stack(ks), "v": torch.stack(vs)}}
-              if want_cache else None)
-    zero = torch.zeros((), device=x.device)
-    aux = {"aux_loss": zero, "z_loss": zero}
+    caches = caches if want_cache else None
     if return_hidden:
         return x, caches, aux
     return _logits(p, cfg, x), caches, aux
@@ -261,12 +333,19 @@ def loss_fn(*args, **kwargs):
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 dtype=torch.bfloat16, device="cuda") -> Dict:
-    """Zero KV caches, ``(L, B, max_len, KH, Dh)`` per k and v."""
+    """Zero KV caches, ``(L, B, max_len, KH, Dh)`` per k and v (MLA:
+    ``(L, B, max_len, r)`` latent and ``(L, B, max_len, rd)`` rope key),
+    one group per layer group, as the reference stacks them."""
     check_family(cfg)
     base = make_cache(cfg, batch, max_len, dtype, device)
-    return {"attn": {k: torch.zeros((cfg.n_layers, *v.shape), dtype=v.dtype,
-                                    device=v.device)
-                     for k, v in base.items()}}
+    nf = cfg.first_dense_layers
+    out = {}
+    for group, n in (("attn", cfg.n_layers - nf), ("first_dense", nf)):
+        if n:
+            out[group] = {k: torch.zeros((n, *v.shape), dtype=v.dtype,
+                                         device=v.device)
+                          for k, v in base.items()}
+    return out
 
 
 def pad_caches(caches: Dict, max_len: int) -> Dict:
@@ -299,11 +378,13 @@ def decode_step(p: LM, cfg: ModelConfig, tokens: torch.Tensor, caches: Dict,
     x = p.embed[tokens.long()].to(dtype)
     b = tokens.shape[0]
     pos = torch.full((b, 1), cache_index, dtype=torch.int32, device=x.device)
-    kc, vc = caches["attn"]["k"], caches["attn"]["v"]
-    for i, layer in enumerate(p.layers):
-        x, _ = _dense_block(layer, x, cfg, positions=pos,
-                            cache={"k": kc[i], "v": vc[i]},
-                            cache_index=cache_index)
+    for group, name in _GROUPS:
+        for i, layer in enumerate(getattr(p, name)):
+            # each leaf [i] is a view: the layer writes its rows in place
+            x, _, _ = _dense_block(
+                layer, x, cfg, positions=pos,
+                cache={k: c[i] for k, c in caches[group].items()},
+                cache_index=cache_index)
     x = rmsnorm(p.final_norm, x, cfg.norm_eps)
     return _logits(p, cfg, x), caches
 

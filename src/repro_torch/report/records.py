@@ -17,7 +17,8 @@ adds optional per-record fields for what the card measures:
 ``profiler_device_us`` (torch.profiler's device time per call),
 ``bound_bytes`` (the bytes the function must move on these inputs) and
 ``l2_resident`` (the point's bytes fit in the card's L2, so its shares
-are not HBM shares).  The reference's TPU-named ``pred_us_v5e`` is read
+are not HBM shares) and ``shape`` (the call's largest array, part of
+:attr:`BenchRecord.point`).  The reference's TPU-named ``pred_us_v5e`` is read
 into the neutral :attr:`BenchRecord.pred_us`, which the port writes
 under that name; a reference file loads unchanged.
 """
@@ -87,6 +88,8 @@ class BenchRecord:
     profiler_device_us: Optional[float] = None
     bound_bytes: Optional[float] = None
     l2_resident: Optional[bool] = None
+    # the shape of the call's largest array (a BlockEll: its dense shape)
+    shape: Optional[Tuple[int, ...]] = None
 
     @property
     def timed_us(self) -> float:
@@ -121,8 +124,8 @@ class BenchRecord:
         return n
 
     @property
-    def point(self) -> Tuple[str, str, int, str, int]:
-        """The sweep-point key (kernel, engine, size, dtype, mesh).
+    def point(self) -> Tuple:
+        """The sweep-point key (kernel, engine, size, dtype, mesh[, shape]).
 
         The *requested* mesh width (``mesh_devices``) is part of the
         key so the compare gate joins a 2-way-mesh point against the
@@ -132,9 +135,19 @@ class BenchRecord:
         the effective ``num_shards``: a clamped sweep (e.g. attention
         4-way over 2 KV heads plans 2 shards) must still join its own
         mesh-4 baseline rather than collide with a genuine 2-way sweep.
+
+        A port record's ``shape`` ends the key as ``"4x32768x8x128"``:
+        the two flash-decode STREAM points share the cache length S (their
+        ``size``) and differ in their heads, so without it one would
+        overwrite the other in the gate's index and a baseline's point
+        would be held against the other's.  The reference's records carry
+        no shape and keep the five-field key.
         """
-        return (self.kernel, self.engine, self.size, self.dtype,
-                self.mesh_devices)
+        key = (self.kernel, self.engine, self.size, self.dtype,
+               self.mesh_devices)
+        if self.shape is None:
+            return key
+        return key + ("x".join(map(str, self.shape)),)
 
     @property
     def tile_params(self) -> Optional[Mapping[str, int]]:
@@ -361,6 +374,8 @@ def _to_record(raw: Mapping[str, Any], path: str) -> BenchRecord:
         bound_bytes=_opt_float(raw.get("bound_bytes")),
         l2_resident=(bool(raw["l2_resident"])
                      if raw.get("l2_resident") is not None else None),
+        shape=(tuple(int(d) for d in raw["shape"])
+               if raw.get("shape") is not None else None),
     )
 
 

@@ -4,9 +4,10 @@ Serves :data:`~repro_torch.serving.requests.LM_DECODE` requests with a
 :class:`~repro_torch.models.engine.DecodeEngine`: a formed batch of
 requests (each asking for ``size`` generated tokens) is padded to the
 engine's fixed ``max_batch`` capacity, prefilled once, and greedily
-decoded step by step, every layer's attention through the hand-written
-flash-decode kernel: the GEMV-shaped, memory-bound regime the paper's
-framework classifies (decode intensity sits far below machine balance,
+decoded step by step, every GQA layer's attention through the
+hand-written flash-decode kernel (MLA layers in the absorbed latent
+form): the GEMV-shaped, memory-bound regime the paper's framework
+classifies (decode intensity sits far below machine balance,
 so the advisor routes it to the vector engine).
 
 The executor also carries the session's *model-scale verdict*
@@ -27,6 +28,7 @@ import torch
 from ..core.dispatch import DEFAULT_DISPATCHER, normalize_engine
 from ..core.intensity import KernelTraits
 from ..models.advisor_map import step_traits, verdict_payload
+from ..models import lm
 from ..models.config import ModelConfig
 from ..models.engine import DecodeEngine
 from .requests import Request
@@ -54,20 +56,23 @@ class LMDecodeExecutor:
     ``max_batch``) and reports measured wall compute with its
     prefill/decode split accumulated across the session.
 
-    ``engine`` forces the flash-decode kernel every layer launches
-    ('vector'|'matrix'; 'auto' defers to the advisor).  ``verdict_cfg``
-    lets a smaller run speak at model scale: execution uses ``cfg`` while
-    the recorded verdict classifies the full architecture.
+    ``engine`` forces the flash-decode kernel every GQA layer launches
+    ('vector'|'matrix'; 'auto' defers to the advisor; MLA layers launch
+    none).  ``verdict_cfg`` lets a smaller run speak at model scale:
+    execution uses ``cfg`` while the recorded verdict classifies the full
+    architecture.  ``params`` reuses weights already on the device (for
+    example another executor's ``engine.params``) instead of drawing them.
     """
 
     def __init__(self, cfg: ModelConfig, *, max_batch: int = 4,
                  prompt_len: int = 16, max_gen: int = 16,
                  dtype=torch.float32, seed: int = 0, engine: str = "auto",
-                 verdict_cfg: Optional[ModelConfig] = None, device="cuda"):
+                 verdict_cfg: Optional[ModelConfig] = None, device="cuda",
+                 params: Optional[lm.LM] = None):
         self.engine = DecodeEngine(cfg, max_batch=max_batch,
                                    prompt_len=prompt_len, max_gen=max_gen,
                                    dtype=dtype, seed=seed, engine=engine,
-                                   device=device)
+                                   params=params, device=device)
         self.cfg = self.engine.cfg
         self.verdict_cfg = verdict_cfg or cfg
         self.max_batch = max_batch

@@ -13,6 +13,7 @@ a bf16 ulp of the element itself, and the ulp is taken at a floor of
 Tests marked ``gpu`` hold both CUDA kernels against the plain version on
 the card; they skip where there is none.
 """
+import itertools
 import math
 
 import jax.numpy as jnp
@@ -29,7 +30,8 @@ from repro.kernels.attention.ref import decode_attention_ref as j_ref  # noqa: E
 
 from repro_torch.carry import tensor  # noqa: E402
 from repro_torch.kernels._ext import (  # noqa: E402
-    CTAS_PER_SM, attention_launch, attention_ranges, attention_split)
+    CTAS_PER_SM, attention_launch, attention_ranges, attention_split,
+    ctas_per_sm)
 from repro_torch.kernels.attention.flash_decode import (  # noqa: E402
     flash_decode, flash_decode_plain)
 from repro_torch.kernels.attention.ops import (  # noqa: E402
@@ -38,9 +40,12 @@ from repro_torch.kernels.attention.ref import decode_attention_ref  # noqa: E402
 
 ENGINES = ("vector", "matrix")
 DTYPES = ("float32", "bfloat16")
-#: (b, s, kh, g, dh, block_s): tests/test_flash_decode.py's sweep
+#: (b, s, kh, g, dh, block_s): tests/test_flash_decode.py's sweep, then
+#: Qwen3-MoE's 16 query heads per KV head and an odd group of 12 (the
+#: kernels' head tile of 16)
 SHAPES = [(1, 512, 2, 4, 64, 128), (2, 1024, 4, 8, 128, 256),
-          (1, 256, 1, 1, 32, 64)]
+          (1, 256, 1, 1, 32, 64), (2, 512, 2, 16, 128, 128),
+          (1, 256, 1, 12, 64, 64)]
 #: unaligned serving cache lengths (S, kv_len), on (2, S, 1, 2, 16)
 SERVING = [(12, 9), (24, 24), (56, 1)]
 
@@ -163,15 +168,17 @@ def test_ranges_cover_the_positions_read(s, block_s, pairs, kv_len, dtype):
     """The launched ranges cover exactly [0, min(kv_len, S)), all of S for
     kv_len <= 0, in ranges of block_s or of a multiple of 64 positions,
     no more CTAs than the card's slots unless the pairs alone exceed them;
-    reading all of S with the same ranges adds ranges only past kv_len."""
-    rows, nsplit, end = attention_ranges(s, block_s, pairs, 132, kv_len,
-                                         dtype)
-    slots = CTAS_PER_SM[dtype] * 132
-    assert end == (min(kv_len, s) if kv_len >= 1 else s)
-    assert rows * (nsplit - 1) < end <= rows * nsplit
-    assert rows == block_s or rows % 64 == 0
-    assert pairs * nsplit <= max(slots, pairs * -(-end // block_s))
-    assert -(-s // rows) >= nsplit
+    reading all of S with the same ranges adds ranges only past kv_len;
+    for each engine at head tiles of 8 and 16."""
+    for g, engine in itertools.product((4, 16), ENGINES):
+        rows, nsplit, end = attention_ranges(s, block_s, pairs, 132, kv_len,
+                                             dtype, g, engine)
+        slots = ctas_per_sm(dtype, g, engine) * 132
+        assert end == (min(kv_len, s) if kv_len >= 1 else s)
+        assert rows * (nsplit - 1) < end <= rows * nsplit
+        assert rows == block_s or rows % 64 == 0
+        assert pairs * nsplit <= max(slots, pairs * -(-end // block_s))
+        assert -(-s // rows) >= nsplit
 
 
 @pytest.mark.parametrize("engine", ENGINES)
@@ -190,6 +197,29 @@ def test_blocks_past_kv_len_change_no_bit(kv_len, dtype, engine):
                              v[:, :kept].contiguous(), kv_len,
                              block_s=block_s, engine=engine)
     assert torch.equal(cut, full)
+
+
+def test_bfloat16_vector_kernel_above_g8_takes_two_ctas_per_sm():
+    """Only the bfloat16 vector kernel at a head tile of 16 takes two CTA
+    slots per SM: twice the ranges at Qwen3-MoE's decode shape."""
+    assert ctas_per_sm(torch.bfloat16, 16, "vector") == 2
+    for args in ((torch.bfloat16, 16, "matrix"), (torch.bfloat16, 8, "vector"),
+                 (torch.float32, 16, "vector")):
+        assert ctas_per_sm(*args) == CTAS_PER_SM[args[0]]
+    pt = (32768, 512, 16, 132, 28672, torch.bfloat16, 16)
+    assert attention_ranges(*pt, "vector")[1] == \
+        2 * attention_ranges(*pt, "matrix")[1]
+
+
+def test_kernel_takes_up_to_16_query_heads_per_kv_head():
+    """The wrapper's argument check: G = 16 passes it (and stops at the
+    card check on CPU tensors); G = 17 is refused naming the ROADMAP."""
+    from repro_torch.kernels import _ext
+    for g, match in ((16, "on the card"), (12, "on the card"),
+                     (17, "ROADMAP.md Queue 2")):
+        q, k, v = _port(_mk(1, 64, 1, g, 16, "float32"))
+        with pytest.raises(ValueError, match=match):
+            _ext.attention(q, k, v, 64, block_s=64, engine="vector")
 
 
 def test_split_rejects_a_block_that_does_not_divide_s():
@@ -219,8 +249,9 @@ def test_card_flash_decode_matches_plain(card, dtype, engine):
     cases = [(b, s, kh, g, dh, s - 16) for b, s, kh, g, dh, _ in SHAPES]
     cases += [(2, s, 1, 2, 16, kv) for s, kv in SERVING]
     cases += [(1, 512, 2, 4, 64, 0)]
-    # 16 ranges of 64 positions at block_s 128: whole ranges past kv_len
-    cases += [(2, 1024, 2, 4, 128, kv) for kv in
+    # 16 ranges of 64 positions at block_s 128: whole ranges past kv_len,
+    # at G = 4 (head tile 8) and G = 16 (head tile 16)
+    cases += [(2, 1024, 2, g, 128, kv) for g in (4, 16) for kv in
               (0, 1, 15, 16, 17, 63, 64, 65, 1023, 1024)]
     sms = torch.cuda.get_device_properties(card).multi_processor_count
     for b, s, kh, g, dh, kv_len in cases:
@@ -236,7 +267,7 @@ def test_card_flash_decode_matches_plain(card, dtype, engine):
             if kv_len >= 1:
                 # bit for bit against reading every range and position
                 rows = attention_ranges(s, block, b * kh, sms, kv_len,
-                                        dtype)[0]
+                                        dtype, g, engine)[0]
                 full = attention_launch(q, k, v, kv_len, rows=rows,
                                         nsplit=-(-s // rows), end=s,
                                         engine=engine)

@@ -437,6 +437,52 @@ def test_engine_and_oracle_medians_never_gate_each_other(tmp_path):
     assert "baseline times ref_us_per_call, candidate us_per_call" in msgs[0]
 
 
+#: Flash-decode's two STREAM points: one cache length S, so one size, and
+#: K of [B, S, KH, Dh] at G = 4 (Mistral-NeMo) and G = 16 (Qwen3-MoE).
+_ATTN_SHAPES = {4: [4, 32768, 8, 128], 16: [4, 32768, 4, 128]}
+
+
+def _attn_point(g, engine, dtype, us):
+    return _raw(kernel="attention", engine=engine, dtype=dtype, size=32768,
+                intensity=2.0, shape=_ATTN_SHAPES[g], us_per_call=us,
+                ref_us_per_call=1000.0)
+
+
+def _attn_set(path, times):
+    """A BENCH_attention set of {g: us} per engine and dtype."""
+    _write_set(path, [_attn_point(g, e, d, us) for g, us in times.items()
+                      for e in ("vector", "matrix")
+                      for d in ("float32", "bfloat16")], kernel="attention")
+
+
+def test_flash_decode_points_of_one_size_keep_their_own_keys(tmp_path,
+                                                             capsys):
+    base, cand = _dirs(tmp_path)
+    # the parent's set holds G = 4 only; the candidate adds a G = 16 point
+    # three times slower at the same size, which must gate nothing
+    _attn_set(base / "BENCH_attention.json", {4: 100.0})
+    _attn_set(cand / "BENCH_attention.json", {4: 100.0, 16: 300.0})
+    index = p_compare._index(load_dir(str(cand)), "bench")
+    assert len(index) == 8
+    for engine in ("vector", "matrix"):
+        for dtype in ("float32", "bfloat16"):
+            keys = [k for k in index if k[1:4] == (engine, 32768, dtype)]
+            assert sorted(k[5] for k in keys) == ["4x32768x4x128",
+                                                  "4x32768x8x128"]
+            assert {index[k].us_per_call for k in keys} == {100.0, 300.0}
+    assert p_compare.compare(str(base), str(cand)) == []
+    notes = capsys.readouterr().out.splitlines()
+    assert len(notes) == 4
+    assert all(n.startswith("note: new sweep point attention/")
+               and n.endswith("/4x32768x4x128") for n in notes)
+    # the G = 4 point three times slower fails on its own key only
+    _attn_set(cand / "BENCH_attention.json", {4: 300.0, 16: 100.0})
+    msgs = p_compare.compare(str(base), str(cand))
+    assert len(msgs) == 4
+    assert all("perf regression" in m and "/4x32768x8x128 " in m
+               for m in msgs)
+
+
 @pytest.mark.parametrize("name,item", [
     ("BENCH_serve_scale_mesh2.json", "items 13-14"),
     ("BENCH_scale_mesh2.json", "item 13"),
@@ -531,9 +577,11 @@ def test_serve_cli_online_tune_persists_and_gates(tmp_path):
     assert got == {("scale", "cuda"), ("axpy", "online")}
 
 
-def test_launch_serve_on_the_cpu(capsys):
+@pytest.mark.parametrize("arch", ["mistral-nemo-12b", "deepseek-v2-lite-16b",
+                                  "qwen3-moe-235b-a22b"])
+def test_launch_serve_on_the_cpu(capsys, arch):
     from repro_torch.launch import serve as launch_serve
-    launch_serve.main(["--arch", "mistral-nemo-12b", "--device", "cpu",
+    launch_serve.main(["--arch", arch, "--device", "cpu",
                        "--batch", "2", "--prompt-len", "6", "--gen", "3",
                        "--rate", "8", "--duration", "0.5"])
     out = capsys.readouterr().out

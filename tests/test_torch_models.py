@@ -1,4 +1,5 @@
-"""The LM decode slice: configs, verdict, layers, weights, engine, executor.
+"""The LM decode slice: configs, verdict, layers, MoE, MLA, weights,
+engine, executor.
 
 The reference runs as its own tests run it (``jax_platform_name=cpu``,
 Pallas flash-decode in interpret mode); the port runs on the CPU with
@@ -9,7 +10,9 @@ Tolerances: rmsnorm 1e-6, RoPE and SwiGLU 1e-5 (float32 summation order,
 and cos/sin/pow that differ in the last bit between libraries); the
 engine's prefill and per-step logits atol 1e-4 and rtol 1e-3, the
 reference's own tier (``tests/test_model_engine.py``); greedy tokens
-exactly equal.
+exactly equal.  The MoE FFN's output atol = rtol = 1e-5 (its per-token
+sum over the kept slots runs in top-k order, the reference's in expert
+order), its aux and z losses 1e-6; MLA's outputs and caches 1e-5.
 """
 import dataclasses
 
@@ -50,7 +53,10 @@ jax.config.update("jax_platform_name", "cpu")
 
 ARCH_NAMES = sorted(j_configs.ARCHS)
 DENSE = ("deepseek-7b", "mistral-nemo-12b", "qwen1.5-32b", "stablelm-12b")
-WAITING = sorted(set(ARCH_NAMES) - set(DENSE))
+#: The MoE family: MLA + a leading dense layer, and GQA at G = 16 in full.
+MOE = ("deepseek-v2-lite-16b", "qwen3-moe-235b-a22b")
+RUNNING = DENSE + MOE
+WAITING = sorted(set(ARCH_NAMES) - set(RUNNING))
 ENGINE_KW = dict(max_batch=2, prompt_len=6, max_gen=4, seed=0)
 
 
@@ -182,18 +188,24 @@ def test_mlp_matches_reference():
 # weights
 # --------------------------------------------------------------------------
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", RUNNING)
 def test_params_round_trip_bit_for_bit(name):
+    """The layer stacks (``layers``, ``first_dense``) and the ``moe``,
+    ``moe/shared`` and MLA leaves cross both ways bit for bit."""
     from repro.models import lm as j_lm
     j, p = (j_configs.reduced(c) for c in _pair(name))
     tree = _np(j_lm.init_params(j, jax.random.key(3)))
     port = params_from_numpy(tree, p, device="cpu")
-    assert len(port.layers) == p.n_layers
+    assert len(port.layers) == p.n_layers - p.first_dense_layers
+    assert len(port.first_dense) == p.first_dense_layers
     back = params_to_numpy(port)
     assert jax.tree.structure(back) == jax.tree.structure(tree)
     for a, b in zip(jax.tree.leaves(tree), jax.tree.leaves(back)):
         assert a.dtype == b.dtype and np.array_equal(a, b)
-    assert sum(t.numel() for t in port.parameters()) == p.param_count()
+    n = sum(t.numel() for t in port.parameters())
+    assert n == sum(a.size for a in jax.tree.leaves(tree))
+    if not p.use_mla:   # param_count leaves out MLA's kv_norm weights
+        assert n == p.param_count()
 
 
 def test_init_params_is_seeded_and_sized():
@@ -465,7 +477,7 @@ def test_waiting_families_raise(name):
         p_lm.init_params(cfg, device="cpu")
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", RUNNING)
 def test_dense_families_run(name):
     cfg = p_configs.reduced(p_configs.get_arch(name))
     eng = PEngine(cfg, device="cpu", **ENGINE_KW)
@@ -490,3 +502,227 @@ def test_default_device_raises_without_card():
         PEngine(p, **ENGINE_KW)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         PExecutor(p)
+
+
+# --------------------------------------------------------------------------
+# MoE layers and MLA attention against the reference
+# --------------------------------------------------------------------------
+
+def _block(tree):
+    """A reference parameter dict (numpy leaves) as the port's Block."""
+    flat = {}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{k}.")
+            else:
+                flat[f"{prefix}{k}"] = torch.from_numpy(np.asarray(v).copy())
+    walk(tree, "")
+    return p_lm.Block(flat)
+
+
+def _moe_pair(name, **changes):
+    j, p = (dataclasses.replace(j_configs.reduced(c), **changes)
+            for c in _pair(name))
+    return j, p
+
+
+#: (arch, config changes, tokens (B, S), group size): the reduced Qwen3
+#: (no shared experts) and DeepSeek (two shared); a capacity factor that
+#: drops tokens; 24 tokens in groups of 16, which fall back to 3 groups of 8
+MOE_CASES = [("qwen3-moe-235b-a22b", {}, (2, 16), 2048),
+             ("deepseek-v2-lite-16b", {}, (2, 16), 2048),
+             ("qwen3-moe-235b-a22b", {"capacity_factor": 0.25}, (2, 32),
+              2048),
+             ("deepseek-v2-lite-16b", {}, (3, 8), 16)]
+
+
+@pytest.mark.parametrize("name,changes,shape,group", MOE_CASES,
+                         ids=["qwen3", "deepseek-shared", "drops",
+                              "group-fallback"])
+def test_moe_ffn_matches_reference(name, changes, shape, group):
+    from repro.models import moe as j_moe
+    from repro_torch.models import moe as p_moe
+    j, p = _moe_pair(name, **changes)
+    params = _np(j_moe.init_moe(jax.random.key(5), j))
+    x = _draw(*shape, p.d_model, seed=6)
+    want, jaux = j_moe.moe_ffn(params, jnp.asarray(x), j, group_size=group)
+    got, paux = p_moe.moe_ffn(_block(params), torch.from_numpy(x), p,
+                              group_size=group)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=1e-5)
+    for k in ("aux_loss", "z_loss"):
+        np.testing.assert_allclose(float(paux[k]), float(jaux[k]),
+                                   rtol=1e-6, atol=1e-6)
+    # the routing the case asks for: some expert overflows where the
+    # capacity is cut; 3 groups of 8 on the fallback
+    t = shape[0] * shape[1]
+    sg = 8 if group == 16 else t
+    logits = x.reshape(-1, sg, p.d_model) @ params["router"]
+    _, idx = jax.lax.top_k(jax.nn.softmax(jnp.asarray(logits)), p.top_k)
+    load = np.asarray(jax.nn.one_hot(idx, p.n_experts).sum((1, 2)))
+    cap = p_moe._capacity(sg, p)
+    if "capacity_factor" in changes:
+        assert load.max() > cap
+    assert load.shape[0] == t // sg
+
+
+def test_top_k_breaks_ties_to_the_lower_index():
+    from repro_torch.models.moe import top_k
+    probs = np.array([[0.2, 0.3, 0.2, 0.3, 0.0],
+                      [0.25, 0.25, 0.25, 0.25, 0.0]], np.float32)
+    jv, ji = jax.lax.top_k(jnp.asarray(probs), 3)
+    pv, pi = top_k(torch.from_numpy(probs), 3)
+    assert np.array_equal(pi.numpy(), np.asarray(ji))
+    assert np.array_equal(pv.numpy(), np.asarray(jv))
+    assert pi.tolist() == [[1, 3, 0], [0, 1, 2]]
+
+
+@pytest.mark.parametrize("q_lora_rank", [0, 24])
+def test_mla_prefill_and_absorbed_decode_match_reference(q_lora_rank):
+    """Prefill (decompressed through wkv_b) and one absorbed decode step
+    against the padded latent cache, written in place at the index."""
+    from repro.models import attention as j_attn
+    from repro_torch.models import attention as p_attn
+    j, p = _moe_pair("deepseek-v2-lite-16b", q_lora_rank=q_lora_rank)
+    params = _np(j_attn._init_mla(jax.random.key(7), j))
+    b, s, max_len = 2, 7, 12
+    x = _draw(b, s, p.d_model, seed=8)
+    pos = np.broadcast_to(np.arange(s, dtype=np.int32), (b, s))
+    want, jc = j_attn.mla_attention(params, jnp.asarray(x), j,
+                                    positions=jnp.asarray(pos))
+    blk = _block(params)
+    got, pc = p_attn.mla_attention(blk, torch.from_numpy(x), p,
+                                   positions=torch.from_numpy(pos.copy()))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=1e-5)
+    for k in ("latent", "k_rope"):
+        np.testing.assert_allclose(pc[k].numpy(), np.asarray(jc[k]),
+                                   atol=1e-5, rtol=1e-5)
+    # one decode step at cache_index = s against the padded caches
+    jcache = {k: jnp.pad(v, ((0, 0), (0, max_len - s), (0, 0)))
+              for k, v in jc.items()}
+    pcache = p_lm.pad_caches({k: torch.from_numpy(np.array(v))
+                              for k, v in jc.items()}, max_len)
+    xs = _draw(b, 1, p.d_model, seed=9)
+    step = np.full((b, 1), s, np.int32)
+    want, jcache = j_attn.mla_attention(params, jnp.asarray(xs), j,
+                                        positions=jnp.asarray(step),
+                                        cache=jcache, cache_index=s)
+    got, out_cache = p_attn.mla_attention(
+        blk, torch.from_numpy(xs), p, positions=torch.from_numpy(step),
+        cache=pcache, cache_index=s)
+    assert out_cache is pcache                      # written in place
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=1e-5)
+    for k in ("latent", "k_rope"):
+        assert tuple(pcache[k].shape) == jcache[k].shape
+        np.testing.assert_allclose(pcache[k].numpy(), np.asarray(jcache[k]),
+                                   atol=1e-5, rtol=1e-5)
+
+
+def _moe_engines(name, **changes):
+    """A JAX engine and the port's engine on its carried weights."""
+    key = (name, tuple(sorted(changes.items())))
+    if key not in _ENGINES:
+        j, p = _moe_pair(name, **changes)
+        je = JEngine(j, dtype=jnp.float32, engine="vector",
+                     attention_impl="registry", **ENGINE_KW)
+        params = params_from_numpy(_np(je.params), p, device="cpu")
+        pe = PEngine(p, dtype=torch.float32, engine="vector",
+                     attention_impl="registry", params=params, device="cpu",
+                     **ENGINE_KW)
+        _ENGINES[key] = (je, pe)
+    return _ENGINES[key]
+
+
+#: the reduced MoE models, and reduced Qwen3 at 16 query heads over one KV
+#: head: G = 16, the full model's group, through the registry decode
+MOE_ENGINES = [(name, {}) for name in MOE] + [
+    ("qwen3-moe-235b-a22b", {"n_heads": 16, "n_kv_heads": 1})]
+MOE_ENGINE_IDS = ["deepseek-v2-lite", "qwen3-moe", "qwen3-moe-G16"]
+
+
+@pytest.mark.parametrize("name,changes", MOE_ENGINES, ids=MOE_ENGINE_IDS)
+def test_moe_engine_matches_reference_step_by_step(name, changes):
+    """Prefill logits, every teacher-forced step's logits, the caches."""
+    je, pe = _moe_engines(name, **changes)
+    jb, pb = je.make_prompt_batch(seed=1), pe.make_prompt_batch(seed=1)
+    jl, jc = je.prefill(jb)
+    pl, pc = pe.prefill(pb)
+    _close(pl, jl)
+    assert sorted(pc) == sorted(jc)
+    tok = np.array(jnp.argmax(jl[:, -1], axis=-1))[:, None]
+    for i in range(je.prompt_len, je.max_len - 1):
+        jl, jc = je.decode_step(jnp.asarray(tok), jc, i)
+        pl, pc = pe.decode_step(torch.from_numpy(tok), pc, i)
+        _close(pl, jl)
+        tok = np.array(jnp.argmax(jl[:, 0], axis=-1))[:, None]
+    for group in jc:
+        for k in jc[group]:
+            assert tuple(pc[group][k].shape) == jc[group][k].shape
+            _close(pc[group][k], jc[group][k])
+
+
+@pytest.mark.parametrize("name,changes", MOE_ENGINES, ids=MOE_ENGINE_IDS)
+def test_moe_engine_greedy_tokens_match_reference(name, changes):
+    je, pe = _moe_engines(name, **changes)
+    jr = je.generate(je.make_prompt_batch(seed=2))
+    pr = pe.generate(pe.make_prompt_batch(seed=2))
+    assert np.array_equal(pr.tokens.numpy(), np.asarray(jr.tokens))
+    _close(pr.logits, jr.logits)
+
+
+@pytest.mark.parametrize("name", MOE)
+def test_teacher_forced_decode_equals_forward(name):
+    """With the capacity lifted (drops exist only in the batched pass,
+    as the reference's tests/test_arch_smoke.py lifts it), one decode
+    step after prefill gives forward's logits over the prompt plus that
+    token."""
+    _, p = _moe_pair(name, capacity_factor=64.0)
+    eng = PEngine(p, device="cpu", dtype=torch.float32, **ENGINE_KW)
+    batch = eng.make_prompt_batch(seed=3)
+    logits, caches = eng.prefill(batch)
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    got, _ = eng.decode_step(tok, caches, eng.prompt_len)
+    full = {"tokens": torch.cat([batch["tokens"], tok.to(
+        batch["tokens"].dtype)], dim=1)}
+    want, _, _ = p_lm.forward(eng.params, eng.cfg, full, dtype=torch.float32)
+    torch.testing.assert_close(got[:, 0], want[:, -1], atol=1e-4, rtol=1e-3)
+
+
+def test_mla_decode_runs_no_flash_decode(monkeypatch):
+    """MLA layers decode in latent space: the registry op is never
+    called, and the engine says so."""
+    from repro_torch.kernels.attention import ops
+    calls = []
+    monkeypatch.setitem(ops.ATTENTION_OP.engines, "vector",
+                        lambda *a, **k: calls.append(1))
+    je, pe = _moe_engines("deepseek-v2-lite-16b")
+    pe.generate(pe.make_prompt_batch(seed=6))
+    assert calls == [] and pe.flash_decode_layers == 0
+    _, qe = _moe_engines("qwen3-moe-235b-a22b")
+    assert qe.flash_decode_layers == qe.cfg.n_layers
+
+
+@pytest.mark.parametrize("name", MOE)
+def test_moe_init_and_pad_caches_match_reference(name):
+    from repro.models import lm as j_lm
+    j, p = _moe_pair(name)
+    jc = j_lm.init_caches(j, 2, 8, jnp.float32)
+    pc = p_lm.init_caches(p, 2, 8, torch.float32, "cpu")
+    assert sorted(pc) == sorted(jc)
+    for group in jc:
+        for k in jc[group]:
+            assert tuple(pc[group][k].shape) == jc[group][k].shape
+            assert not pc[group][k].any()
+    short = {g: {k: jnp.ones(v[:, :, :5].shape) for k, v in c.items()}
+             for g, c in jc.items()}
+    want = j_lm.pad_caches(short, 8)
+    got = p_lm.pad_caches({g: {k: torch.ones(v.shape) for k, v in c.items()}
+                           for g, c in short.items()}, 8)
+    for group in want:
+        for k in want[group]:
+            assert np.array_equal(got[group][k].numpy(),
+                                  np.asarray(want[group][k]))

@@ -438,6 +438,29 @@ SESSION_SIZES = {"scale": 4096, "triad": 4096, "axpy": 4096, "spmv": 128,
                  "stencil": 48, "attention": 256}
 
 
+class FixedCompute:
+    """A real batch executor whose reported compute is a constant.
+
+    Both sessions of a comparison fold the executor's compute into their
+    virtual clocks; measured CPU time differs between the two packages
+    and with the machine's load, and so would the batches formed.  The
+    kernels still run, and the Advice and record fields still come from
+    the wrapped executor; only the clock is fixed, as the reference's
+    scheduler tests fix it (``tests/test_serving.py::FakeExecutor``).
+    """
+
+    def __init__(self, inner, compute_s=0.003):
+        self.inner = inner
+        self.compute_s = compute_s
+
+    def execute(self, batch):
+        return dataclasses.replace(self.inner.execute(batch),
+                                   compute_s=self.compute_s)
+
+    def advice_for(self, kernel, size, dtype):
+        return self.inner.advice_for(kernel, size, dtype)
+
+
 @pytest.mark.parametrize("engine", ["auto", "vpu", "mxu"])
 @pytest.mark.parametrize("kernel", sorted(SESSION_SIZES))
 def test_session_record_fields_equal_reference(kernel, engine):
@@ -445,10 +468,14 @@ def test_session_record_fields_equal_reference(kernel, engine):
                   rate_rps=40, duration_s=0.2, size=SESSION_SIZES[kernel],
                   seed=0)
     _, _, want = J.run_session(J.SessionConfig(
-        policy=J.BatchPolicy(max_batch=4, max_wait_s=0.01), **common))
+        policy=J.BatchPolicy(max_batch=4, max_wait_s=0.01), **common),
+        executor=FixedCompute(J.KernelBatchExecutor(engine=engine,
+                                                    max_batch=4, seed=0)))
     log, _, got = P.run_session(P.SessionConfig(
         policy=P.BatchPolicy(max_batch=4, max_wait_s=0.01), device="cpu",
-        backend="plain", **common))
+        backend="plain", **common),
+        executor=FixedCompute(P.KernelBatchExecutor(
+            engine=engine, max_batch=4, seed=0, backend="plain")))
     assert {f: got[f] for f in RECORD_FIELDS} == \
         {f: want[f] for f in RECORD_FIELDS}
     assert set(got) == set(want)
