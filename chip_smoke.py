@@ -9,9 +9,10 @@ kernel, timed with CUDA events, and its measured matrix/vector time
 ratio printed beside the Eq. 23 ceiling.  Kernel serving: seeded
 traffic of each family through the continuous-batching scheduler, the
 elementwise requests packed into one launch per batch.  LM decode
-serving: Mistral-NeMo-12B at full width and depth (random float32
-weights from a seed) serves seeded traffic through the same scheduler,
-every layer's decode attention through the flash-decode kernel; then the
+serving: Mistral-NeMo-12B and StableLM-2-12B (head dim 160) at full
+width and depth (random float32 weights from a seed) serve seeded
+traffic through the same scheduler, every layer's decode attention
+through the flash-decode kernel; then the
 MoE family, DeepSeek-V2-Lite-16B (MLA, 64 + 2 experts) at full width and
 depth and Qwen3-MoE-235B-A22B (128 experts, flash-decode at 16 query
 heads per KV head) at full width, 6 of its 94 layers.  Tile
@@ -37,17 +38,20 @@ Phases, each fatal on failure:
      extents that no block divides, and a 3-D radius-3 star at t = 3 (the
      largest halo); flash-decode at kv_len edges where whole ranges lie
      past kv_len, each also bit for bit against reading every position, at
-     G = 4 (head tile 8) and G = 16 and 12 (head tile 16);
+     G = 4 and 1 (head tile 8) and G = 16 and 12 (head tile 16), at Dh 128
+     and at the configs' Dh 112 (Zamba2-7B) and 160 (StableLM-2-12B);
+     before them, flash-decode's ptxas registers and spills per kernel;
   4. the experiment at STREAM size (every array >= 4x the 50 MiB L2):
      launch counts reset before it and read after it, one JSON line per
      point and engine, with the host's enqueue time and torch.profiler's
      device time per call, then each output held against its plain
      version (the stencils and the elementwise kernels bit for bit);
-     flash-decode at Mistral-NeMo's decode shape (G = 4) and at
-     Qwen3-MoE's (B 4, KH 4, G 16, Dh 128, S 32768, kv_len 28672);
+     flash-decode at Mistral-NeMo's decode shape (G = 4), at Qwen3-MoE's
+     (B 4, KH 4, G 16, Dh 128, S 32768, kv_len 28672) and at
+     StableLM-2-12B's (B 4, KH 8, G 4, Dh 160);
   5. library yardsticks (one PyTorch call computing the same function;
-     one line per flash-decode point with SDPA's time), and SpMV's byte
-     bound in CSR;
+     one line per flash-decode point with SDPA's CUDA-event time, device
+     time and host enqueue time), and SpMV's byte bound in CSR;
   6. the paper's steps 4-5 through the port's own sweep and claims:
      repro_torch.bench.bench_kernels.records_for for every family at the
      reference's bench_sizes and at the STREAM points, launch counts reset
@@ -79,7 +83,9 @@ Phases, each fatal on failure:
      decode step of each logged batch and of the warm-up), one
      teacher-forced decode step held against the plain dense-attention
      path, prefill and per-step times; BENCH_serve_lm-mistral-nemo-12b.json
-     written and verified, the model verdict at full width included;
+     written and verified, the model verdict at full width included; then
+     StableLM-2-12B at full width and depth (flash-decode at Dh 160), both
+     sessions on one set of weights, BENCH_serve_lm-stablelm-12b.json;
  8b. the MoE family the same way: DeepSeek-V2-Lite-16B at full width
      and depth (~63 GB), one session (MLA decodes in latent space: 0
      flash-decode launches, the engine flag does not apply), the served
@@ -147,6 +153,11 @@ ATTN_FLOOR = 1 / 256
 #: operations side of each kernel's bound.
 PEAK_OPS = 67e12
 
+#: Phase 3's (G, Dh) at the kv_len edges: the head tiles of 8 (G 4, 1) and
+#: 16 (G 16, 12) at Dh 128, and the configs' other head dims.
+EDGE_GROUPS = ((4, 128), (16, 128), (12, 128), (1, 112), (4, 112),
+               (4, 160), (16, 160))
+
 #: Float32 tolerance of the model phase's decode step against the plain
 #: dense-attention path: the reference's own model tier
 #: (tests/test_model_engine.py), elementwise |a - b| <= atol + rtol |b|.
@@ -178,8 +189,10 @@ SOURCE = {
 PACKED = ("scale", "triad", "axpy")
 SERVE_ELEMENTWISE, SERVE_ELEMENTWISE_RPS, SERVE_OTHER_RPS = 2**23, 4000.0, 200.0
 SERVE_MAX_BATCH, SERVE_MAX_WAIT_S, SERVE_DURATION_S = 8, 0.02, 0.5
-#: The LM decode phase: Mistral-NeMo-12B, full width and depth, float32.
+#: The LM decode phase: Mistral-NeMo-12B, full width and depth, float32;
+#: then StableLM-2-12B the same way (flash-decode at head dim 160).
 MODEL = "mistral-nemo-12b"
+MODEL_DH160 = "stablelm-12b"
 MODEL_BATCH, PROMPT_LEN, MAX_GEN = 4, 496, 16
 #: Its traffic: the reference's ``serve --workload lm`` defaults.
 LM_RPS, LM_DURATION_S, LM_SLO_MS = 8.0, 1.0, 30000.0
@@ -328,6 +341,14 @@ def main() -> int:
     if len(sass) != 8:
         failures.append(f"SASS audit found {sorted(sass)}, expected the "
                         f"eight family/engine kernels")
+    # flash-decode's registers and spills per instantiation (ptxas -v of
+    # the build): dtype/head dim/head tile/engine -> [registers, spill
+    # store bytes, spill load bytes]
+    print(json.dumps({"ptxas_attention": {
+        f"{u['dtype']}/{u['dh']}/{u['head_tile']}/{u['engine']}":
+            [u.get("registers"), u.get("spill_store_bytes", 0),
+             u.get("spill_load_bytes", 0)]
+        for u in _ext.attention_kernel_usage()}}), flush=True)
 
     # -- 3. kernels against their plain versions on the card ---------------
     n_checks = 0
@@ -461,7 +482,11 @@ def main() -> int:
     attn_cases = [(b, s, kh, g, dh, s - 16) for b, s, kh, g, dh in
                   ((1, 512, 2, 4, 64), (2, 1024, 4, 8, 128),
                    (1, 256, 1, 1, 32), (2, 512, 2, 16, 128),
-                   (1, 256, 1, 12, 64))]
+                   (1, 256, 1, 12, 64),
+                   # the configs' other head dims: Zamba2-7B's 112 (G 1),
+                   # StableLM-2-12B's 160 (G 4), both head tiles
+                   (1, 512, 2, 1, 112), (1, 256, 1, 12, 112),
+                   (2, 512, 2, 4, 160), (1, 256, 2, 16, 160))]
     attn_cases += [(2, s, 1, 2, 16, kv) for s, kv in ((12, 9), (24, 24),
                                                       (56, 1))]
     attn_cases += [(1, 512, 2, 4, 64, 0)]
@@ -481,14 +506,17 @@ def main() -> int:
                           floor=ATTN_FLOOR)
                     n_checks += 1
     # flash-decode where whole ranges lie past kv_len: (b, s, kh, g, dh) =
-    # (2, 1024, 2, g, 128) cuts the cache into ranges of 64 positions. Each
+    # (2, 1024, 2, g, dh) cuts the cache into ranges of 64 positions. Each
     # kv_len >= 1 is also held bit for bit against the same kernel reading
     # every range and position (end = S), as the reference does.  G = 4
-    # runs the head tile of 8; G = 16 (Qwen3-MoE's group) and 12 that of 16
-    b, s, kh, dh, block_s = 2, 1024, 2, 128, 128
+    # and 1 run the head tile of 8; G = 16 (Qwen3-MoE's group) and 12 that
+    # of 16; at Dh 128 and at the configs' 112 (Zamba2-7B) and 160
+    # (StableLM-2-12B)
+    b, s, kh, block_s = 2, 1024, 2, 128
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for g, kv_len in ((g, kv) for g in (4, 16, 12)
-                      for kv in (0, 1, 15, 16, 17, 63, 64, 65, s - 1, s)):
+    for g, dh, kv_len in ((g, dh, kv) for g, dh in EDGE_GROUPS
+                          for kv in (0, 1, 15, 16, 17, 63, 64, 65, s - 1,
+                                     s)):
         qkv = [torch.randn(shape, generator=gen).cuda() for shape in
                ((b, kh, g, dh), (b, s, kh, dh), (b, s, kh, dh))]
         for dtype in (torch.float32, torch.bfloat16):
@@ -496,8 +524,8 @@ def main() -> int:
             for engine in ("vector", "matrix"):
                 rows = _ext.attention_ranges(s, block_s, b * kh, sms, kv_len,
                                              dtype, g, engine)[0]
-                tag = (f"attention/{engine}/{dtype}/G={g}/kv_len={kv_len} "
-                       f"of {s} in ranges of {rows}")
+                tag = (f"attention/{engine}/{dtype}/G={g}/Dh={dh}/kv_len="
+                       f"{kv_len} of {s} in ranges of {rows}")
                 got = attention_op(q, k, v, kv_len, engine=engine,
                                    block_s=block_s)
                 check(tag, got, plain_of("attention", (q, k, v, kv_len),
@@ -609,6 +637,10 @@ def main() -> int:
                     torch, lambda: op(*args, engine=engine, **kw))
                 line["host_enqueue_us"] = host_us
                 line["profiler_device_us"] = device_us
+                if op.name == "attention" and engine == "vector":
+                    # the CUDA cores' floor: one FFMA per multiply-add,
+                    # 128 per SM and clock, beside the SM clock now
+                    line.update(_ffma_floor(torch, work / 2, device_us))
             print(json.dumps(line), flush=True)
             rows.append({"name": f"{op.name}_{engine}", "point": point,
                          "dtype": dtype, "err": err, "t": t,
@@ -620,14 +652,23 @@ def main() -> int:
               outs[advice.engine], 0.0)
 
     # -- 5. library yardsticks -------------------------------------------
-    library = {}
+    library, library_device = {}, {}
     for (op, point, dtype, shape, args, kw, *_rest) in results:
-        library[point] = _library_ms(torch, F, op.name, args, kw, time_fn)
+        fn = _library_fn(torch, F, op.name, args, kw)
+        library[point] = time_fn(fn, warmup=WARMUP,
+                                 iters=ITERS).median_us / 1e3
         if op.name == "attention":
+            # SDPA's device time too: its event pair, like the kernels',
+            # may bracket host time
+            host_us, device_us = _host_and_device_us(torch, fn)
+            library_device[point] = (device_us / 1e3 if device_us !=
+                                     "not measured" else device_us)
             print(json.dumps({"point": point, "library": "SDPA on the "
                               "kv_len valid positions",
-                              "library_ms": library[point], "card": card}),
-                  flush=True)
+                              "library_ms": library[point],
+                              "library_device_ms": library_device[point],
+                              "library_host_enqueue_us": host_us,
+                              "card": card}), flush=True)
         if op.name == "spmv":
             # the same matrix in CSR: the bytes a CSR SpMV must move
             bell, x = args
@@ -636,6 +677,7 @@ def main() -> int:
                               "csr_bound_ms": csr_ms, "card": card}),
                   flush=True)
     del points, results, args, kw, outs, times, want, traits, bell, x, xg
+    del fn
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -654,7 +696,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 8. LM decode serving at full width through the scheduler ------------
-    model_launches = {MODEL: _model_phase(torch, hw, card, failures)}
+    model_launches = _model_phase(torch, hw, card, failures)
     torch.cuda.empty_cache()
 
     # -- 8b. the MoE family: DeepSeek-V2-Lite-16B and Qwen3-MoE-235B-A22B ----
@@ -709,6 +751,7 @@ def main() -> int:
             entry["csr_bound_ms"] = csr_ms
         if r["op"] == "attention":
             entry["bound_all_positions_ms"] = r["traits_ms"]
+            entry["library_device_ms"] = library_device[r["point"]]
         if r["name"] == "stencil_matrix":
             entry["dmma_floor_ms"] = r["dmma_floor_ms"]
         if r["op"] == "attention":
@@ -940,18 +983,28 @@ def _trace_cost(ex, log, card):
 
 
 def _model_phase(torch, hw, card, failures):
-    """Mistral-NeMo-12B serves seeded traffic through run_session, once
+    """The dense models serve seeded traffic through run_session, once
     per flash-decode engine.
 
-    Full width and depth (40 layers, d_model 5120, 32 query heads over 8
-    KV heads), random float32 weights from SEED: about 49 GB on the card.
-    The two sessions' records are written to build/runs_torch and
-    verified.  Returns the flash-decode launches of the sessions, per
-    kernel.
+    Mistral-NeMo-12B at full width and depth (40 layers, d_model 5120, 32
+    query heads over 8 KV heads, Dh 128), random float32 weights from
+    SEED: about 49 GB on the card.  Then StableLM-2-12B at full width and
+    depth (40 layers, d_model 5120, 32 query heads over 8 KV heads, Dh
+    160, d_ff 13824, vocab 100352; 48.6 GB), both sessions on one set of
+    weights: flash-decode at head dim 160.  The sessions' records are
+    written to build/runs_torch and verified.  Returns {model: the
+    flash-decode launches of its sessions, per kernel}.
     """
     from repro_torch.configs import get_arch
-    return _serve_model(torch, hw, card, failures, get_arch(MODEL),
-                        ("vector", "matrix"), check="dense")
+    out = {MODEL: _serve_model(torch, hw, card, failures, get_arch(MODEL),
+                               ("vector", "matrix"), check="dense")}
+    torch.cuda.empty_cache()
+    out[MODEL_DH160] = _serve_model(torch, hw, card, failures,
+                                    get_arch(MODEL_DH160),
+                                    ("vector", "matrix"), check="dense",
+                                    share_params=True)
+    torch.cuda.empty_cache()
+    return out
 
 
 def _moe_phase(torch, hw, card, failures):
@@ -1615,9 +1668,9 @@ def _point_label(name, pt):
         side = "^".join((str(u.shape[0]), str(u.ndim)))
         return f"stencil/{spec.name}/{side}", tuple(u.shape)
     q, k, _, _ = pt.args
-    b, kh, g, _ = q.shape
-    return (f"attention/{pt.dtype}/B{b}xS{k.shape[1]}xKH{kh}xG{g}",
-            tuple(k.shape))
+    b, kh, g, dh = q.shape
+    return (f"attention/{pt.dtype}/B{b}xS{k.shape[1]}xKH{kh}xG{g}"
+            + ("" if dh == 128 else f"xDh{dh}"), tuple(k.shape))
 
 
 def _records_phase(torch, hw, card, failures):
@@ -1721,6 +1774,25 @@ def _records_phase(torch, hw, card, failures):
     return launches
 
 
+def _ffma_floor(torch, ffma, device_us):
+    """The vector kernel's FFMA floor: ``ffma`` multiply-adds at 128 per
+    SM and clock, at the card's maximum SM clock, with the SM clock read
+    now (nvidia-smi) and the FFMA share of the measured device time."""
+    import subprocess
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    now_mhz, max_mhz = (float(x) for x in
+                        smi.stdout.strip().splitlines()[0].split(","))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rate = sms * 128 * max_mhz * 1e6          # FFMA per second
+    out = {"ffma": ffma, "ffma_floor_ms": ffma / rate * 1e3,
+           "sm_clock_mhz": now_mhz, "sm_clock_max_mhz": max_mhz}
+    if device_us != "not measured":
+        out["ffma_share_of_device_time"] = ffma / rate / (device_us * 1e-6)
+    return out
+
+
 def _dmma_floor_ms(args, kw, hw):
     """Least time of the banded formulation on the FP64 tensor cores: per
     step and axis pass, ceil((8 + 2r) / 4) DMMA m8n8k4 for each 8 x 8 tile
@@ -1754,26 +1826,26 @@ def _host_and_device_us(torch, fn, calls=50):
     return host_us, (device_us if device_us > 0 else "not measured")
 
 
-def _library_ms(torch, F, name, args, kw, time_fn):
-    """One PyTorch call computing the same function, timed (ms): a
-    yardstick only, which the port never calls."""
+def _library_fn(torch, F, name, args, kw):
+    """One PyTorch call computing the same function, as a closure to time:
+    a yardstick only, which the port never calls."""
     if name == "scale":
         b, q = args
-        fn = (torch.mul, b, q)
-    elif name == "triad":
+        return lambda: torch.mul(b, q)
+    if name == "triad":
         b, c, q = args
-        fn = (lambda: torch.add(b, c, alpha=q),)
-    elif name == "axpy":
+        return lambda: torch.add(b, c, alpha=q)
+    if name == "axpy":
         a, x, y = args
-        fn = (lambda: torch.add(y, x, alpha=a),)
-    elif name == "spmv":
+        return lambda: torch.add(y, x, alpha=a)
+    if name == "spmv":
         bell, x = args
         # torch.sparse_bsr_tensor is not used: its matvec refuses the
         # 8x128 blocks.  A CSR tensor of the same matrix (built here,
         # outside the timed call) goes to cuSPARSE's SpMV.
         csr = bell.todense().to_sparse_csr()
-        fn = (torch.mv, csr, x)
-    elif name == "attention":
+        return lambda: torch.mv(csr, x)
+    if name == "attention":
         q, k, v, kv_len = args
         b, kh, g, dh = q.shape
         # SDPA's layout, and only the kv_len valid positions (7/8 of the
@@ -1783,30 +1855,27 @@ def _library_ms(torch, F, name, args, kw, time_fn):
         vs = v[:, :kv_len].permute(0, 2, 1, 3).contiguous()
         major, minor = (int(x) for x in torch.__version__.split(".")[:2])
         if (major, minor) >= (2, 5):
-            fn = (lambda: F.scaled_dot_product_attention(qs, ks, vs,
-                                                         enable_gqa=True),)
-        else:
-            ks = ks.repeat_interleave(g, dim=1)
-            vs = vs.repeat_interleave(g, dim=1)
-            fn = (F.scaled_dot_product_attention, qs, ks, vs)
-    else:
-        u, spec = args
-        steps = kw["steps"]
-        r = spec.radius
-        w = torch.zeros((2 * r + 1,) * spec.ndim, device=u.device)
-        for off, wt in zip(spec.offsets, spec.weights):
-            w[tuple(o + r for o in off)] += wt
-        conv = F.conv2d if spec.ndim == 2 else F.conv3d
-        x0 = u[None, None]
-        wk = w[None, None]
+            return lambda: F.scaled_dot_product_attention(qs, ks, vs,
+                                                          enable_gqa=True)
+        ks = ks.repeat_interleave(g, dim=1)
+        vs = vs.repeat_interleave(g, dim=1)
+        return lambda: F.scaled_dot_product_attention(qs, ks, vs)
+    u, spec = args
+    steps = kw["steps"]
+    r = spec.radius
+    w = torch.zeros((2 * r + 1,) * spec.ndim, device=u.device)
+    for off, wt in zip(spec.offsets, spec.weights):
+        w[tuple(o + r for o in off)] += wt
+    conv = F.conv2d if spec.ndim == 2 else F.conv3d
+    x0 = u[None, None]
+    wk = w[None, None]
 
-        def run():
-            v = x0
-            for _ in range(steps):
-                v = conv(v, wk, padding=r)
-            return v
-        fn = (run,)
-    return time_fn(*fn, warmup=WARMUP, iters=ITERS).median_us / 1e3
+    def run():
+        v = x0
+        for _ in range(steps):
+            v = conv(v, wk, padding=r)
+        return v
+    return run
 
 
 if __name__ == "__main__":

@@ -10,7 +10,8 @@ size sets:
 * the STREAM points (:func:`stream_points`), where every array is at
   least 4x the L2: SCALE / Triad / AXPY at float32 2^26 and bfloat16
   2^27, SpMV at 8192, the stencils 2d5pt 8192^2 and 3d7pt 512^3 at
-  t = 3, flash-decode at B4 KH8 G4 Dh128, S = 32768, kv_len = 7S/8.
+  t = 3, flash-decode at B4 KH8 G4 Dh128, B4 KH4 G16 Dh128 and B4 KH8 G4
+  Dh160, S = 32768, kv_len = 7S/8.
 
 Per point the inputs come from a seeded numpy generator and the Advice
 from an advisor on the record's own hardware model.  Each engine's
@@ -63,12 +64,14 @@ SEED = 0
 #: median of 20 calls; on the CPU the reference's time_fn defaults.
 _COUNTS = {"cuda": (3, 20), "cpu": (2, 5)}
 #: Flash-decode's STREAM shapes: Mistral-NeMo-12B's decode heads (G = 32 /
-#: 8 query heads per KV head, Dh = 128), then Qwen3-MoE-235B-A22B's (G =
-#: 64 / 4 = 16, the kernels' widest head tile), over a long cache.  Both
-#: record as size S and differ in ``shape``, which ends a port record's
-#: ``BenchRecord.point``, so the compare gate keeps them apart.
+#: 8 query heads per KV head, Dh = 128), Qwen3-MoE-235B-A22B's (G = 64 / 4
+#: = 16, the kernels' widest head tile) and StableLM-2-12B's (G 4 at Dh
+#: 5120 / 32 = 160), over a long cache.  All record as size S and differ
+#: in ``shape``, which ends a port record's ``BenchRecord.point``, so the
+#: compare gate keeps them apart.
 _ATTN_STREAM = ({"b": 4, "kh": 8, "g": 4, "dh": 128, "s": 32768},
-                {"b": 4, "kh": 4, "g": 16, "dh": 128, "s": 32768})
+                {"b": 4, "kh": 4, "g": 16, "dh": 128, "s": 32768},
+                {"b": 4, "kh": 8, "g": 4, "dh": 160, "s": 32768})
 
 
 @dataclasses.dataclass

@@ -13,6 +13,9 @@ Every launch wrapper here checks device, dtype, shape, contiguity and
 alignment, launches on PyTorch's current stream, raises if the launch
 was refused, and adds one to its kernel's count in ``LAUNCHES``.  Build
 and launch errors propagate; nothing falls back to the plain versions.
+``ptxas -v`` reports each kernel's registers, spills and shared memory
+while it compiles; the build keeps that report beside each library
+(``ptxas_usage`` reads it).
 """
 from __future__ import annotations
 
@@ -23,26 +26,28 @@ import os
 import pathlib
 import subprocess
 import threading
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-__all__ = ["CTAS_PER_SM", "ELEMENTWISE_THREADS", "LAUNCHES", "attention",
-           "attention_launch", "attention_ranges", "attention_split", "build",
-           "ctas_per_sm", "elementwise", "elementwise_grid",
-           "mma_instructions", "reset_launches", "spmv", "stencil",
-           "stencil_offsets"]
+__all__ = ["CTAS_PER_SM", "ELEMENTWISE_THREADS", "HEAD_DIMS", "LAUNCHES",
+           "MAX_GROUP", "attention", "attention_kernel_usage",
+           "attention_launch", "attention_ranges", "attention_split",
+           "build", "ctas_per_sm", "elementwise", "elementwise_grid",
+           "mma_instructions", "parse_ptxas", "ptxas_usage",
+           "reset_launches", "spmv", "stencil", "stencil_offsets"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_ext"
 SOURCES = ("attention", "elementwise", "spmv", "stencil")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: Sources compiled as this many objects in parallel: ``stencil.cu``
-#: specialises 24 kernels, 3 per object.
-PARTS = {"stencil": 8}
+#: specialises 24 kernels, 3 per object; ``attention.cu`` one head dim
+#: (both dtypes, head tiles and engines) per object.
+PARTS = {"stencil": 8, "attention": 6}
 
 #: Launches per kernel ("scale_vector", "spmv_matrix", ...) since the
 #: last ``reset_launches()``.
@@ -84,6 +89,65 @@ def _commands(name: str, out: pathlib.Path):
     return ([[_nvcc(), *NVCC_FLAGS, "-c", f"-DREPRO_PART={k}", "-o", o, src]
              for k, o in enumerate(objs)],
             [_nvcc(), "-shared", "-o", str(out), *objs])
+
+
+def _ptxas_log(name: str) -> pathlib.Path:
+    return _lib_path(name).with_suffix(".ptxas.txt")
+
+
+def parse_ptxas(text: str) -> Dict[str, Dict[str, int]]:
+    """``{kernel symbol: {"registers", "spill_store_bytes",
+    "spill_load_bytes", "stack_bytes", "smem_bytes": n}}`` from the
+    output of ``nvcc -Xptxas -v`` (keys a kernel's report lacks are
+    absent)."""
+    import re
+    pats = (("stack_bytes", r"(\d+) bytes stack frame"),
+            ("spill_store_bytes", r"(\d+) bytes spill stores"),
+            ("spill_load_bytes", r"(\d+) bytes spill loads"),
+            ("registers", r"Used (\d+) registers"),
+            ("smem_bytes", r"(\d+) bytes smem"))
+    fn, usage = None, {}
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)'?", line)
+        if m:
+            fn = m.group(1)
+            usage.setdefault(fn, {})
+            continue
+        if fn is None:
+            continue
+        for key, pat in pats:
+            m = re.search(pat, line)
+            if m:
+                usage[fn][key] = int(m.group(1))
+    return usage
+
+
+def ptxas_usage(name: str = "attention") -> Dict[str, Dict[str, int]]:
+    """The ptxas report of source ``name``'s kernels (``parse_ptxas``),
+    kept by the build that made its library."""
+    build((name,))
+    return parse_ptxas(_ptxas_log(name).read_text())
+
+
+def attention_kernel_usage() -> List[Dict[str, object]]:
+    """One dict per flash-decode range kernel (``attention_{vector,
+    matrix}_kernel<T, DH, HT>``): engine, dtype, head dim, head tile and
+    its ``ptxas_usage`` counts, in (dtype, head dim, head tile, engine)
+    order."""
+    import re
+    rows = []
+    for fn, u in ptxas_usage("attention").items():
+        m = re.search(r"attention_(vector|matrix)_kernelI(f|13__nv_bfloat16)"
+                      r"Li(\d+)ELi(\d+)E", fn)
+        if m:
+            rows.append({"engine": m.group(1),
+                         "dtype": "float32" if m.group(2) == "f"
+                         else "bfloat16",
+                         "dh": int(m.group(3)), "head_tile": int(m.group(4)),
+                         **u})
+    return sorted(rows, key=lambda r: (r["dtype"], r["dh"], r["head_tile"],
+                                       r["engine"]))
 
 
 def mma_instructions() -> Dict[str, Dict[str, int]]:
@@ -148,6 +212,7 @@ def build(names: Sequence[str] = SOURCES) -> Dict[str, ctypes.CDLL]:
                 failed += [f"--- {n}.cu (nvcc exit {rc}) ---\n{out}"
                            for out, rc in bad]
             else:
+                _ptxas_log(n).write_text("".join(out for out, _ in outs))
                 os.replace(tmp, path)
             for obj in tmp.parent.glob(tmp.name[:-len(tmp.suffix)] + ".*.o"):
                 obj.unlink()
@@ -353,8 +418,10 @@ def stencil(u: torch.Tensor, spec, *, steps: int, engine: str,
 #: Query heads per KV head the attention kernels take: two of the matrix
 #: kernels' MMA N tiles of 8 (a head tile of 8 for G <= 8, of 16 above).
 MAX_GROUP = 16
-#: Head dims the attention kernels are instantiated for.
-HEAD_DIMS = (16, 32, 64, 128)
+#: Head dims the attention kernels are instantiated for: every head dim of
+#: the configs that decode through them (112: Zamba2-7B, 160: StableLM-2-12B)
+#: and the reference tests' 16, 32 and 64.
+HEAD_DIMS = (16, 32, 64, 112, 128, 160)
 
 
 #: CTAs per SM that keep HBM busy, by dtype: the bfloat16 kernels stage two
@@ -366,11 +433,12 @@ CTAS_PER_SM = {torch.bfloat16: 1, torch.float32: 2}
 
 def ctas_per_sm(dtype: torch.dtype, g: int, engine: str) -> int:
     """CTAs per SM for one call: ``CTAS_PER_SM``, but two for the bfloat16
-    vector kernel at a head tile of 16 (G > 8), whose FFMAs per cache byte
-    are four times G = 4's: with one CTA of four warps per SM it waits on
-    their latency (0.163 against 0.276 ms at Qwen3-MoE's decode shape on
-    an H100, ``tools/decode_audit.py --parts slots``; the matrix kernel is
-    fastest at one)."""
+    vector kernel at a head tile of 16 (G > 8).  That kernel is bound by
+    FFMA issue (four times G = 4's FFMAs per cache byte); its 112 KB of
+    shared memory and 255 registers a thread fit two CTAs of four warps
+    per SM, and one CTA per SM leaves one warp per scheduler to hide the
+    latencies (``tools/decode_audit.py --parts slots``, ``PERF.md``; the
+    matrix kernel is fastest at one)."""
     if dtype == torch.bfloat16 and g > 8 and engine == "vector":
         return 2
     return CTAS_PER_SM[dtype]
@@ -436,7 +504,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"ROADMAP.md Queue 2 item 2 (K4)")
     if dh not in HEAD_DIMS:
         raise ValueError(f"flash-decode takes head dim in {HEAD_DIMS}, got "
-                         f"{dh}")
+                         f"{dh}: another head dim waits for ROADMAP.md "
+                         f"Queue 2 item 7 (K4)")
     for t, what in ((q, "q"), (k, "k"), (v, "v")):
         _need(t, f"flash-decode {what}", dtype)
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count

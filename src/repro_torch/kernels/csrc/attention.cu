@@ -72,13 +72,21 @@
 //   as A, p_hi then p_lo as B) into one float32 accumulator; V's products
 //   are exact.  This replaces 64 DMMAs, ~2176 conversions to double and 32
 //   double rescales per warp tile by 16 HMMAs and 32 float rescales.
-//   Vector: scores as in float32 but read from the stage (one shift or mask
-//   per bfloat16 value), for NH heads, G rounded up to a power of two, each
-//   head's FFMAs unrolled and independent of the others; p.V gives each
-//   lane 4 elements of Dh for those heads (none padded at G = 4) over its
-//   share of the tile's positions, each V element read from the stage by
-//   one lane only.  q stays staged in shared memory: the eight g lanes read
-//   the same words, one broadcast per load.
+//   Vector, G <= 8: scores as in float32 but read from the stage (one
+//   shift or mask per bfloat16 value), for NH heads, G rounded up to a
+//   power of two, each head's FFMAs unrolled and independent of the
+//   others; p.V gives each lane 4 elements of Dh for those heads (none
+//   padded at G = 4) over its share of the tile's positions, each V
+//   element read from the stage by one lane only.  q stays staged in
+//   shared memory: the eight g lanes read the same words, one broadcast
+//   per load.
+//   Vector, 8 < G <= 16: its own kernel (attention_tiles_bf16_h16, below),
+//   register-blocked for the CUDA cores' FFMA issue rate: 32-position
+//   tiles per warp, each K and V element unpacked once for all 16 heads.
+// Dh 112 and 160 (Zamba2-7B, StableLM-2-12B) split a row into quarters of
+// 28 and 40 elements and into 28 and 40 groups of 4, which do not divide a
+// warp: the staged rows are padded to whole swizzle periods, and the maps
+// below say where each takes a different path.
 // The merge of the ranges is launched as a programmatic dependent of the
 // range kernel, so it is scheduled while the range kernel's last CTAs run.
 #include <cuda_bf16.h>
@@ -89,16 +97,9 @@
 
 #include "mma.cuh"
 
-namespace {
-
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr unsigned kFull = 0xffffffffu;
-constexpr float kNegInf = -1e30f;  // the reference's mask value
-constexpr int kMaxHeads = 16;      // query heads per KV head: 2 MMA N tiles
-constexpr int kTile = 16;          // cache positions per warp tile
-constexpr int kRing = 3;           // bfloat16: tiles in a warp's ring
-
+// The call's shape, passed by value to the kernels; in a named namespace
+// because the per-head-dim launchers below link across objects.
+namespace repro_attention {
 struct Shape {
   int kh;       // KV heads
   int g;        // query heads per KV head
@@ -110,6 +111,19 @@ struct Shape {
   int nsplit;   // CTAs per (b, h) pair
   float scale;  // 1 / sqrt(Dh), rounded as the reference rounds it
 };
+}  // namespace repro_attention
+
+namespace {
+
+using repro_attention::Shape;
+
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr float kNegInf = -1e30f;  // the reference's mask value
+constexpr int kMaxHeads = 16;      // query heads per KV head: 2 MMA N tiles
+constexpr int kTile = 16;          // cache positions per warp tile
+constexpr int kRing = 3;           // bfloat16: tiles in a warp's ring
 
 // N consecutive values at p as float32, zero where the row is out of range.
 template <int N>
@@ -323,10 +337,17 @@ __device__ __forceinline__ void attention_tiles_f32(
   constexpr int NT = HT / 8;  // MMA N tiles
   // matrix, HT = 8: q's B fragment in registers and a double accumulator
   constexpr bool kNarrowMMA = kMMA && HT == 8;
+  constexpr int kAccN = kWarps * HT * DH, kQN = kNarrowMMA ? 4 : HT * 4 * QS;
+  // sm_q is read only in the tile loop and sm_acc written only after it:
+  // where the arrays exceed the 48 KB of static shared memory (HT 16 at
+  // Dh 160: 56.8 KB), sm_acc takes sm_q's place
+  constexpr bool kAccInQ =
+      (kAccN + kQN + kWarps * kTile * HT + 2 * kWarps * HT) * 4 > 48 * 1024;
   __shared__ __align__(16) float sm_p[kWarps][kTile][HT];
   __shared__ float sm_m[kWarps * HT], sm_l[kWarps * HT];
-  __shared__ float sm_acc[kWarps * HT * DH];
-  __shared__ __align__(16) float sm_q[kNarrowMMA ? 4 : HT * 4 * QS];
+  __shared__ float sm_acc_own[kAccInQ ? 1 : kAccN];
+  __shared__ __align__(16) float sm_q[kAccInQ && kAccN > kQN ? kAccN : kQN];
+  float* const sm_acc = kAccInQ ? sm_q : sm_acc_own;
 
   const int pair = blockIdx.x;
   const int b = pair / sh.kh, h = pair - b * sh.kh;
@@ -476,6 +497,7 @@ __device__ __forceinline__ void attention_tiles_f32(
     __syncwarp();
   }
 
+  if constexpr (kAccInQ) __syncthreads();  // every warp is done with sm_q
   if (g == 0) {
 #pragma unroll
     for (int j = 0; j < NI; ++j) {
@@ -497,18 +519,26 @@ __device__ __forceinline__ void attention_tiles_f32(
 // bfloat16: K and V staged through a ring in shared memory
 // ---------------------------------------------------------------------------
 
-// One stage: the K and V rows of a 16-position tile.  The 16-byte chunk c of
-// row r sits at r * CH + (c ^ (r % SW)), so that the eight row addresses of
-// an ldmatrix phase (eight rows, one chunk) fall in eight bank groups.
+// The 16-byte chunk c of staged row r sits at r * RC + (c ^ (r % SW)), so
+// that the eight row addresses of an ldmatrix phase (eight rows, one chunk)
+// fall in eight bank groups.  RC is the row's CH chunks rounded up to whole
+// swizzle periods (Dh 112: 16, Dh 160: 24), so that c ^ (r % SW) stays in
+// the row for every c < CH; at the power-of-two head dims RC = CH.
 template <int DH>
-struct KVTile {
+struct Swizzle {
   static constexpr int CH = DH / 8;           // 16-byte chunks per row
   static constexpr int SW = CH < 8 ? CH : 8;  // swizzle period
-  uint4 k[kTile * CH];
-  uint4 v[kTile * CH];
+  static constexpr int RC = (CH + SW - 1) / SW * SW;
   static __device__ __forceinline__ int at(int r, int c) {
-    return r * CH + (c ^ (r & (SW - 1)));
+    return r * RC + (c ^ (r & (SW - 1)));
   }
+};
+
+// One stage: the K and V rows of a 16-position tile.
+template <int DH>
+struct KVTile : Swizzle<DH> {
+  uint4 k[kTile * Swizzle<DH>::RC];
+  uint4 v[kTile * Swizzle<DH>::RC];
 };
 
 // The rest of the bfloat16 kernels' shared memory, after the ring: p^T
@@ -563,19 +593,26 @@ template <int DH>
 __device__ __forceinline__ void k_span(const KVTile<DH>& st, int r, int t,
                                        float (&o)[DH / 4]) {
   using Tile = KVTile<DH>;
+  constexpr int KS = DH / 4;  // elements per span
   uint32_t w[DH / 8];
-  if constexpr (DH >= 32) {
-    constexpr int KC = DH / 32;  // chunks per span
+  if constexpr (KS % 8 == 0) {
+    constexpr int KC = KS / 8;  // whole chunks per span
 #pragma unroll
     for (int j = 0; j < KC; ++j) {
       const uint4 x = st.k[Tile::at(r, t * KC + j)];
       w[4 * j] = x.x, w[4 * j + 1] = x.y, w[4 * j + 2] = x.z,
       w[4 * j + 3] = x.w;
     }
-  } else {  // half a chunk
-    const uint2 x =
-        reinterpret_cast<const uint2*>(&st.k[Tile::at(r, t >> 1)])[t & 1];
-    w[0] = x.x, w[1] = x.y;
+  } else {
+    // half chunks of 4 elements (Dh 16: one; Dh 112: seven, the span
+    // starting mid-chunk for odd t)
+#pragma unroll
+    for (int u = 0; u < KS / 4; ++u) {
+      const int d0 = t * KS + 4 * u;
+      const uint2 x = reinterpret_cast<const uint2*>(
+          &st.k[Tile::at(r, d0 >> 3)])[(d0 >> 2) & 1];
+      w[2 * u] = x.x, w[2 * u + 1] = x.y;
+    }
   }
 #pragma unroll
   for (int j = 0; j < DH / 8; ++j)
@@ -603,7 +640,14 @@ __device__ __forceinline__ void attention_tiles_bf16(
   using Tile = KVTile<DH>;
   constexpr int KS = DH / 4;       // vector scores: a lane's span of a K row
   constexpr int QS = KS + 4;       // padded row of the staged q
-  constexpr int LR = DH / 4;       // vector p.V: lanes per V row, 4 each
+  // vector p.V: NG groups of 4 Dh elements; where they divide the warp, LR
+  // lanes per V row, 4 elements each, and 32 / LR position groups; else
+  // (Dh 112, 160) every lane takes all positions and the groups lane +
+  // 32u, u < NU (Dh 112: lanes 28..31 idle; Dh 160: lanes 0..7 take two)
+  constexpr int NG = DH / 4;
+  constexpr bool kRowSplit = 32 % NG == 0;
+  constexpr int LR = kRowSplit ? NG : 32;  // lanes per V row
+  constexpr int NU = (NG + 31) / 32;       // element groups per lane
   constexpr int NP = kTile * LR / 32;  // its positions per lane and tile
   constexpr int NI = HT / 4;           // heads per lane
   constexpr int NT = HT / 8;           // MMA N tiles
@@ -630,9 +674,9 @@ __device__ __forceinline__ void attention_tiles_bf16(
   Tile* ring = reinterpret_cast<Tile*>(smem) + warp * kRing;
 
   // matrix: acc[dc][4nt ..] is the HMMA C fragment of Dh rows 16dc + g
-  // (+ 8) and heads 8nt + 2t, 8nt + 2t + 1; vector: acc[e][head] for Dh
-  // element 4 * (lane % LR) + e
-  float acc[kMMA ? DH / 16 : 4][kMMA ? 4 * NT : HT] = {};
+  // (+ 8) and heads 8nt + 2t, 8nt + 2t + 1; vector: acc[4u + e][head] for
+  // Dh element 4 * (lane % LR + 32u) + e
+  float acc[kMMA ? DH / 16 : 4 * NU][kMMA ? 4 * NT : HT] = {};
   float m[NI], l[NI];  // heads lane_head(j, t)
 #pragma unroll
   for (int j = 0; j < NI; ++j) m[j] = kNegInf, l[j] = 0.f;
@@ -759,40 +803,48 @@ __device__ __forceinline__ void attention_tiles_bf16(
         }
       }
     } else {
-      // lane = rg * LR + dl owns Dh elements 4dl .. 4dl + 3 of positions
-      // rg * NP .. rg * NP + NP - 1, for heads 0 .. NH - 1
+      // lane = rg * LR + dl owns Dh elements 4dl .. 4dl + 3 (and 4(dl +
+      // 32u) .. + 3) of positions rg * NP .. rg * NP + NP - 1, for heads
+      // 0 .. NH - 1
       const int rg = lane / LR, dl = lane % LR;
-      float vv[NP][4];
 #pragma unroll
-      for (int j = 0; j < NP; ++j) {
-        const uint2 w = reinterpret_cast<const uint2*>(
-            &st.v[Tile::at(rg * NP + j, dl >> 1)])[dl & 1];
-        vv[j][0] = bf16_lo(w.x), vv[j][1] = bf16_hi(w.x);
-        vv[j][2] = bf16_lo(w.y), vv[j][3] = bf16_hi(w.y);
-      }
+      for (int u = 0; u < NU; ++u) {
+        const int gu = dl + 32 * u;
+        float vv[NP][4];
 #pragma unroll
-      for (int hh = 0; hh < NH; ++hh) {
-        // head hh's factor, from lane t = (hh % 8) / 2, slot 2(hh / 8) + hh % 2
-        const float ch =
-            __shfl_sync(kFull, corr[2 * (hh >> 3) + (hh & 1)], (hh & 7) >> 1);
-        float pv[NP];
-        const float* ps = &sm_p[warp][hh][rg * NP];
-        if constexpr (NP % 4 == 0) {
-#pragma unroll
-          for (int j = 0; j < NP; j += 4) {
-            const float4 x = reinterpret_cast<const float4*>(ps)[j / 4];
-            pv[j] = x.x, pv[j + 1] = x.y, pv[j + 2] = x.z, pv[j + 3] = x.w;
-          }
-        } else {
-          const float2 x = *reinterpret_cast<const float2*>(ps);
-          pv[0] = x.x, pv[1] = x.y;
+        for (int j = 0; j < NP; ++j) {
+          uint2 w = {0u, 0u};
+          if (kRowSplit || gu < NG)
+            w = reinterpret_cast<const uint2*>(
+                &st.v[Tile::at(rg * NP + j, gu >> 1)])[gu & 1];
+          vv[j][0] = bf16_lo(w.x), vv[j][1] = bf16_hi(w.x);
+          vv[j][2] = bf16_lo(w.y), vv[j][3] = bf16_hi(w.y);
         }
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          acc[e][hh] *= ch;
+        for (int hh = 0; hh < NH; ++hh) {
+          // head hh's factor, from lane t = (hh % 8) / 2, slot
+          // 2(hh / 8) + hh % 2
+          const float ch = __shfl_sync(
+              kFull, corr[2 * (hh >> 3) + (hh & 1)], (hh & 7) >> 1);
+          float pv[NP];
+          const float* ps = &sm_p[warp][hh][rg * NP];
+          if constexpr (NP % 4 == 0) {
 #pragma unroll
-          for (int j = 0; j < NP; ++j)
-            acc[e][hh] = fmaf(pv[j], vv[j][e], acc[e][hh]);
+            for (int j = 0; j < NP; j += 4) {
+              const float4 x = reinterpret_cast<const float4*>(ps)[j / 4];
+              pv[j] = x.x, pv[j + 1] = x.y, pv[j + 2] = x.z, pv[j + 3] = x.w;
+            }
+          } else {
+            const float2 x = *reinterpret_cast<const float2*>(ps);
+            pv[0] = x.x, pv[1] = x.y;
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            acc[4 * u + e][hh] *= ch;
+#pragma unroll
+            for (int j = 0; j < NP; ++j)
+              acc[4 * u + e][hh] = fmaf(pv[j], vv[j][e], acc[4 * u + e][hh]);
+          }
         }
       }
     }
@@ -831,11 +883,408 @@ __device__ __forceinline__ void attention_tiles_bf16(
           acc[e][hh] += __shfl_xor_sync(kFull, acc[e][hh], off);
     if (lane < LR) {
 #pragma unroll
-      for (int hh = 0; hh < HT; ++hh)
+      for (int u = 0; u < NU; ++u)
+        if (kRowSplit || lane + 32 * u < NG) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          sm_acc[(warp * HT + hh) * DH + 4 * lane + e] = acc[e][hh];
+          for (int hh = 0; hh < HT; ++hh)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              sm_acc[(warp * HT + hh) * DH + 4 * (lane + 32 * u) + e] =
+                  acc[4 * u + e][hh];
+        }
     }
+  }
+  __syncthreads();
+  merge_warps<__nv_bfloat16, DH, HT>(sm_m, sm_l, sm_acc, out, part_ml,
+                                     part_acc, sh);
+}
+
+// ---------------------------------------------------------------------------
+// bfloat16, vector engine, head tile 16: register-blocked FFMA tiles
+// ---------------------------------------------------------------------------
+//
+// At 16 query heads a cache element costs 16 FFMAs in each contraction
+// (1.88 G at Qwen3-MoE's decode shape, about 0.056 ms of the CUDA cores at
+// 1.98 GHz against a byte bound of 0.070 ms), and an FFMA issues at the
+// warp schedulers' full rate: every other instruction takes an FFMA's
+// slot.  So the design counts instructions per FFMA.
+// - Each warp owns 32-position tiles (first + i * kWarps * 32) and its own
+//   online-softmax state, merged with the other warps' once per range
+//   (merge_warps).  Its tiles stream through a ring of kRingH half-stages
+//   in shared memory (a tile's K rows, then its V rows: 8 KB each at Dh
+//   128) by cp.async, two half-stages ahead of the one it computes.  All
+//   warps run the same number of tiles, so the compiler sees converged
+//   warps around the shuffles (no collective fallback code).
+// - q.K^T: lane (t = lane / 8, g = lane % 8) sums over d-slice t (a
+//   quarter of Dh) for all 16 heads and four rows g + 8(t ^ i), i < 4.
+//   Each K element is unpacked once, by one lane, for 16 FFMAs; q is
+//   staged once per CTA as float32 [d][head], pre-scaled by log2(e) /
+//   sqrt(Dh), and each broadcast LDS.128 of it (4 heads of one d) feeds
+//   16 FFMAs.  Register i holds row g + 8(t ^ i), so the four slices of a
+//   row meet in two shuffle levels without selects (lane t keeps register
+//   0, receives the partner's 2 and 3, then 1): 48 shuffles and adds per
+//   tile for 2048 FFMAs.  The lane ends with the 16 scores of row g + 8t.
+// - Softmax in log2 units: p = 2^(s - m) is a subtract and one MUFU.EX2.
+//   The running max moves only when a vote finds a score more than kLift
+//   above it, so after the first tiles a tile pays one vote, not a warp
+//   max and a rescale per head.
+// - p.V: p through shared memory (2 KB per warp, broadcast reads); lane l
+//   owns Dh elements 4l .. 4l + 3 of all 16 heads: per position four
+//   LDS.128 of p, one LDS.64 of V, 4 unpacks and 64 FFMAs.
+// - The contractions run as loops of 8-element (q.K^T) and 8-row (p.V)
+//   bodies, not fully unrolled: the whole tile unrolled is 13k
+//   instructions, too large for the instruction caches (0.186 against
+//   0.135 ms, tools/attention_variant.py).
+// Per lane and tile at Dh 128: 4096 FFMAs and about 1500 other
+// instructions.  Dh 112 and 160 take the same maps with 4-element K loads
+// (Dh 112) and a second p.V element group for lanes 0..7 (Dh 160).
+constexpr int kTileH = 32;  // positions per warp tile
+constexpr int kRingH = 3;   // half-stages in a warp's ring
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kLift = 8.f;  // log2 units: the running max's slack
+
+// Dynamic shared memory: the warps' rings, q ([d][16] float32, the head
+// quads of d-slice t rotated by t, so that the four slices' broadcast
+// loads fall in different bank groups), p per warp ([32][16], quads of row
+// r rotated by r / 2 for the same reason on the lanes' stores).  After
+// the tile loop the ring holds sm_acc and the warps' (m, l).
+template <int DH>
+struct H16Layout {
+  static constexpr int HALF = kTileH * Swizzle<DH>::RC;  // uint4 per half
+  static constexpr int RING = kWarps * kRingH * HALF * 16;
+  static constexpr int Q = DH * 16 * 4;
+  static constexpr int P = kWarps * kTileH * 16 * 4;
+  static constexpr int BYTES = RING + Q + P;
+  static_assert((kWarps * 16 * DH + 2 * kWarps * 16) * 4 <= RING,
+                "sm_acc and (m, l) must fit in the ring they reuse");
+};
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// cp.async of rows row0 .. row0 + 31 of K or V into a half-stage; rows at
+// or past `bound` are not fetched.  Where a row's chunks divide the warp
+// (Dh <= 128) the lane copies chunk c = lane % CH of rows lane / CH +
+// i * (32 / CH): its source steps by whole rows and its swizzled chunk is
+// c with a constant XOR, about six instructions a copy; rows past `bound`
+// keep the stage's earlier contents (zero, or finite cache rows: p = 0
+// multiplies them).  Else (Dh 112, 160) each copy maps its own row and
+// chunk, and rows past `bound` are zero-filled.
+template <int DH>
+__device__ __forceinline__ void stage_rows(uint4* dst,
+                                           const __nv_bfloat16* src,
+                                           size_t stride, int row0, int bound,
+                                           int lane) {
+  using Z = Swizzle<DH>;
+  if constexpr (32 % Z::CH == 0) {
+    constexpr int RPI = 32 / Z::CH;  // rows a pass of the warp copies
+    const int rl = lane / Z::CH, c = lane % Z::CH, lim = bound - row0;
+    const __nv_bfloat16* p =
+        src + static_cast<size_t>(row0 + rl) * stride + c * 8;
+#pragma unroll
+    for (int i = 0; i < kTileH / RPI; ++i) {
+      const int r = rl + i * RPI;
+      // r % SW: rl's bits, then i * RPI's (RPI divides SW or covers it)
+      const int phys = RPI >= Z::SW ? c ^ (rl & (Z::SW - 1))
+                                    : c ^ rl ^ ((i * RPI) & (Z::SW - 1));
+      if (r < lim) cp_async16(&dst[r * Z::RC + phys], p);
+      p += RPI * stride;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < Z::CH; ++i) {  // kTileH * CH chunks, 32 a pass
+      const int idx = lane + 32 * i, r = idx / Z::CH, c = idx - r * Z::CH;
+      const bool ok = row0 + r < bound;
+      const size_t off = static_cast<size_t>(ok ? row0 + r : 0) * stride +
+                         c * 8;
+      cp_async16(&dst[Z::at(r, c)], src + off, ok);
+    }
+  }
+}
+
+template <int DH>
+__device__ __forceinline__ void attention_tiles_bf16_h16(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ part_ml, float* __restrict__ part_acc,
+    const Shape& sh) {
+  using Z = Swizzle<DH>;
+  using L = H16Layout<DH>;
+  constexpr int HT = 16;
+  constexpr int KS = DH / 4;              // q.K^T: elements of a d-slice
+  constexpr int W = KS % 8 == 0 ? 8 : 4;  // elements per K load
+  // p.V: NG groups of 4 elements; where they divide the warp, LR lanes per
+  // V row and 32 / LR row groups of NP rows, else (Dh 112, 160) all 32
+  // rows per lane and the groups lane + 32u, u < NU
+  constexpr int NG = DH / 4;
+  constexpr bool kRowSplit = 32 % NG == 0;
+  constexpr int LR = kRowSplit ? NG : 32;
+  constexpr int NU = (NG + 31) / 32;
+  constexpr int NP = kTileH * LR / 32;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* const sm_q = reinterpret_cast<float*>(smem + L::RING);
+
+  const int pair = blockIdx.x;
+  const int b = pair / sh.kh, h = pair - b * sh.kh;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int s0 = blockIdx.y * sh.rows;
+  const int s1 = min(sh.s, s0 + sh.rows);
+  const int e1 = min(s1, sh.end);  // no tile starts at or past `end`
+  const size_t stride = static_cast<size_t>(sh.kh) * DH;
+  const size_t head0 = (static_cast<size_t>(b) * sh.s * sh.kh + h) * DH;
+  const __nv_bfloat16* qp = q + static_cast<size_t>(pair) * sh.g * DH;
+  uint4* const ring = reinterpret_cast<uint4*>(smem) +
+                      warp * kRingH * L::HALF;
+  float* const pw = reinterpret_cast<float*>(smem + L::RING + L::Q) +
+                    warp * kTileH * HT;
+
+  // this warp's tiles start at first + i * kWarps * kTileH, i < n: every
+  // warp takes n rounds (n from the CTA's range alone, so that the
+  // compiler sees a loop all lanes run together), and rows at or past e1
+  // are neither read (zero-filled) nor counted (p = 0), as a warp's tile
+  // past `end` would not be read.  Half stage j is tile j / 2's K (j even)
+  // or V (j odd) rows
+  const int first = s0 + warp * kTileH;
+  const int n = (e1 - s0 + kWarps * kTileH - 1) / (kWarps * kTileH);
+  auto issue = [&](int j) {
+    if (j < 2 * n)
+      stage_rows<DH>(ring + (j % kRingH) * L::HALF, ((j & 1) ? v : k) + head0,
+                     stride, first + (j >> 1) * kWarps * kTileH, e1, lane);
+    cp_async_commit();
+  };
+  if constexpr (32 % Z::CH == 0) {
+    // rows past e1 are not fetched: the stage starts zeroed
+    for (int i = lane; i < kRingH * L::HALF; i += 32)
+      ring[i] = make_uint4(0u, 0u, 0u, 0u);
+    __syncwarp();
+  }
+  issue(0);
+  issue(1);
+  // with the first tiles in flight: q in log2 units, 8 elements a load
+  const float qscale = sh.scale * kLog2e;
+  for (int i = threadIdx.x; i < HT * DH / 8; i += kThreads) {
+    const int hh = i / (DH / 8), d0 = (i - hh * (DH / 8)) * 8;
+    uint4 x = make_uint4(0u, 0u, 0u, 0u);
+    if (hh < sh.g)
+      x = __ldg(reinterpret_cast<const uint4*>(qp + hh * DH + d0));
+    const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int d = d0 + e;
+      sm_q[d * HT + (((hh >> 2) + d / KS) & 3) * 4 + (hh & 3)] =
+          (e & 1 ? bf16_hi(w[e >> 1]) : bf16_lo(w[e >> 1])) * qscale;
+    }
+  }
+  __syncthreads();
+
+  // q.K^T lanes: d-slice t, rows g + 8(t ^ i); the swizzle of those rows
+  const int t = lane >> 3, g = lane & 7;
+  const int sw = g & (Z::SW - 1);
+  const float* qs[4];  // head quad qd of d-slice t
+#pragma unroll
+  for (int qd = 0; qd < 4; ++qd)
+    qs[qd] = sm_q + t * KS * HT + ((qd + t) & 3) * 4;
+  int rowoff[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) rowoff[i] = (g + 8 * (t ^ i)) * Z::RC;
+  const int rho = g + 8 * t;  // the row whose scores the lane ends with
+  const int kc0 = (t * (KS / 8)) ^ sw;  // the lane's first K chunk
+  // p.V lanes: row group rg, element groups dl + 32u; vo[u][x]: the uint2
+  // of group dl + 32u in a row whose swizzle is x
+  const int rg = lane / LR, dl = lane % LR;
+  int vo[NU][Z::SW];
+#pragma unroll
+  for (int u = 0; u < NU; ++u)
+#pragma unroll
+    for (int x = 0; x < Z::SW; ++x)
+      vo[u][x] = ((((dl + 32 * u) >> 1) ^ x) << 1) | ((dl + 32 * u) & 1);
+
+  float acc[4 * NU][HT] = {};  // [4u + e][head]: Dh element 4(dl + 32u) + e
+  float m[HT], l[HT];          // m warp-uniform; l the lane's rows' share
+#pragma unroll
+  for (int hh = 0; hh < HT; ++hh) m[hh] = kNegInf, l[hh] = 0.f;
+
+  for (int i = 0; i < n; ++i) {
+    const int tile0 = first + i * kWarps * kTileH;
+    issue(2 * i + 2);
+    cp_async_wait<kRingH - 1>();  // this lane's copies of K_i landed
+    __syncwarp();                 // and every other lane's
+    const uint4* kt = ring + ((2 * i) % kRingH) * L::HALF;
+    float sc[4][HT] = {};
+#pragma unroll 2
+    for (int u = 0; u < KS / W; ++u) {
+      uint32_t kw[4][W / 2];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        if constexpr (W == 8) {
+          // (t * KC + u) ^ sw is c0 ^ u where KC is a power of two
+          constexpr int KC = KS / 8;
+          const int ch = (KC & (KC - 1)) == 0 ? kc0 ^ u
+                                              : (t * KC + u) ^ sw;
+          const uint4 x = kt[rowoff[r] + ch];
+          kw[r][0] = x.x, kw[r][1] = x.y, kw[r][2] = x.z, kw[r][3] = x.w;
+        } else {
+          const int d0 = t * KS + 4 * u;
+          const uint2 x = reinterpret_cast<const uint2*>(
+              &kt[rowoff[r] + ((d0 >> 3) ^ sw)])[(d0 >> 2) & 1];
+          kw[r][0] = x.x, kw[r][1] = x.y;
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < W; ++e) {
+        float kv[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          kv[r] = e & 1 ? bf16_hi(kw[r][e >> 1]) : bf16_lo(kw[r][e >> 1]);
+#pragma unroll
+        for (int qd = 0; qd < 4; ++qd) {
+          const float4 qv =
+              *reinterpret_cast<const float4*>(qs[qd] + (u * W + e) * HT);
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            sc[r][4 * qd] = fmaf(qv.x, kv[r], sc[r][4 * qd]);
+            sc[r][4 * qd + 1] = fmaf(qv.y, kv[r], sc[r][4 * qd + 1]);
+            sc[r][4 * qd + 2] = fmaf(qv.z, kv[r], sc[r][4 * qd + 2]);
+            sc[r][4 * qd + 3] = fmaf(qv.w, kv[r], sc[r][4 * qd + 3]);
+          }
+        }
+      }
+    }
+    // the four d-slices of row rho: t ^ 2's registers 2, 3, then t ^ 1's 1
+#pragma unroll
+    for (int hh = 0; hh < HT; ++hh) {
+      sc[0][hh] += __shfl_xor_sync(kFull, sc[2][hh], 16);
+      sc[1][hh] += __shfl_xor_sync(kFull, sc[3][hh], 16);
+    }
+#pragma unroll
+    for (int hh = 0; hh < HT; ++hh)
+      sc[0][hh] += __shfl_xor_sync(kFull, sc[1][hh], 8);
+
+    // softmax: row rho is position tile0 + rho; at or past e1 it is not
+    // read (p = 0), at or past kv_len masked to kNegInf
+    const int pos = tile0 + rho;
+    const bool in = pos < e1, keep = in && pos < sh.kv_len;
+#pragma unroll
+    for (int hh = 0; hh < HT; ++hh) sc[0][hh] = keep ? sc[0][hh] : kNegInf;
+    // the running max moves only when a score passes it by kLift (p <=
+    // 2^kLift otherwise): one vote per tile, and after the first tiles
+    // almost never a warp max and a rescale
+    bool lift = false;
+#pragma unroll
+    for (int hh = 0; hh < HT; ++hh) lift |= sc[0][hh] > m[hh] + kLift;
+    if (__any_sync(kFull, lift)) {
+      float mx[HT];
+#pragma unroll
+      for (int hh = 0; hh < HT; ++hh) mx[hh] = fmaxf(sc[0][hh], m[hh]);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+        for (int hh = 0; hh < HT; ++hh)
+          mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(kFull, mx[hh], off));
+#pragma unroll
+      for (int hh = 0; hh < HT; ++hh) {
+        const float corr = ex2(m[hh] - mx[hh]);
+        m[hh] = mx[hh];
+        l[hh] *= corr;
+#pragma unroll
+        for (int e = 0; e < 4 * NU; ++e) acc[e][hh] *= corr;
+      }
+    }
+#pragma unroll
+    for (int hh = 0; hh < HT; ++hh) {
+      const float sv = sc[0][hh];
+      const float pv = in ? ex2(sv - m[hh]) : 0.f;
+      l[hh] += pv;
+      sc[0][hh] = pv;
+    }
+#pragma unroll
+    for (int qd = 0; qd < 4; ++qd)
+      *reinterpret_cast<float4*>(pw + rho * HT +
+                                 ((qd + (rho >> 1)) & 3) * 4) =
+          make_float4(sc[0][4 * qd], sc[0][4 * qd + 1], sc[0][4 * qd + 2],
+                      sc[0][4 * qd + 3]);
+    __syncwarp();  // p visible; every lane done with K_i's half-stage
+
+    issue(2 * i + 3);             // into K_i's half-stage
+    cp_async_wait<kRingH - 1>();  // V_i landed
+    __syncwarp();
+    const uint4* vt = ring + ((2 * i + 1) % kRingH) * L::HALF;
+    const uint2* vt2 = reinterpret_cast<const uint2*>(vt);
+    constexpr int JU = NP < 8 ? NP : 8;  // rows per loop body
+#pragma unroll 1
+    for (int j0 = rg * NP; j0 < rg * NP + NP; j0 += JU) {
+#pragma unroll
+    for (int jk = 0; jk < JU; ++jk) {
+      const int j = j0 + jk;
+      // j0 is a multiple of 8 where NP is (Dh >= 64), of the swizzle
+      // period always
+      const int jr = NP % 8 == 0 ? (jk >> 1) & 3 : (j >> 1) & 3;
+      float pj[HT];
+#pragma unroll
+      for (int qd = 0; qd < 4; ++qd) {
+        const float4 x = *reinterpret_cast<const float4*>(
+            pw + j * HT + ((qd + jr) & 3) * 4);
+        pj[4 * qd] = x.x, pj[4 * qd + 1] = x.y, pj[4 * qd + 2] = x.z,
+        pj[4 * qd + 3] = x.w;
+      }
+#pragma unroll
+      for (int u = 0; u < NU; ++u) {
+        uint2 w = {0u, 0u};
+        if (kRowSplit || dl + 32 * u < NG)
+          w = vt2[j * Z::RC * 2 + vo[u][jk & (Z::SW - 1)]];
+        const float vv[4] = {bf16_lo(w.x), bf16_hi(w.x), bf16_lo(w.y),
+                             bf16_hi(w.y)};
+#pragma unroll
+        for (int hh = 0; hh < HT; ++hh)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[4 * u + e][hh] = fmaf(pj[hh], vv[e], acc[4 * u + e][hh]);
+      }
+    }
+    }
+    __syncwarp();  // p and V_i's half-stage are rewritten after this
+  }
+
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with its ring: sm_acc reuses it
+  float* const sm_acc = reinterpret_cast<float*>(smem);
+  float* const sm_m = sm_acc + kWarps * HT * DH;
+  float* const sm_l = sm_m + kWarps * HT;
+#pragma unroll
+  for (int hh = 0; hh < HT; ++hh)
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      l[hh] += __shfl_xor_sync(kFull, l[hh], off);
+  if (lane == 0) {
+#pragma unroll
+    for (int hh = 0; hh < HT; ++hh) {
+      sm_m[warp * HT + hh] = m[hh] * kLn2;  // natural units for the merges
+      sm_l[warp * HT + hh] = l[hh];
+    }
+  }
+  // add the row groups' sums: lanes dl, dl + LR, ...
+#pragma unroll
+  for (int off = LR; off < 32; off <<= 1)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+#pragma unroll
+      for (int hh = 0; hh < HT; ++hh)
+        acc[e][hh] += __shfl_xor_sync(kFull, acc[e][hh], off);
+  if (lane < LR) {
+#pragma unroll
+    for (int u = 0; u < NU; ++u)
+      if (kRowSplit || lane + 32 * u < NG) {
+#pragma unroll
+        for (int hh = 0; hh < HT; ++hh)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sm_acc[(warp * HT + hh) * DH + 4 * (lane + 32 * u) + e] =
+                acc[4 * u + e][hh];
+      }
   }
   __syncthreads();
   merge_warps<__nv_bfloat16, DH, HT>(sm_m, sm_l, sm_acc, out, part_ml,
@@ -855,8 +1304,7 @@ __global__ void __launch_bounds__(kThreads)
   if constexpr (std::is_same<T, float>::value)
     attention_tiles_f32<DH, false, HT>(q, k, v, out, part_ml, part_acc, sh);
   else if constexpr (HT == 16)
-    attention_tiles_bf16<DH, false, 16, 16>(q, k, v, out, part_ml, part_acc,
-                                            sh);
+    attention_tiles_bf16_h16<DH>(q, k, v, out, part_ml, part_acc, sh);
   else if (sh.g <= 1)
     attention_tiles_bf16<DH, false, 1, 8>(q, k, v, out, part_ml, part_acc,
                                           sh);
@@ -890,15 +1338,15 @@ __global__ void __launch_bounds__(kThreads)
 // merge of the ranges of one (b, h) pair: grid (pairs, G), kWarps warps.
 // Warp w sums the ranges w, w + kWarps, ... in order, lane l elements
 // l, l + 32, ... of Dh, so that many ranges' loads are in flight at once;
-// the warps' sums are then added in warp order.
+// the warps' sums are then added in warp order.  E: elements per lane, 4
+// for every Dh <= 128 (one kernel), 5 for Dh 160.
 // ---------------------------------------------------------------------------
 
-template <typename T>
+template <typename T, int E>
 __global__ void __launch_bounds__(kThreads)
     attention_combine_kernel(const float* __restrict__ part_ml,
                              const float* __restrict__ part_acc,
                              T* __restrict__ out, Shape sh) {
-  constexpr int E = 128 / 32;  // elements per lane at the largest Dh
   __shared__ float sm_acc[kWarps][E * 32], sm_l[kWarps], sm_max[kWarps];
   // launched as a programmatic dependent of the range kernel: wait until
   // that grid has finished and its partials are visible
@@ -978,44 +1426,34 @@ cudaError_t launch_tiles(const T* q, const T* k, const T* v, T* out,
                        : attention_vector_kernel<T, DH, HT>;
   int smem = 0;
   if constexpr (!std::is_same<T, float>::value) {
-    smem = smem_bytes<DH, HT>();
-    const cudaError_t e = cudaFuncSetAttribute(
+    const bool h16 = !matrix && HT == 16;
+    smem = h16 ? H16Layout<DH>::BYTES : smem_bytes<DH, HT>();
+    cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    // two CTAs of the head-tile-16 vector kernel (112 KB each at Dh 128)
+    // need the largest shared-memory carveout
+    if (e == cudaSuccess && h16)
+      e = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
     if (e != cudaSuccess) return e;
   }
   kernel<<<grid, kThreads, smem, s>>>(q, k, v, out, part_ml, part_acc, sh);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_typed(const void* q, const void* k, const void* v,
-                         void* out, float* part_ml, float* part_acc,
-                         int pairs, const Shape& sh, int matrix,
-                         cudaStream_t s) {
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  T* ot = static_cast<T*>(out);
+// The range kernel at head dim DH (head tile 8 for G <= 8, 16 above), then
+// with several ranges per pair their merge.
+template <typename T, int DH>
+cudaError_t launch_dh(const T* q, const T* k, const T* v, T* out,
+                      float* part_ml, float* part_acc, int pairs,
+                      const Shape& sh, int matrix, cudaStream_t s) {
   const dim3 grid(pairs, sh.nsplit);
-  cudaError_t err;
-  switch (sh.dh) {
-#define REPRO_ATTENTION(DH)                                              \
-  case DH:                                                               \
-    err = sh.g <= 8 ? launch_tiles<T, DH, 8>(qt, kt, vt, ot, part_ml,    \
-                                             part_acc, grid, sh, matrix, \
-                                             s)                          \
-                    : launch_tiles<T, DH, 16>(qt, kt, vt, ot, part_ml,   \
-                                              part_acc, grid, sh,        \
-                                              matrix, s);                \
-    break;
-    REPRO_ATTENTION(16)
-    REPRO_ATTENTION(32)
-    REPRO_ATTENTION(64)
-    REPRO_ATTENTION(128)
-#undef REPRO_ATTENTION
-    default:
-      return cudaErrorInvalidValue;
-  }
+  const cudaError_t err =
+      sh.g <= 8 ? launch_tiles<T, DH, 8>(q, k, v, out, part_ml, part_acc,
+                                         grid, sh, matrix, s)
+                : launch_tiles<T, DH, 16>(q, k, v, out, part_ml, part_acc,
+                                          grid, sh, matrix, s);
   if (err != cudaSuccess || sh.nsplit == 1) return err;
   // programmatic dependent launch: the merge is scheduled while the range
   // kernel's last CTAs run, instead of after it
@@ -1028,13 +1466,75 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v,
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, attention_combine_kernel<T>,
-                            static_cast<const float*>(part_ml),
-                            static_cast<const float*>(part_acc), ot, sh);
+  return cudaLaunchKernelEx(
+      &cfg, attention_combine_kernel<T, DH <= 128 ? 4 : (DH + 31) / 32>,
+      static_cast<const float*>(part_ml), static_cast<const float*>(part_acc),
+      out, sh);
 }
 
 }  // namespace
 
+// The range kernels at head dim DH, both dtypes, and their merge.  Built as
+// one object, the file instantiates every head dim (or only
+// REPRO_ATTENTION_ONLY_DH's, tools/attention_variant.py); object k of the
+// parallel build (-DREPRO_PART=k) instantiates head dim 16, 32, 64, 112,
+// 128 or 160, and object 0 also holds the C entry point.
+namespace repro_attention {
+#ifdef REPRO_ATTENTION_ONLY_DH
+constexpr int kOnlyDh = REPRO_ATTENTION_ONLY_DH;
+#else
+constexpr int kOnlyDh = 0;
+#endif
+
+template <int DH>
+cudaError_t launch_head_dim(const void* q, const void* k, const void* v,
+                            void* out, float* part_ml, float* part_acc,
+                            int pairs, const Shape& sh, int bf16, int matrix,
+                            cudaStream_t s) {
+  if constexpr (kOnlyDh != 0 && kOnlyDh != DH) {
+    return cudaErrorInvalidValue;
+  } else if (bf16) {
+    using T = __nv_bfloat16;
+    return launch_dh<T, DH>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(out), part_ml, part_acc,
+        pairs, sh, matrix, s);
+  } else {
+    return launch_dh<float, DH>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(out), part_ml,
+        part_acc, pairs, sh, matrix, s);
+  }
+}
+
+#define REPRO_HEAD_DIM(DH)                                                  \
+  template cudaError_t launch_head_dim<DH>(                                 \
+      const void*, const void*, const void*, void*, float*, float*, int,    \
+      const Shape&, int, int, cudaStream_t)
+#if defined(REPRO_PART)
+#if REPRO_PART == 0
+REPRO_HEAD_DIM(16);
+extern REPRO_HEAD_DIM(32);
+extern REPRO_HEAD_DIM(64);
+extern REPRO_HEAD_DIM(112);
+extern REPRO_HEAD_DIM(128);
+extern REPRO_HEAD_DIM(160);
+#elif REPRO_PART == 1
+REPRO_HEAD_DIM(32);
+#elif REPRO_PART == 2
+REPRO_HEAD_DIM(64);
+#elif REPRO_PART == 3
+REPRO_HEAD_DIM(112);
+#elif REPRO_PART == 4
+REPRO_HEAD_DIM(128);
+#elif REPRO_PART == 5
+REPRO_HEAD_DIM(160);
+#endif
+#endif
+#undef REPRO_HEAD_DIM
+}  // namespace repro_attention
+
+#if !defined(REPRO_PART) || REPRO_PART == 0
 REPRO_ERROR_STRING(attention)
 
 // out (B, KH, G, Dh) = flash-decode of q (B, KH, G, Dh) over k, v
@@ -1043,7 +1543,7 @@ REPRO_ERROR_STRING(attention)
 // position); they are cut into nsplit ranges of `rows` positions, one CTA
 // each.  With nsplit > 1, part_ml (pairs * nsplit * G * 2) and part_acc
 // (pairs * nsplit * G * Dh) float32 hold the ranges' partials.  Both
-// kernels take G <= 16 and Dh in {16, 32, 64, 128}.  Returns the
+// kernels take G <= 16 and Dh in {16, 32, 64, 112, 128, 160}.  Returns the
 // cudaError_t.
 extern "C" int attention_launch(const void* q, const void* k, const void* v,
                                 void* out, float* part_ml, float* part_acc,
@@ -1060,10 +1560,24 @@ extern "C" int attention_launch(const void* q, const void* k, const void* v,
   if (batch == 0) return cudaSuccess;
   const Shape sh{kh, g, s, dh, kv_len, end, rows, nsplit, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      bf16 ? launch_typed<__nv_bfloat16>(q, k, v, out, part_ml, part_acc,
-                                         batch * kh, sh, matrix, st)
-           : launch_typed<float>(q, k, v, out, part_ml, part_acc, batch * kh,
-                                 sh, matrix, st);
+  using repro_attention::launch_head_dim;
+  cudaError_t err;
+  switch (dh) {
+#define REPRO_ATTENTION(DH)                                                \
+  case DH:                                                                 \
+    err = launch_head_dim<DH>(q, k, v, out, part_ml, part_acc, batch * kh, \
+                              sh, bf16, matrix, st);                       \
+    break;
+    REPRO_ATTENTION(16)
+    REPRO_ATTENTION(32)
+    REPRO_ATTENTION(64)
+    REPRO_ATTENTION(112)
+    REPRO_ATTENTION(128)
+    REPRO_ATTENTION(160)
+#undef REPRO_ATTENTION
+    default:
+      err = cudaErrorInvalidValue;
+  }
   return static_cast<int>(err);
 }
+#endif

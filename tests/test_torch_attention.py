@@ -10,6 +10,10 @@ some elements cancel to near zero; there float32 summation error exceeds
 a bf16 ulp of the element itself, and the ulp is taken at a floor of
 1/256 of the output's largest magnitude.
 
+The configs' head dims 112 and 160 are held the same way at kv_len
+S - 16, 0, 1 and S, and every config that decodes through the kernels
+passes their argument check at its full (G, Dh).
+
 Tests marked ``gpu`` hold both CUDA kernels against the plain version on
 the card; they skip where there is none.
 """
@@ -48,6 +52,13 @@ SHAPES = [(1, 512, 2, 4, 64, 128), (2, 1024, 4, 8, 128, 256),
           (1, 256, 1, 12, 64, 64)]
 #: unaligned serving cache lengths (S, kv_len), on (2, S, 1, 2, 16)
 SERVING = [(12, 9), (24, 24), (56, 1)]
+#: (G, Dh) of the configs' head dims that are not powers of two: Zamba2-7B's
+#: 112 (G 1, and G 4), StableLM-2-12B's 160 (G 4, and G 16: the head tile
+#: of 16)
+CONFIG_DIMS = [(1, 112), (4, 112), (4, 160), (16, 160)]
+#: their cache: (b, s, kh, block_s) and kv_len S - 16, 0, 1 and S
+CONFIG_CACHE = (1, 128, 2, 64)
+CONFIG_KV = [112, 0, 1, 128]
 
 
 def _mk(b, s, kh, g, dh, dtype, seed=0):
@@ -105,6 +116,20 @@ def test_plain_matches_reference_at_kv_len_edges(kv_len, dtype, engine):
     """kv_len = 0 is the mean of V (an all-masked block gives p = 1 at
     the -1e30 mask), 1 a single position, S the whole cache."""
     _check(1, 512, 2, 4, 64, 128, kv_len, dtype, engine)
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kv_len", CONFIG_KV)
+@pytest.mark.parametrize("g,dh", CONFIG_DIMS,
+                         ids=[f"G{g}-Dh{dh}" for g, dh in CONFIG_DIMS])
+def test_plain_matches_reference_at_config_head_dims(g, dh, kv_len, dtype,
+                                                     engine):
+    """Dh 112 and 160, which the kernels' lane maps split unevenly
+    (28 and 40 elements per quarter of a row), at kv_len S - 16, 0, 1 and
+    S; the module's tolerances."""
+    b, s, kh, block = CONFIG_CACHE
+    _check(b, s, kh, g, dh, block, kv_len, dtype, engine, seed=dh + g)
 
 
 def test_kv_len_zero_is_the_mean_of_v():
@@ -222,6 +247,35 @@ def test_kernel_takes_up_to_16_query_heads_per_kv_head():
             _ext.attention(q, k, v, 64, block_s=64, engine="vector")
 
 
+def _k4_configs():
+    """Every config whose decode attention runs through flash-decode (not
+    MLA, not attention-free): (name, G, Dh) at full size."""
+    from repro_torch.configs import ARCHS
+    return [(c.name, c.n_heads // c.n_kv_heads, c.head_dim)
+            for c in ARCHS.values()
+            if not c.use_mla and not c.is_attention_free]
+
+
+@pytest.mark.parametrize("name,g,dh", _k4_configs(),
+                         ids=[n for n, _, _ in _k4_configs()])
+def test_every_config_passes_the_kernels_argument_check(name, g, dh):
+    """Each config's full (G, Dh) passes the wrapper's argument check: on
+    CPU tensors it stops at the card check, not at a refusal."""
+    from repro_torch.kernels import _ext
+    assert dh in _ext.HEAD_DIMS and 1 <= g <= _ext.MAX_GROUP
+    for dtype in DTYPES:
+        q, k, v = _port(_mk(1, 64, 1, g, dh, dtype))
+        with pytest.raises(ValueError, match="on the card"):
+            _ext.attention(q, k, v, 64, block_s=64, engine="vector")
+
+
+def test_kernel_refuses_other_head_dims_naming_the_roadmap():
+    from repro_torch.kernels import _ext
+    q, k, v = _port(_mk(1, 64, 1, 4, 96, "float32"))
+    with pytest.raises(ValueError, match="ROADMAP.md Queue 2 item 7"):
+        _ext.attention(q, k, v, 64, block_s=64, engine="vector")
+
+
 def test_split_rejects_a_block_that_does_not_divide_s():
     with pytest.raises(ValueError, match="divide"):
         attention_split(100, 64, 1, 132)
@@ -272,3 +326,31 @@ def test_card_flash_decode_matches_plain(card, dtype, engine):
                                         nsplit=-(-s // rows), end=s,
                                         engine=engine)
                 assert torch.equal(got, full)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("engine", ENGINES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,dh", CONFIG_DIMS,
+                         ids=[f"G{g}-Dh{dh}" for g, dh in CONFIG_DIMS])
+def test_card_flash_decode_at_config_head_dims(card, g, dh, dtype, engine):
+    """Dh 112 and 160 on the card against the plain version, over 16
+    ranges of 64 positions at the kv_len edges, and bit for bit against
+    reading every range and position."""
+    b, s, kh, block = 2, 1024, 2, 128
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    q, k, v = [t.to(dtype).to(card) for t in
+               _port(_mk(b, s, kh, g, dh, "float32", dh))]
+    for kv_len in (0, 1, 15, 16, 17, 63, 64, 65, 1023, 1024):
+        got = flash_decode(q, k, v, kv_len, block_s=block, engine=engine)
+        want = flash_decode_plain(q, k, v, kv_len, block_s=block,
+                                  engine=engine)
+        _assert_close(got.cpu(), want.float().cpu().numpy(),
+                      "bfloat16" if dtype == torch.bfloat16 else "float32")
+        if kv_len >= 1:
+            rows = attention_ranges(s, block, b * kh, sms, kv_len, dtype, g,
+                                    engine)[0]
+            full = attention_launch(q, k, v, kv_len, rows=rows,
+                                    nsplit=-(-s // rows), end=s,
+                                    engine=engine)
+            assert torch.equal(got, full)

@@ -149,7 +149,14 @@ STREAM = {
                   ((4, 32768, 4, 128), "float32"),
                   ((4, 4, 16, 128), "bfloat16"),
                   ((4, 32768, 4, 128), "bfloat16"),
-                  ((4, 32768, 4, 128), "bfloat16")],
+                  ((4, 32768, 4, 128), "bfloat16"),
+                  # StableLM-2-12B's decode heads: G = 4 at Dh 160
+                  ((4, 8, 4, 160), "float32"),
+                  ((4, 32768, 8, 160), "float32"),
+                  ((4, 32768, 8, 160), "float32"),
+                  ((4, 8, 4, 160), "bfloat16"),
+                  ((4, 32768, 8, 160), "bfloat16"),
+                  ((4, 32768, 8, 160), "bfloat16")],
 }
 
 
@@ -171,13 +178,13 @@ def test_stream_points_of_every_family(name, monkeypatch):
     points = list(bench_kernels.stream_points(op, np.random.default_rng(0),
                                               "cpu"))
     assert asked == STREAM[name]
-    assert len(points) == {"spmv": 1, "attention": 4}.get(name, 2)
+    assert len(points) == {"spmv": 1, "attention": 6}.get(name, 2)
     if name in ("scale", "triad", "axpy"):
         for pt in points:
             nbytes = pt.size * (4 if pt.dtype == "float32" else 2)
             assert nbytes >= 4 * H100_SXM.l2_bytes
     if name == "attention":
-        assert [pt.args[3] for pt in points] == [28672] * 4
+        assert [pt.args[3] for pt in points] == [28672] * 6
     with pytest.raises(KeyError):
         next(bench_kernels.stream_points(
             dataclasses.replace(op, name="gemv"), None, "cpu"))

@@ -674,6 +674,60 @@ def test_moe_engine_greedy_tokens_match_reference(name, changes):
     _close(pr.logits, jr.logits)
 
 
+#: StableLM-2-12B's decode shape, reduced: its head dim 160 and its four
+#: query heads per KV head (reduced keeps 4 heads; one KV head)
+DH160 = {"head_dim": 160, "n_kv_heads": 1}
+
+
+def _dh160_engines(engine):
+    """reduced(stablelm-12b) at Dh 160, G 4: a JAX engine and the port's
+    engine on its carried weights, decode attention through the
+    registry's flash-decode."""
+    key = ("stablelm-dh160", engine)
+    if key not in _ENGINES:
+        j, p = (dataclasses.replace(j_configs.reduced(c), **DH160)
+                for c in _pair("stablelm-12b"))
+        je = JEngine(j, dtype=jnp.float32, engine=engine,
+                     attention_impl="registry", **ENGINE_KW)
+        params = params_from_numpy(_np(je.params), p, device="cpu")
+        pe = PEngine(p, dtype=torch.float32, engine=engine,
+                     attention_impl="registry", params=params, device="cpu",
+                     **ENGINE_KW)
+        _ENGINES[key] = (je, pe)
+    return _ENGINES[key]
+
+
+@pytest.mark.parametrize("engine", ["vector", "matrix"])
+def test_stablelm_head_dim_160_matches_reference_step_by_step(engine):
+    """Prefill logits, every teacher-forced step's logits and the caches
+    at StableLM-2-12B's head dim."""
+    je, pe = _dh160_engines(engine)
+    assert pe.cfg.head_dim == 160
+    assert pe.cfg.n_heads // pe.cfg.n_kv_heads == 4
+    jb, pb = je.make_prompt_batch(seed=1), pe.make_prompt_batch(seed=1)
+    jl, jc = je.prefill(jb)
+    pl, pc = pe.prefill(pb)
+    _close(pl, jl)
+    tok = np.array(jnp.argmax(jl[:, -1], axis=-1))[:, None]
+    for i in range(je.prompt_len, je.max_len - 1):
+        jl, jc = je.decode_step(jnp.asarray(tok), jc, i)
+        pl, pc = pe.decode_step(torch.from_numpy(tok), pc, i)
+        _close(pl, jl)
+        tok = np.array(jnp.argmax(jl[:, 0], axis=-1))[:, None]
+    for k in ("k", "v"):
+        assert tuple(pc["attn"][k].shape) == jc["attn"][k].shape
+        _close(pc["attn"][k], jc["attn"][k])
+
+
+@pytest.mark.parametrize("engine", ["vector", "matrix"])
+def test_stablelm_head_dim_160_greedy_tokens_match_reference(engine):
+    je, pe = _dh160_engines(engine)
+    jr = je.generate(je.make_prompt_batch(seed=2))
+    pr = pe.generate(pe.make_prompt_batch(seed=2))
+    assert np.array_equal(pr.tokens.numpy(), np.asarray(jr.tokens))
+    _close(pr.logits, jr.logits)
+
+
 @pytest.mark.parametrize("name", MOE)
 def test_teacher_forced_decode_equals_forward(name):
     """With the capacity lifted (drops exist only in the batched pass,

@@ -6,9 +6,10 @@
 Three parts, each printing JSON lines with the card's name and power
 limit (``--parts`` picks some, default all):
 
-* ``ptxas``: compiles ``csrc/attention.cu`` once more with ``-Xptxas -v``
-  and prints, per kernel instantiation at Dh = 128, its registers, shared
-  memory, stack and spill bytes;
+* ``ptxas``: prints, per kernel instantiation of ``csrc/attention.cu``
+  (every head dim, both head tiles), its registers, shared memory, stack
+  and spill bytes, from the ``-Xptxas -v`` report the build keeps
+  (``_ext.ptxas_usage``);
 * ``slots``: times flash-decode at Mistral-NeMo's (B 4, KH 8, G 4) and
   Qwen3-MoE's (B 4, KH 4, G 16) decode shapes over S = 32768, kv_len 7S/8,
   with the positions cut for 1, 2, 3 and 4 CTA slots per SM
@@ -30,7 +31,6 @@ import argparse
 import dataclasses
 import json
 import pathlib
-import re
 import subprocess
 import sys
 import warnings
@@ -56,42 +56,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     if "ptxas" in opts.parts:
-        out = ROOT / "build" / "decode_audit_attention.o"
-        out.parent.mkdir(parents=True, exist_ok=True)
-        done = subprocess.run(
-            [_ext._nvcc(), *_ext.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
-             str(out), str(_ext.CSRC / "attention.cu")],
-            capture_output=True, text=True, timeout=600)
-        if done.returncode:
-            print(done.stderr, file=sys.stderr)
-            return 1
-        fn, usage = None, {}
-        for line in done.stderr.splitlines():
-            m = re.search(r"Compiling entry function '(\S+)'", line)
-            if m:
-                fn = m.group(1)
-                usage[fn] = {}
-            elif fn is not None:
-                for key, pat in (("stack_bytes", r"(\d+) bytes stack frame"),
-                                 ("spill_store_bytes",
-                                  r"(\d+) bytes spill stores"),
-                                 ("spill_load_bytes",
-                                  r"(\d+) bytes spill loads"),
-                                 ("registers", r"Used (\d+) registers"),
-                                 ("smem_bytes", r"(\d+) bytes smem")):
-                    m = re.search(pat, line)
-                    if m:
-                        usage[fn][key] = int(m.group(1))
-        for fn, u in usage.items():
-            # attention_{vector,matrix}_kernel<T, DH, HT>
-            m = re.search(r"attention_(vector|matrix)_kernelI(f|13__nv_bfloat16)"
-                          r"Li(\d+)ELi(\d+)E", fn)
-            if m and m.group(3) == "128":
-                print(json.dumps({
-                    "part": "ptxas", "engine": m.group(1),
-                    "dtype": "float32" if m.group(2) == "f" else "bfloat16",
-                    "dh": 128, "head_tile": int(m.group(4)), **u,
-                    "card": card}), flush=True)
+        for entry in _ext.attention_kernel_usage():
+            print(json.dumps({"part": "ptxas", **entry, "card": card}),
+                  flush=True)
 
     if "slots" in opts.parts:
         from repro_torch.core.timing import time_fn

@@ -14,10 +14,11 @@ duration), and the card's name and power limit.  The points (``--points``
 picks some, default all): SCALE, STREAM Triad and AXPY at float32
 n = 2^26 and bfloat16 n = 2^27; SpMV on the 8192 x 16384 matrix at 5%
 density; the stencils 2d5pt on 8192^2 and 3d7pt on 512^3 at t = 3;
-flash-decode at Mistral-NeMo-12B's decode shape (B 4, KH 8, G 4, Dh 128)
-and at Qwen3-MoE-235B-A22B's (B 4, KH 4, G 16) over S = 32768 with
-kv_len = 7S/8, in float32 and bfloat16 (a checkout whose kernels refuse
-G = 16 prints one ``refused`` line for that point).  Yardsticks are
+flash-decode at Mistral-NeMo-12B's decode shape (B 4, KH 8, G 4, Dh 128),
+at Qwen3-MoE-235B-A22B's (B 4, KH 4, G 16) and at StableLM-2-12B's (B 4,
+KH 8, G 4, Dh 160) over S = 32768 with kv_len = 7S/8, in float32 and
+bfloat16 (a checkout whose kernels refuse a point's G or Dh prints one
+``refused`` line for it).  Yardsticks are
 timed beside them: ``torch.mul`` / ``torch.add(..., alpha=q)`` on the same
 arrays, ``torch.mv`` on the same matrix in CSR, ``F.conv2d`` /
 ``F.conv3d`` with the stencil's weights, t times, and
@@ -187,19 +188,21 @@ def main() -> int:
 
     if "attention" in opts.points:
         attention = registry.get("attention")
-        dh, s = 128, 32768
+        s = 32768
         kv_len = s - s // 8
         gen = torch.Generator().manual_seed(0)
         cgen = torch.Generator(device="cuda").manual_seed(0)
-        for (b, kh, g), dtype in ((shape, dtype)
-                                  for shape in ((4, 8, 4), (4, 4, 16))
-                                  for dtype in (torch.float32,
-                                                torch.bfloat16)):
+        for (b, kh, g, dh), dtype in ((shape, dtype) for shape in
+                                      ((4, 8, 4, 128), (4, 4, 16, 128),
+                                       (4, 8, 4, 160))
+                                      for dtype in (torch.float32,
+                                                    torch.bfloat16)):
             q = torch.randn((b, kh, g, dh), generator=gen).to(dtype).cuda()
             k, v = (torch.randn((b, s, kh, dh), generator=cgen,
                                 device="cuda").to(dtype) for _ in range(2))
             point = f"attention/{str(dtype)[6:]}/B{b}xS{s}" + \
-                ("" if g == 4 else f"xG{g}")
+                ("" if g == 4 else f"xG{g}") + \
+                ("" if dh == 128 else f"xDh{dh}")
             try:
                 attention(q, k, v, kv_len, engine="vector")
             except ValueError as exc:
