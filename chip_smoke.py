@@ -154,9 +154,10 @@ ATTN_FLOOR = 1 / 256
 PEAK_OPS = 67e12
 
 #: Phase 3's (G, Dh) at the kv_len edges: the head tiles of 8 (G 4, 1) and
-#: 16 (G 16, 12) at Dh 128, and the configs' other head dims.
-EDGE_GROUPS = ((4, 128), (16, 128), (12, 128), (1, 112), (4, 112),
-               (4, 160), (16, 160))
+#: 16 (G 16, 12 and its smallest group 9) at Dh 128, and the configs' other
+#: head dims, each at both head tiles.
+EDGE_GROUPS = ((4, 128), (16, 128), (12, 128), (9, 128), (1, 112),
+               (4, 112), (16, 112), (4, 160), (16, 160))
 
 #: Float32 tolerance of the model phase's decode step against the plain
 #: dense-attention path: the reference's own model tier
@@ -509,8 +510,8 @@ def main() -> int:
     # (2, 1024, 2, g, dh) cuts the cache into ranges of 64 positions. Each
     # kv_len >= 1 is also held bit for bit against the same kernel reading
     # every range and position (end = S), as the reference does.  G = 4
-    # and 1 run the head tile of 8; G = 16 (Qwen3-MoE's group) and 12 that
-    # of 16; at Dh 128 and at the configs' 112 (Zamba2-7B) and 160
+    # and 1 run the head tile of 8; G = 16 (Qwen3-MoE's group), 12 and 9
+    # that of 16; at Dh 128 and at the configs' 112 (Zamba2-7B) and 160
     # (StableLM-2-12B)
     b, s, kh, block_s = 2, 1024, 2, 128
     sms = torch.cuda.get_device_properties(0).multi_processor_count

@@ -432,15 +432,22 @@ CTAS_PER_SM = {torch.bfloat16: 1, torch.float32: 2}
 
 
 def ctas_per_sm(dtype: torch.dtype, g: int, engine: str) -> int:
-    """CTAs per SM for one call: ``CTAS_PER_SM``, but two for the bfloat16
-    vector kernel at a head tile of 16 (G > 8).  That kernel is bound by
-    FFMA issue (four times G = 4's FFMAs per cache byte); its 112 KB of
-    shared memory and 255 registers a thread fit two CTAs of four warps
-    per SM, and one CTA per SM leaves one warp per scheduler to hide the
-    latencies (``tools/decode_audit.py --parts slots``, ``PERF.md``; the
-    matrix kernel is fastest at one)."""
-    if dtype == torch.bfloat16 and g > 8 and engine == "vector":
-        return 2
+    """CTAs per SM for one call: ``CTAS_PER_SM``, but for the vector
+    kernels at a head tile of 16 (G > 8), which stage K and V through
+    shared memory like the bfloat16 kernels, the slots their layout fits.
+
+    bfloat16 takes two: that kernel is bound by FFMA issue (four times
+    G = 4's FFMAs per cache byte); its 112 KB of shared memory and 255
+    registers a thread fit two CTAs of four warps per SM, and one CTA per
+    SM leaves one warp per scheduler to hide the latencies.  float32 takes
+    one: its FFMA floor is 40% of its byte bound, so one warp per scheduler
+    issues enough; its rings of 16 KB half-stages take 144 KB at Dh 128,
+    so a second CTA per SM would only run as a second wave, and one long
+    range per SM pays a CTA's start and end once.  Measured with
+    ``tools/decode_audit.py --parts slots`` (``PERF.md``); the matrix
+    kernels are fastest at ``CTAS_PER_SM``."""
+    if g > 8 and engine == "vector":
+        return 2 if dtype == torch.bfloat16 else 1
     return CTAS_PER_SM[dtype]
 
 

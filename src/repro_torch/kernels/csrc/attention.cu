@@ -48,17 +48,24 @@
 // summed exactly in double by DMMA and rounded once: a double accumulator
 // of 16 heads x Dh would take 128 registers a lane.
 //
-// float32: each lane loads elements [t*Dh/4, (t+1)*Dh/4) of K rows g and
-// g + 8 and elements [g*Dh/8, (g+1)*Dh/8) of V rows straight from global
-// memory.
+// float32, but the vector engine at G > 8: each lane loads elements
+// [t*Dh/4, (t+1)*Dh/4) of K rows g and g + 8 and elements [g*Dh/8,
+// (g+1)*Dh/8) of V rows straight from global memory.
 //   Matrix: q.K^T and p.V on DMMA m8n8k4 on values converted to double
 //   (q.K^T with positions on M and heads on N; p.V with V^T on M, heads on
 //   N, 4 positions on K), products exact.
-//   Vector: the same products as FFMAs; each lane takes partial dots over
-//   its K span for every head (q staged in shared memory), and a
+//   Vector, G <= 8: the same products as FFMAs; each lane takes partial
+//   dots over its K span for every head (q staged in shared memory), and a
 //   reduce-scatter over the four t lanes (12 shuffles per tile) leaves it
 //   the full scores of heads 2t and 2t+1; p.V walks the tile's 16 V rows,
 //   each lane its own span.
+//   Vector, 8 < G <= 16: its own kernel (attention_tiles_f32_h16, below).
+//   At 16 heads its FFMA floor is 40% of the byte bound (0.056 against
+//   0.140 ms at Qwen3-MoE's decode shape), so the kernel is bound by bytes
+//   once no load waits in a lane's dependency chain.  It takes the
+//   bfloat16 kernel's maps: K and V staged by cp.async a half-stage ahead
+//   of the compute, each element read from global memory once and from
+//   shared memory once for all 16 heads, one CTA of 144 KB per SM.
 // bfloat16: a tile of K and V is 8 KiB at Dh = 128, about 640 SM clocks at
 // the datasheet HBM rate, half of float32's budget for the same
 // instructions per element.  So the tiles are staged: each warp streams its
@@ -900,62 +907,82 @@ __device__ __forceinline__ void attention_tiles_bf16(
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16, vector engine, head tile 16: register-blocked FFMA tiles
+// vector engine, head tile 16: register-blocked FFMA tiles, K / V staged
 // ---------------------------------------------------------------------------
 //
 // At 16 query heads a cache element costs 16 FFMAs in each contraction
 // (1.88 G at Qwen3-MoE's decode shape, about 0.056 ms of the CUDA cores at
-// 1.98 GHz against a byte bound of 0.070 ms), and an FFMA issues at the
-// warp schedulers' full rate: every other instruction takes an FFMA's
-// slot.  So the design counts instructions per FFMA.
+// 1.98 GHz), and an FFMA issues at the warp schedulers' full rate: every
+// other instruction takes an FFMA's slot.  That floor is 80% of the byte
+// bound in bfloat16 (0.070 ms) and 40% in float32 (0.140 ms).  So the
+// design counts instructions per FFMA and keeps every global load out of a
+// lane's dependency chain.  Both dtypes take the same maps, one kernel
+// each (attention_tiles_bf16_h16, attention_tiles_f32_h16).
 // - Each warp owns 32-position tiles (first + i * kWarps * 32) and its own
 //   online-softmax state, merged with the other warps' once per range
-//   (merge_warps).  Its tiles stream through a ring of kRingH half-stages
-//   in shared memory (a tile's K rows, then its V rows: 8 KB each at Dh
-//   128) by cp.async, two half-stages ahead of the one it computes.  All
-//   warps run the same number of tiles, so the compiler sees converged
-//   warps around the shuffles (no collective fallback code).
+//   (merge_warps).  Its tiles stream through a ring of L::STAGES
+//   half-stages in shared memory (a tile's K rows, then its V rows: 8 KB
+//   each at Dh 128 in bfloat16, 16 KB in float32) by cp.async, STAGES - 1
+//   half-stages ahead of the one it computes.  All warps run the same
+//   number of tiles, so the compiler sees converged warps around the
+//   shuffles (no collective fallback code).
 // - q.K^T: lane (t = lane / 8, g = lane % 8) sums over d-slice t (a
 //   quarter of Dh) for all 16 heads and four rows g + 8(t ^ i), i < 4.
-//   Each K element is unpacked once, by one lane, for 16 FFMAs; q is
-//   staged once per CTA as float32 [d][head], pre-scaled by log2(e) /
-//   sqrt(Dh), and each broadcast LDS.128 of it (4 heads of one d) feeds
-//   16 FFMAs.  Register i holds row g + 8(t ^ i), so the four slices of a
-//   row meet in two shuffle levels without selects (lane t keeps register
-//   0, receives the partner's 2 and 3, then 1): 48 shuffles and adds per
-//   tile for 2048 FFMAs.  The lane ends with the 16 scores of row g + 8t.
+//   Each K element is read (bfloat16: unpacked) once, by one lane, for 16
+//   FFMAs; q is staged once per CTA as float32 [d][head], pre-scaled by
+//   log2(e) / sqrt(Dh), and each broadcast LDS.128 of it (4 heads of one
+//   d) feeds 16 FFMAs.  Register i holds row g + 8(t ^ i), so the four
+//   slices of a row meet in two shuffle levels without selects (lane t
+//   keeps register 0, receives the partner's 2 and 3, then 1): 48 shuffles
+//   and adds per tile for 2048 FFMAs.  The lane ends with the 16 scores of
+//   row g + 8t.
 // - Softmax in log2 units: p = 2^(s - m) is a subtract and one MUFU.EX2.
 //   The running max moves only when a vote finds a score more than kLift
 //   above it, so after the first tiles a tile pays one vote, not a warp
 //   max and a rescale per head.
 // - p.V: p through shared memory (2 KB per warp, broadcast reads); lane l
 //   owns Dh elements 4l .. 4l + 3 of all 16 heads: per position four
-//   LDS.128 of p, one LDS.64 of V, 4 unpacks and 64 FFMAs.
-// - The contractions run as loops of 8-element (q.K^T) and 8-row (p.V)
-//   bodies, not fully unrolled: the whole tile unrolled is 13k
-//   instructions, too large for the instruction caches (0.186 against
-//   0.135 ms, tools/attention_variant.py).
+//   LDS.128 of p, one load of the 4 V elements (bfloat16: LDS.64 and 4
+//   unpacks; float32: LDS.128) and 64 FFMAs.
+// - The contractions run as loops of 8-element (bfloat16 q.K^T), 4-element
+//   (float32 q.K^T) and 8-row (p.V) bodies, not fully unrolled: the whole
+//   tile unrolled is 13k instructions, too large for the instruction
+//   caches (0.186 against 0.135 ms in bfloat16, tools/attention_variant.py).
 // Per lane and tile at Dh 128: 4096 FFMAs and about 1500 other
-// instructions.  Dh 112 and 160 take the same maps with 4-element K loads
-// (Dh 112) and a second p.V element group for lanes 0..7 (Dh 160).
+// instructions in bfloat16.  Dh 112 and 160 take the same maps with
+// 4-element K loads (bfloat16 Dh 112) and a second p.V element group for
+// lanes 0..7 (Dh 160).
 constexpr int kTileH = 32;  // positions per warp tile
-constexpr int kRingH = 3;   // half-stages in a warp's ring
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kLift = 8.f;  // log2 units: the running max's slack
+constexpr int kBlockSmem = 227 * 1024;  // shared memory a block may take
 
-// Dynamic shared memory: the warps' rings, q ([d][16] float32, the head
-// quads of d-slice t rotated by t, so that the four slices' broadcast
-// loads fall in different bank groups), p per warp ([32][16], quads of row
-// r rotated by r / 2 for the same reason on the lanes' stores).  After
-// the tile loop the ring holds sm_acc and the warps' (m, l).
-template <int DH>
+// The swizzle of a staged row of DH elements of T.  Swizzle counts
+// bfloat16 elements: a float32 row of DH is a row of 2 DH of them, DH / 4
+// chunks.
+template <typename T, int DH>
+using RowSwizzle = Swizzle<DH * static_cast<int>(sizeof(T)) / 2>;
+
+// Dynamic shared memory: the warps' rings of STAGES half-stages, q ([d][16]
+// float32, the head quads of d-slice t rotated by t, so that the four
+// slices' broadcast loads fall in different bank groups), p per warp
+// ([32][16], quads of row r rotated by r / 2 for the same reason on the
+// lanes' stores).  After the tile loop the ring holds sm_acc and the
+// warps' (m, l).  A warp's ring holds three half-stages in bfloat16 and
+// two in float32, where one half-stage ahead is as many bytes in flight
+// (and three would pass a block's 227 KB at Dh 160): 112 KB at Dh 128 in
+// bfloat16, 144 KB in float32.
+template <typename T, int DH>
 struct H16Layout {
-  static constexpr int HALF = kTileH * Swizzle<DH>::RC;  // uint4 per half
-  static constexpr int RING = kWarps * kRingH * HALF * 16;
+  using Z = RowSwizzle<T, DH>;
+  static constexpr int HALF = kTileH * Z::RC;  // uint4 per half-stage
   static constexpr int Q = DH * 16 * 4;
   static constexpr int P = kWarps * kTileH * 16 * 4;
+  static constexpr int STAGES = sizeof(T) == 2 ? 3 : 2;
+  static constexpr int RING = kWarps * STAGES * HALF * 16;
   static constexpr int BYTES = RING + Q + P;
+  static_assert(BYTES <= kBlockSmem, "the layout must fit one block");
   static_assert((kWarps * 16 * DH + 2 * kWarps * 16) * 4 <= RING,
                 "sm_acc and (m, l) must fit in the ring they reuse");
 };
@@ -974,17 +1001,16 @@ __device__ __forceinline__ float ex2(float x) {
 // keep the stage's earlier contents (zero, or finite cache rows: p = 0
 // multiplies them).  Else (Dh 112, 160) each copy maps its own row and
 // chunk, and rows past `bound` are zero-filled.
-template <int DH>
-__device__ __forceinline__ void stage_rows(uint4* dst,
-                                           const __nv_bfloat16* src,
+template <typename T, int DH>
+__device__ __forceinline__ void stage_rows(uint4* dst, const T* src,
                                            size_t stride, int row0, int bound,
                                            int lane) {
-  using Z = Swizzle<DH>;
+  using Z = RowSwizzle<T, DH>;
+  constexpr int E = 16 / static_cast<int>(sizeof(T));  // elements a chunk
   if constexpr (32 % Z::CH == 0) {
     constexpr int RPI = 32 / Z::CH;  // rows a pass of the warp copies
     const int rl = lane / Z::CH, c = lane % Z::CH, lim = bound - row0;
-    const __nv_bfloat16* p =
-        src + static_cast<size_t>(row0 + rl) * stride + c * 8;
+    const T* p = src + static_cast<size_t>(row0 + rl) * stride + c * E;
 #pragma unroll
     for (int i = 0; i < kTileH / RPI; ++i) {
       const int r = rl + i * RPI;
@@ -1000,7 +1026,7 @@ __device__ __forceinline__ void stage_rows(uint4* dst,
       const int idx = lane + 32 * i, r = idx / Z::CH, c = idx - r * Z::CH;
       const bool ok = row0 + r < bound;
       const size_t off = static_cast<size_t>(ok ? row0 + r : 0) * stride +
-                         c * 8;
+                         c * E;
       cp_async16(&dst[Z::at(r, c)], src + off, ok);
     }
   }
@@ -1013,8 +1039,9 @@ __device__ __forceinline__ void attention_tiles_bf16_h16(
     float* __restrict__ part_ml, float* __restrict__ part_acc,
     const Shape& sh) {
   using Z = Swizzle<DH>;
-  using L = H16Layout<DH>;
-  constexpr int HT = 16;
+  using L = H16Layout<__nv_bfloat16, DH>;
+  constexpr int HT = 16, R = L::STAGES;
+  static_assert(R == 3, "the prologue stages two half-stages ahead");
   constexpr int KS = DH / 4;              // q.K^T: elements of a d-slice
   constexpr int W = KS % 8 == 0 ? 8 : 4;  // elements per K load
   // p.V: NG groups of 4 elements; where they divide the warp, LR lanes per
@@ -1037,8 +1064,7 @@ __device__ __forceinline__ void attention_tiles_bf16_h16(
   const size_t stride = static_cast<size_t>(sh.kh) * DH;
   const size_t head0 = (static_cast<size_t>(b) * sh.s * sh.kh + h) * DH;
   const __nv_bfloat16* qp = q + static_cast<size_t>(pair) * sh.g * DH;
-  uint4* const ring = reinterpret_cast<uint4*>(smem) +
-                      warp * kRingH * L::HALF;
+  uint4* const ring = reinterpret_cast<uint4*>(smem) + warp * R * L::HALF;
   float* const pw = reinterpret_cast<float*>(smem + L::RING + L::Q) +
                     warp * kTileH * HT;
 
@@ -1052,13 +1078,15 @@ __device__ __forceinline__ void attention_tiles_bf16_h16(
   const int n = (e1 - s0 + kWarps * kTileH - 1) / (kWarps * kTileH);
   auto issue = [&](int j) {
     if (j < 2 * n)
-      stage_rows<DH>(ring + (j % kRingH) * L::HALF, ((j & 1) ? v : k) + head0,
-                     stride, first + (j >> 1) * kWarps * kTileH, e1, lane);
+      stage_rows<__nv_bfloat16, DH>(ring + (j % R) * L::HALF,
+                                    ((j & 1) ? v : k) + head0, stride,
+                                    first + (j >> 1) * kWarps * kTileH, e1,
+                                    lane);
     cp_async_commit();
   };
   if constexpr (32 % Z::CH == 0) {
     // rows past e1 are not fetched: the stage starts zeroed
-    for (int i = lane; i < kRingH * L::HALF; i += 32)
+    for (int i = lane; i < R * L::HALF; i += 32)
       ring[i] = make_uint4(0u, 0u, 0u, 0u);
     __syncwarp();
   }
@@ -1110,10 +1138,10 @@ __device__ __forceinline__ void attention_tiles_bf16_h16(
 
   for (int i = 0; i < n; ++i) {
     const int tile0 = first + i * kWarps * kTileH;
-    issue(2 * i + 2);
-    cp_async_wait<kRingH - 1>();  // this lane's copies of K_i landed
-    __syncwarp();                 // and every other lane's
-    const uint4* kt = ring + ((2 * i) % kRingH) * L::HALF;
+    issue(2 * i + R - 1);
+    cp_async_wait<R - 1>();  // this lane's copies of K_i landed
+    __syncwarp();            // and every other lane's
+    const uint4* kt = ring + ((2 * i) % R) * L::HALF;
     float sc[4][HT] = {};
 #pragma unroll 2
     for (int u = 0; u < KS / W; ++u) {
@@ -1209,10 +1237,10 @@ __device__ __forceinline__ void attention_tiles_bf16_h16(
                       sc[0][4 * qd + 3]);
     __syncwarp();  // p visible; every lane done with K_i's half-stage
 
-    issue(2 * i + 3);             // into K_i's half-stage
-    cp_async_wait<kRingH - 1>();  // V_i landed
+    issue(2 * i + R);        // into K_i's half-stage
+    cp_async_wait<R - 1>();  // V_i landed
     __syncwarp();
-    const uint4* vt = ring + ((2 * i + 1) % kRingH) * L::HALF;
+    const uint4* vt = ring + ((2 * i + 1) % R) * L::HALF;
     const uint2* vt2 = reinterpret_cast<const uint2*>(vt);
     constexpr int JU = NP < 8 ? NP : 8;  // rows per loop body
 #pragma unroll 1
@@ -1291,6 +1319,277 @@ __device__ __forceinline__ void attention_tiles_bf16_h16(
                                      part_acc, sh);
 }
 
+// float32 on the same maps, in a kernel of its own: the bfloat16 kernel's
+// schedule moved by 4% when the two shared their softmax and merge steps
+// as functions (tools/attention_variant.py).  A K or V half-stage is 16 KB
+// at Dh 128, so a warp's ring of two takes 32 KB, the CTA 144 KB with q
+// and p, and one CTA runs per SM (_ext.ctas_per_sm); each warp keeps the
+// next half-stage in flight while it computes one, 64 KB per SM.  A K
+// chunk is 4 elements of one row, one LDS.128 for 64 FFMAs; a V chunk is
+// one lane's 4 elements of a p.V row.
+template <int DH>
+__device__ __forceinline__ void attention_tiles_f32_h16(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ out,
+    float* __restrict__ part_ml, float* __restrict__ part_acc,
+    const Shape& sh) {
+  using L = H16Layout<float, DH>;
+  using Z = typename L::Z;
+  constexpr int HT = 16, R = L::STAGES;
+  constexpr int KS = DH / 4;  // q.K^T: elements of a d-slice
+  constexpr int KC = KS / 4;  // its chunks
+  // p.V: NG chunks; where they divide the warp, LR lanes per V row and
+  // 32 / LR row groups of NP rows, else (Dh 112, 160) all 32 rows per lane
+  // and the chunks lane + 32u, u < NU
+  constexpr int NG = DH / 4;
+  constexpr bool kRowSplit = 32 % NG == 0;
+  constexpr int LR = kRowSplit ? NG : 32;
+  constexpr int NU = (NG + 31) / 32;
+  constexpr int NP = kTileH * LR / 32;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* const sm_q = reinterpret_cast<float*>(smem + L::RING);
+
+  const int pair = blockIdx.x;
+  const int b = pair / sh.kh, h = pair - b * sh.kh;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int s0 = blockIdx.y * sh.rows;
+  const int s1 = min(sh.s, s0 + sh.rows);
+  const int e1 = min(s1, sh.end);  // no tile starts at or past `end`
+  const size_t stride = static_cast<size_t>(sh.kh) * DH;
+  const size_t head0 = (static_cast<size_t>(b) * sh.s * sh.kh + h) * DH;
+  const float* qp = q + static_cast<size_t>(pair) * sh.g * DH;
+  uint4* const ring = reinterpret_cast<uint4*>(smem) + warp * R * L::HALF;
+  float* const pw = reinterpret_cast<float*>(smem + L::RING + L::Q) +
+                    warp * kTileH * HT;
+
+  // the bfloat16 kernel's rounds: n per warp, half-stage j tile j / 2's K
+  // (j even) or V (j odd) rows, rows at or past e1 neither read nor counted
+  const int first = s0 + warp * kTileH;
+  const int n = (e1 - s0 + kWarps * kTileH - 1) / (kWarps * kTileH);
+  auto issue = [&](int j) {
+    if (j < 2 * n)
+      stage_rows<float, DH>(ring + (j % R) * L::HALF,
+                            ((j & 1) ? v : k) + head0, stride,
+                            first + (j >> 1) * kWarps * kTileH, e1, lane);
+    cp_async_commit();
+  };
+  if constexpr (32 % Z::CH == 0) {
+    // rows past e1 are not fetched: the stage starts zeroed
+    for (int i = lane; i < R * L::HALF; i += 32)
+      ring[i] = make_uint4(0u, 0u, 0u, 0u);
+    __syncwarp();
+  }
+#pragma unroll
+  for (int j = 0; j < R - 1; ++j) issue(j);
+  // with the first tiles in flight: q in log2 units, 4 elements a load
+  const float qscale = sh.scale * kLog2e;
+  for (int i = threadIdx.x; i < HT * DH / 4; i += kThreads) {
+    const int hh = i / (DH / 4), d0 = (i - hh * (DH / 4)) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (hh < sh.g)
+      x = __ldg(reinterpret_cast<const float4*>(qp + hh * DH + d0));
+    const float w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int d = d0 + e;
+      sm_q[d * HT + (((hh >> 2) + d / KS) & 3) * 4 + (hh & 3)] =
+          w[e] * qscale;
+    }
+  }
+  __syncthreads();
+
+  // q.K^T lanes: d-slice t, rows g + 8(t ^ i); the swizzle of those rows
+  const int t = lane >> 3, g = lane & 7;
+  const int sw = g & (Z::SW - 1);
+  const float* qs[4];  // head quad qd of d-slice t
+#pragma unroll
+  for (int qd = 0; qd < 4; ++qd)
+    qs[qd] = sm_q + t * KS * HT + ((qd + t) & 3) * 4;
+  int rowoff[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) rowoff[i] = (g + 8 * (t ^ i)) * Z::RC;
+  const int rho = g + 8 * t;      // the row whose scores the lane ends with
+  const int kc0 = (t * KC) ^ sw;  // the lane's first K chunk
+  // p.V lanes: row group rg, chunks dl + 32u; vo[u][x]: chunk dl + 32u of
+  // a row whose swizzle is x
+  const int rg = lane / LR, dl = lane % LR;
+  int vo[NU][Z::SW];
+#pragma unroll
+  for (int u = 0; u < NU; ++u)
+#pragma unroll
+    for (int x = 0; x < Z::SW; ++x) vo[u][x] = (dl + 32 * u) ^ x;
+
+  float acc[4 * NU][HT] = {};  // [4u + e][head]: element 4(dl + 32u) + e
+  float m[HT], l[HT];          // m warp-uniform; l the lane's rows' share
+#pragma unroll
+  for (int hh = 0; hh < HT; ++hh) m[hh] = kNegInf, l[hh] = 0.f;
+
+  for (int i = 0; i < n; ++i) {
+    const int tile0 = first + i * kWarps * kTileH;
+    issue(2 * i + R - 1);
+    cp_async_wait<R - 1>();  // this lane's copies of K_i landed
+    __syncwarp();            // and every other lane's
+    const float4* kt =
+        reinterpret_cast<const float4*>(ring + ((2 * i) % R) * L::HALF);
+    float sc[4][HT] = {};
+#pragma unroll 2
+    for (int u = 0; u < KC; ++u) {
+      // (t * KC + u) ^ sw is kc0 ^ u where KC is a power of two
+      const int ch = (KC & (KC - 1)) == 0 ? kc0 ^ u : (t * KC + u) ^ sw;
+      float kv[4][4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float4 x = kt[rowoff[r] + ch];
+        kv[r][0] = x.x, kv[r][1] = x.y, kv[r][2] = x.z, kv[r][3] = x.w;
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int qd = 0; qd < 4; ++qd) {
+          const float4 qv =
+              *reinterpret_cast<const float4*>(qs[qd] + (4 * u + e) * HT);
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            sc[r][4 * qd] = fmaf(qv.x, kv[r][e], sc[r][4 * qd]);
+            sc[r][4 * qd + 1] = fmaf(qv.y, kv[r][e], sc[r][4 * qd + 1]);
+            sc[r][4 * qd + 2] = fmaf(qv.z, kv[r][e], sc[r][4 * qd + 2]);
+            sc[r][4 * qd + 3] = fmaf(qv.w, kv[r][e], sc[r][4 * qd + 3]);
+          }
+        }
+    }
+    // the four d-slices of row rho: t ^ 2's registers 2, 3, then t ^ 1's 1
+#pragma unroll
+    for (int hh = 0; hh < HT; ++hh) {
+      sc[0][hh] += __shfl_xor_sync(kFull, sc[2][hh], 16);
+      sc[1][hh] += __shfl_xor_sync(kFull, sc[3][hh], 16);
+    }
+#pragma unroll
+    for (int hh = 0; hh < HT; ++hh)
+      sc[0][hh] += __shfl_xor_sync(kFull, sc[1][hh], 8);
+
+    // softmax: row rho is position tile0 + rho; at or past e1 it is not
+    // read (p = 0), at or past kv_len masked to kNegInf
+    const int pos = tile0 + rho;
+    const bool in = pos < e1, keep = in && pos < sh.kv_len;
+#pragma unroll
+    for (int hh = 0; hh < HT; ++hh) sc[0][hh] = keep ? sc[0][hh] : kNegInf;
+    // the running max moves only when a score passes it by kLift
+    bool lift = false;
+#pragma unroll
+    for (int hh = 0; hh < HT; ++hh) lift |= sc[0][hh] > m[hh] + kLift;
+    if (__any_sync(kFull, lift)) {
+      float mx[HT];
+#pragma unroll
+      for (int hh = 0; hh < HT; ++hh) mx[hh] = fmaxf(sc[0][hh], m[hh]);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+        for (int hh = 0; hh < HT; ++hh)
+          mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(kFull, mx[hh], off));
+#pragma unroll
+      for (int hh = 0; hh < HT; ++hh) {
+        const float corr = ex2(m[hh] - mx[hh]);
+        m[hh] = mx[hh];
+        l[hh] *= corr;
+#pragma unroll
+        for (int e = 0; e < 4 * NU; ++e) acc[e][hh] *= corr;
+      }
+    }
+#pragma unroll
+    for (int hh = 0; hh < HT; ++hh) {
+      const float pv = in ? ex2(sc[0][hh] - m[hh]) : 0.f;
+      l[hh] += pv;
+      sc[0][hh] = pv;
+    }
+#pragma unroll
+    for (int qd = 0; qd < 4; ++qd)
+      *reinterpret_cast<float4*>(pw + rho * HT +
+                                 ((qd + (rho >> 1)) & 3) * 4) =
+          make_float4(sc[0][4 * qd], sc[0][4 * qd + 1], sc[0][4 * qd + 2],
+                      sc[0][4 * qd + 3]);
+    __syncwarp();  // p visible; every lane done with K_i's half-stage
+
+    issue(2 * i + R);        // into K_i's half-stage
+    cp_async_wait<R - 1>();  // V_i landed
+    __syncwarp();
+    const float4* vt =
+        reinterpret_cast<const float4*>(ring + ((2 * i + 1) % R) * L::HALF);
+    constexpr int JU = NP < 8 ? NP : 8;  // rows per loop body
+#pragma unroll 1
+    for (int j0 = rg * NP; j0 < rg * NP + NP; j0 += JU) {
+#pragma unroll
+      for (int jk = 0; jk < JU; ++jk) {
+        const int j = j0 + jk;
+        // j0 is a multiple of 8 where NP is (Dh >= 64), of the swizzle
+        // period always
+        const int jr = NP % 8 == 0 ? (jk >> 1) & 3 : (j >> 1) & 3;
+        float pj[HT];
+#pragma unroll
+        for (int qd = 0; qd < 4; ++qd) {
+          const float4 x = *reinterpret_cast<const float4*>(
+              pw + j * HT + ((qd + jr) & 3) * 4);
+          pj[4 * qd] = x.x, pj[4 * qd + 1] = x.y, pj[4 * qd + 2] = x.z,
+          pj[4 * qd + 3] = x.w;
+        }
+#pragma unroll
+        for (int u = 0; u < NU; ++u) {
+          float4 w = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (kRowSplit || dl + 32 * u < NG)
+            w = vt[j * Z::RC + vo[u][jk & (Z::SW - 1)]];
+          const float vv[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+          for (int hh = 0; hh < HT; ++hh)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              acc[4 * u + e][hh] = fmaf(pj[hh], vv[e], acc[4 * u + e][hh]);
+        }
+      }
+    }
+    __syncwarp();  // p and V_i's half-stage are rewritten after this
+  }
+
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with its ring: sm_acc reuses it
+  float* const sm_acc = reinterpret_cast<float*>(smem);
+  float* const sm_m = sm_acc + kWarps * HT * DH;
+  float* const sm_l = sm_m + kWarps * HT;
+#pragma unroll
+  for (int hh = 0; hh < HT; ++hh)
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      l[hh] += __shfl_xor_sync(kFull, l[hh], off);
+  if (lane == 0) {
+#pragma unroll
+    for (int hh = 0; hh < HT; ++hh) {
+      sm_m[warp * HT + hh] = m[hh] * kLn2;  // natural units for the merges
+      sm_l[warp * HT + hh] = l[hh];
+    }
+  }
+  // add the row groups' sums: lanes dl, dl + LR, ...
+#pragma unroll
+  for (int off = LR; off < 32; off <<= 1)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+#pragma unroll
+      for (int hh = 0; hh < HT; ++hh)
+        acc[e][hh] += __shfl_xor_sync(kFull, acc[e][hh], off);
+  if (lane < LR) {
+#pragma unroll
+    for (int u = 0; u < NU; ++u)
+      if (kRowSplit || lane + 32 * u < NG) {
+#pragma unroll
+        for (int hh = 0; hh < HT; ++hh)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sm_acc[(warp * HT + hh) * DH + 4 * (lane + 32 * u) + e] =
+                acc[4 * u + e][hh];
+      }
+  }
+  __syncthreads();
+  merge_warps<float, DH, HT>(sm_m, sm_l, sm_acc, out, part_ml, part_acc,
+                             sh);
+}
+
 // HT: the head tile, 8 for G <= 8 and 16 for 8 < G <= 16 (one kernel each,
 // so the G <= 8 kernels keep their registers)
 template <typename T, int DH, int HT>
@@ -1301,7 +1600,9 @@ __global__ void __launch_bounds__(kThreads)
                             float* __restrict__ part_acc, Shape sh) {
   // the combine kernel may be scheduled now; it waits for this grid
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-  if constexpr (std::is_same<T, float>::value)
+  if constexpr (std::is_same<T, float>::value && HT == 16)
+    attention_tiles_f32_h16<DH>(q, k, v, out, part_ml, part_acc, sh);
+  else if constexpr (std::is_same<T, float>::value)
     attention_tiles_f32<DH, false, HT>(q, k, v, out, part_ml, part_acc, sh);
   else if constexpr (HT == 16)
     attention_tiles_bf16_h16<DH>(q, k, v, out, part_ml, part_acc, sh);
@@ -1424,14 +1725,17 @@ cudaError_t launch_tiles(const T* q, const T* k, const T* v, T* out,
                          const Shape& sh, int matrix, cudaStream_t s) {
   auto kernel = matrix ? attention_matrix_kernel<T, DH, HT>
                        : attention_vector_kernel<T, DH, HT>;
-  int smem = 0;
-  if constexpr (!std::is_same<T, float>::value) {
-    const bool h16 = !matrix && HT == 16;
-    smem = h16 ? H16Layout<DH>::BYTES : smem_bytes<DH, HT>();
+  // dynamic shared memory: the head-tile-16 vector kernels' layout and
+  // the bfloat16 kernels' ring; the other float32 kernels' is static
+  const bool h16 = !matrix && HT == 16;
+  int smem = h16 ? H16Layout<T, DH>::BYTES : 0;
+  if constexpr (!std::is_same<T, float>::value)
+    if (!h16) smem = smem_bytes<DH, HT>();
+  if (smem) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    // two CTAs of the head-tile-16 vector kernel (112 KB each at Dh 128)
-    // need the largest shared-memory carveout
+    // the head-tile-16 vector kernels (bfloat16: two CTAs of 112 KB at Dh
+    // 128; float32: one of 208 KB) need the largest shared-memory carveout
     if (e == cudaSuccess && h16)
       e = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributePreferredSharedMemoryCarveout,

@@ -34,8 +34,8 @@ from repro.kernels.attention.ref import decode_attention_ref as j_ref  # noqa: E
 
 from repro_torch.carry import tensor  # noqa: E402
 from repro_torch.kernels._ext import (  # noqa: E402
-    CTAS_PER_SM, attention_launch, attention_ranges, attention_split,
-    ctas_per_sm)
+    CTAS_PER_SM, HEAD_DIMS, attention_launch, attention_ranges,
+    attention_split, ctas_per_sm)
 from repro_torch.kernels.attention.flash_decode import (  # noqa: E402
     flash_decode, flash_decode_plain)
 from repro_torch.kernels.attention.ops import (  # noqa: E402
@@ -59,6 +59,9 @@ CONFIG_DIMS = [(1, 112), (4, 112), (4, 160), (16, 160)]
 #: their cache: (b, s, kh, block_s) and kv_len S - 16, 0, 1 and S
 CONFIG_CACHE = (1, 128, 2, 64)
 CONFIG_KV = [112, 0, 1, 128]
+#: (G, Dh) of the head tile of 16 at every head dim the kernels take: its
+#: smallest group (9) and its full one (16)
+H16_DIMS = [(g, dh) for dh in HEAD_DIMS for g in (9, 16)]
 
 
 def _mk(b, s, kh, g, dh, dtype, seed=0):
@@ -225,15 +228,33 @@ def test_blocks_past_kv_len_change_no_bit(kv_len, dtype, engine):
 
 
 def test_bfloat16_vector_kernel_above_g8_takes_two_ctas_per_sm():
-    """Only the bfloat16 vector kernel at a head tile of 16 takes two CTA
-    slots per SM: twice the ranges at Qwen3-MoE's decode shape."""
+    """The vector kernels at a head tile of 16 take the CTA slots per SM
+    that their shared-memory layout fits: bfloat16 two, float32 one; every
+    other kernel takes CTAS_PER_SM.  At Qwen3-MoE's decode shape the
+    bfloat16 vector kernel launches twice its matrix kernel's ranges."""
     assert ctas_per_sm(torch.bfloat16, 16, "vector") == 2
+    assert ctas_per_sm(torch.float32, 16, "vector") == 1
     for args in ((torch.bfloat16, 16, "matrix"), (torch.bfloat16, 8, "vector"),
-                 (torch.float32, 16, "vector")):
+                 (torch.float32, 16, "matrix"), (torch.float32, 8, "vector")):
         assert ctas_per_sm(*args) == CTAS_PER_SM[args[0]]
     pt = (32768, 512, 16, 132, 28672, torch.bfloat16, 16)
     assert attention_ranges(*pt, "vector")[1] == \
         2 * attention_ranges(*pt, "matrix")[1]
+
+
+@pytest.mark.parametrize("g", range(9, 17))
+def test_float32_vector_kernel_above_g8_takes_one_cta_per_sm(g):
+    """The float32 vector kernel at a head tile of 16 (G 9..16) takes one
+    CTA slot per SM, its matrix twin and the G <= 8 kernels two.  At
+    Qwen3-MoE's decode shape (B 4, KH 4, S 32768, kv_len 28672) on 132
+    SMs the 16 pairs then get 8 ranges of 3584 positions, 128 CTAs in one
+    wave, and the matrix kernel 16 ranges of 1792."""
+    assert ctas_per_sm(torch.float32, g, "vector") == 1
+    assert ctas_per_sm(torch.float32, g, "matrix") == 2
+    assert ctas_per_sm(torch.float32, g - 8, "vector") == 2
+    pt = (32768, 512, 16, 132, 28672, torch.float32, g)
+    assert attention_ranges(*pt, "vector") == (3584, 8, 28672)
+    assert attention_ranges(*pt, "matrix") == (1792, 16, 28672)
 
 
 def test_kernel_takes_up_to_16_query_heads_per_kv_head():
@@ -342,6 +363,36 @@ def test_card_flash_decode_at_config_head_dims(card, g, dh, dtype, engine):
     q, k, v = [t.to(dtype).to(card) for t in
                _port(_mk(b, s, kh, g, dh, "float32", dh))]
     for kv_len in (0, 1, 15, 16, 17, 63, 64, 65, 1023, 1024):
+        got = flash_decode(q, k, v, kv_len, block_s=block, engine=engine)
+        want = flash_decode_plain(q, k, v, kv_len, block_s=block,
+                                  engine=engine)
+        _assert_close(got.cpu(), want.float().cpu().numpy(),
+                      "bfloat16" if dtype == torch.bfloat16 else "float32")
+        if kv_len >= 1:
+            rows = attention_ranges(s, block, b * kh, sms, kv_len, dtype, g,
+                                    engine)[0]
+            full = attention_launch(q, k, v, kv_len, rows=rows,
+                                    nsplit=-(-s // rows), end=s,
+                                    engine=engine)
+            assert torch.equal(got, full)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("engine", ENGINES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,dh", H16_DIMS,
+                         ids=[f"G{g}-Dh{dh}" for g, dh in H16_DIMS])
+def test_card_head_tile_16_at_every_head_dim(card, g, dh, dtype, engine):
+    """The head tile of 16 (the float32 and bfloat16 vector kernels of
+    their own, the matrix kernels' two N tiles) at every head dim of
+    HEAD_DIMS and G 9 and 16: against the plain version over 16 ranges of
+    64 positions at the kv_len edges, and bit for bit against reading
+    every range and position."""
+    b, s, kh, block = 2, 1024, 2, 128
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    q, k, v = [t.to(dtype).to(card) for t in
+               _port(_mk(b, s, kh, g, dh, "float32", g * dh))]
+    for kv_len in (0, 1, 15, 16, 17, 31, 32, 33, 63, 64, 65, 1023, 1024):
         got = flash_decode(q, k, v, kv_len, block_s=block, engine=engine)
         want = flash_decode_plain(q, k, v, kv_len, block_s=block,
                                   engine=engine)
