@@ -6,8 +6,9 @@ pattern, never re-rounded), a block-ELL matrix becomes the port's
 ``BlockEll``, a stencil spec is rebuilt field by field into the port's
 own frozen ``StencilSpec``, and scalars pass through.  Objects are
 recognised by their fields, so nothing of the reference is imported.
-``params_from_numpy`` turns the reference's LM parameter pytree into the
-port's ``lm.LM`` bit for bit, and ``params_to_numpy`` turns it back.
+``params_from_numpy`` turns the reference's LM parameter pytree (every
+family: stacked layers, a hybrid's super-blocks and shared block) into
+the port's ``lm.LM`` bit for bit, and ``params_to_numpy`` turns it back.
 """
 from __future__ import annotations
 
@@ -66,55 +67,77 @@ def from_numpy(args: tuple, kwargs: dict, device: str = "cuda"):
 # model weights
 # --------------------------------------------------------------------------
 
-#: The reference's stacked layer groups: one leading layer axis each.
-STACKED = ("layers", "first_dense")
+def _stacked_axes(cfg) -> dict:
+    """The reference's stacked layer groups and their leading layer axes:
+    one under ``layers`` and ``first_dense``, and a hybrid's two under
+    ``layers`` (super-block, layer) and one under ``tail``.  Every other
+    group (``shared_attn``) is one unstacked node."""
+    return {"layers": 2 if cfg.family == "hybrid" else 1,
+            "first_dense": 1, "tail": 1}
 
 
 def params_from_numpy(tree: dict, cfg, device: str = "cuda"):
     """The reference's LM parameter pytree as the port's ``lm.LM``.
 
     ``tree`` holds numpy arrays laid out as the reference keeps them:
-    ``(d_in, d_out)`` weights for ``x @ W``, and one stacked leading layer
-    axis under ``"layers"`` (and ``"first_dense"``).  Layer ``i`` of
-    ``layers/attn/wq`` becomes ``layers.<i>.attn.wq``, of
-    ``layers/moe/shared/w_up`` ``layers.<i>.moe.shared.w_up``; every value
-    crosses bit for bit.
+    ``(d_in, d_out)`` weights for ``x @ W``, and stacked leading layer
+    axes under ``"layers"`` (and ``"first_dense"``, ``"tail"``).  Layer
+    ``i`` of ``layers/attn/wq`` becomes ``layers.<i>.attn.wq``, of
+    ``layers/moe/shared/w_up`` ``layers.<i>.moe.shared.w_up``, a hybrid's
+    ``layers/ssm/w_z[s, j]`` ``layers.<s>.<j>.ssm.w_z`` and its
+    ``shared_attn/attn/wq`` ``shared_attn.attn.wq``; every value crosses
+    bit for bit.
     """
     from .models.lm import LM
+    axes = _stacked_axes(cfg)
     flat = {}
     for key, val in tree.items():
-        if key not in STACKED:
+        if not isinstance(val, dict):
             flat[key] = tensor(val, device)
             continue
+        n = axes.get(key, 0)
         for path, leaf in _leaves(val):
             arr = np.asarray(leaf)
-            for i in range(arr.shape[0]):
-                flat[f"{key}.{i}.{path}"] = tensor(arr[i], device)
+            for idx in np.ndindex(arr.shape[:n]):
+                name = ".".join([key, *map(str, idx), path])
+                flat[name] = tensor(arr[idx], device)
     return LM(cfg, flat)
 
 
 def params_to_numpy(p) -> dict:
     """The inverse of ``params_from_numpy``: the reference's pytree."""
+    axes = _stacked_axes(p.cfg)
     tree: dict = {}
     stacks: dict = {}
     for key, val in p.state_dict().items():
         arr = val.detach().cpu().numpy()
         group, _, rest = key.partition(".")
-        if group not in STACKED:
+        if not rest:
             tree[key] = arr
             continue
-        i, path = rest.split(".", 1)
-        stacks.setdefault(group, {}).setdefault(path, {})[int(i)] = arr
-    for group, layers in stacks.items():
+        n = axes.get(group, 0)
+        *idx, path = rest.split(".", n)
+        stacks.setdefault(group, {}).setdefault(path, {})[
+            tuple(map(int, idx))] = arr
+    for group, leaves in stacks.items():
         nested: dict = {}
-        for path, per_layer in layers.items():
+        for path, per_layer in leaves.items():
             node = nested
             *parents, leaf = path.split(".")
             for name in parents:
                 node = node.setdefault(name, {})
-            node[leaf] = np.stack([per_layer[i] for i in sorted(per_layer)])
+            node[leaf] = _stack_nd(per_layer)
         tree[group] = nested
     return tree
+
+
+def _stack_nd(per_index: dict) -> np.ndarray:
+    """Arrays keyed by index tuples of equal length, stacked over them."""
+    if list(per_index) == [()]:
+        return per_index[()]
+    firsts = sorted({i[0] for i in per_index})
+    return np.stack([_stack_nd({i[1:]: a for i, a in per_index.items()
+                                if i[0] == f}) for f in firsts])
 
 
 def _leaves(tree: dict, prefix: str = ""):

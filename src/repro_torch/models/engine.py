@@ -8,8 +8,10 @@ loop).  Attention is registry-dispatched by default
 (``attention_impl='registry'``): every GQA layer's cache scan goes
 through the registered flash-decode op, the hand-written kernel on the
 card, and the engine ('vector'|'matrix'|'auto') is a constructor flag.
-MLA layers decode in the absorbed latent form and run no flash-decode
-(``flash_decode_layers`` counts the layers that do).
+MLA layers decode in the absorbed latent form and SSM layers from their
+recurrent state, and run no flash-decode; a hybrid's shared attention
+block runs it once per super-block (``flash_decode_layers`` counts the
+layers that do).
 
 Everything lives on ``device``, ``"cuda"`` by default; the CPU runs the
 kernels' plain versions and is what the tests ask for.  The reference's
@@ -99,10 +101,15 @@ class DecodeEngine:
     @property
     def flash_decode_layers(self) -> int:
         """Layers whose decode step launches the flash-decode op: every
-        layer on the registry path, none for MLA or the dense path."""
-        if self.cfg.use_mla or self.cfg.decode_attention_impl != "registry":
+        layer on the registry path; none for MLA, an SSM or the dense
+        path; a hybrid's shared block once per super-block."""
+        cfg = self.cfg
+        if (cfg.use_mla or cfg.family == "ssm"
+                or cfg.decode_attention_impl != "registry"):
             return 0
-        return self.cfg.n_layers
+        if cfg.family == "hybrid":
+            return cfg.n_layers // cfg.attn_every
+        return cfg.n_layers
 
     @property
     def max_len(self) -> int:
@@ -179,7 +186,8 @@ class DecodeEngine:
 
     @staticmethod
     def cache_state(caches: Any) -> Dict:
-        """A snapshot of the KV caches as a plain nested dict of tensors.
+        """A snapshot of the caches (KV, SSM) as a plain nested dict of
+        tensors.
 
         Every leaf is a copy: ``decode_step`` writes the caches in place,
         so a state taken at step t stays that of step t, as the

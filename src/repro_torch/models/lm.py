@@ -1,4 +1,5 @@
-"""Causal LM, dense / MoE / MLA families: a module per layer, a layer loop.
+"""Causal LM, dense / MoE / MLA / SSM / hybrid families: a module per
+layer, a layer loop.
 
 The reference scans a stacked parameter pytree with ``lax.scan``; here
 each layer is an ``nn.Module`` in an ``nn.ModuleList`` and the layer loop
@@ -9,15 +10,18 @@ The weight names and layouts are the reference's: ``(d_in, d_out)`` for
 (``first_dense_layers``, DeepSeek-V2-Lite's first) are ``first_dense.<i>``
 as the reference stacks them under ``first_dense``; its other layers
 carry a ``moe`` group (router, experts, ``shared`` experts) in place of
-``mlp``.
+``mlp``.  An SSM config's layers are ``layers.<i>.ssm.w_z``; a hybrid
+config (Zamba2) nests its super-blocks as the reference stacks them,
+``layers.<s>.<j>.ssm.w_z`` for ``layers/ssm/w_z[s, j]``, then ``tail.<i>``
+and the one ``shared_attn`` dense layer applied after every super-block.
 
 Modes:
-  forward      -- full-sequence pass (logits, optional KV caches)
+  forward      -- full-sequence pass (logits, optional KV / SSM caches)
   prefill      -- prompt pass returning last-position logits + caches
   decode_step  -- one token against the caches, updated in place
 
-The dense GQA, MoE and MLA families are ported.  The others raise
-``NotImplementedError`` naming the ROADMAP.md item that ports them.
+The dense GQA, MoE, MLA, SSM and hybrid families are ported.  The others
+raise ``NotImplementedError`` naming the ROADMAP.md item that ports them.
 """
 from __future__ import annotations
 
@@ -30,17 +34,16 @@ from .attention import attention, make_cache
 from .config import ModelConfig
 from .layers import dense_init, init_mlp, mlp, rmsnorm
 from .moe import init_moe, moe_ffn
+from .ssm import init_ssm, make_ssm_state, ssm_layer
 
-__all__ = ["Block", "DenseLayer", "LM", "cast_params", "check_family",
-           "decode_step", "forward", "init_caches", "init_params",
-           "loss_fn", "pad_caches", "prefill"]
+__all__ = ["Block", "DenseLayer", "LM", "SSMLayer", "cast_params",
+           "check_family", "decode_step", "forward", "init_caches",
+           "init_params", "loss_fn", "pad_caches", "prefill"]
 
 #: The families and features that wait, with the ROADMAP.md item that
-#: ports each (Queue 1 item 10, in order; 10.1 MoE and 10.2 MLA are done).
+#: ports each (Queue 1 item 10, in order; 10.1 MoE, 10.2 MLA, 10.3 SSM and
+#: 10.4 hybrid are done).
 WAITING = {
-    "ssm": "SSM layers (models/ssm.py): ROADMAP.md Queue 1 item 10.3",
-    "hybrid": "the hybrid SSM + shared-attention family: ROADMAP.md "
-              "Queue 1 item 10.4",
     "enc_dec": "the encoder-decoder family and cross-attention: ROADMAP.md "
                "Queue 1 item 10.5",
     "vision": "the M-RoPE / vision frontend: ROADMAP.md Queue 1 item 10.6",
@@ -55,10 +58,6 @@ def _waits(what: str) -> NotImplementedError:
 
 def check_family(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` unless the port runs ``cfg``."""
-    if cfg.family == "ssm":
-        raise _waits("ssm")
-    if cfg.family == "hybrid":
-        raise _waits("hybrid")
     if cfg.enc_dec:
         raise _waits("enc_dec")
     if cfg.frontend or cfg.rope_kind == "mrope":
@@ -114,13 +113,23 @@ class DenseLayer(nn.Module):
         self.mlp = None if moe else Block(_group(tensors, "mlp."))
 
 
+class SSMLayer(nn.Module):
+    """Pre-norm Mamba2 block: ``ln1`` then the ``ssm`` mixer's weights."""
+
+    def __init__(self, tensors: Mapping[str, torch.Tensor]):
+        super().__init__()
+        self.ln1 = nn.Parameter(tensors["ln1"], requires_grad=False)
+        self.ssm = Block(_group(tensors, "ssm."))
+
+
 class LM(nn.Module):
     """Embedding, the layer stack and the LM head of one ``ModelConfig``.
 
     ``tensors`` maps ``state_dict`` names (``embed``, ``final_norm``,
     ``head``, ``layers.<i>.ln1``, ``layers.<i>.attn.wq``,
-    ``first_dense.<i>.mlp.w_up``, ...) to the weights, which the module
-    takes over without copying.
+    ``first_dense.<i>.mlp.w_up``, ``layers.<s>.<j>.ssm.w_z``,
+    ``shared_attn.attn.wq``, ...) to the weights, which the module takes
+    over without copying.
     """
 
     def __init__(self, cfg: ModelConfig,
@@ -133,6 +142,22 @@ class LM(nn.Module):
                                        requires_grad=False)
         if not cfg.tie_embeddings:
             self.head = nn.Parameter(tensors["head"], requires_grad=False)
+        if cfg.family == "ssm":
+            self.layers = nn.ModuleList(
+                SSMLayer(_group(tensors, f"layers.{i}."))
+                for i in range(cfg.n_layers))
+            return
+        if cfg.family == "hybrid":
+            n_super, n_tail = divmod(cfg.n_layers, cfg.attn_every)
+            self.layers = nn.ModuleList(
+                nn.ModuleList(SSMLayer(_group(tensors, f"layers.{s}.{j}."))
+                              for j in range(cfg.attn_every))
+                for s in range(n_super))
+            self.tail = nn.ModuleList(
+                SSMLayer(_group(tensors, f"tail.{i}."))
+                for i in range(n_tail))
+            self.shared_attn = DenseLayer(_group(tensors, "shared_attn."))
+            return
         nf = cfg.first_dense_layers
         self.first_dense = nn.ModuleList(
             DenseLayer(_group(tensors, f"first_dense.{i}."))
@@ -143,8 +168,10 @@ class LM(nn.Module):
 
 
 #: Parameters that stay float32 whatever the compute dtype: the reference
-#: applies them in float32 (``rmsnorm``) and never casts them.
-_NORMS = ("ln1", "ln2", "final_norm", "kv_norm", "q_norm")
+#: applies them in float32 (``rmsnorm``; the SSM's decay, dt bias and skip
+#: in float32 arithmetic) and never casts them.
+_NORMS = ("ln1", "ln2", "final_norm", "kv_norm", "q_norm",
+          "a_log", "dt_bias", "d_skip", "norm")
 
 
 def cast_params(p: LM, dtype: torch.dtype) -> LM:
@@ -213,14 +240,21 @@ def _init_dense_layer(gen: torch.Generator, cfg: ModelConfig, device,
     return t
 
 
+def _init_ssm_layer(gen: torch.Generator, cfg: ModelConfig, device
+                    ) -> Dict[str, torch.Tensor]:
+    t = {"ln1": torch.ones(cfg.d_model, device=device)}
+    t.update({f"ssm.{k}": v for k, v in init_ssm(gen, cfg, device).items()})
+    return t
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> LM:
     """Seeded random float32 weights, drawn on ``device``.
 
     The reference's distributions (N(0, 1/d_in) matmul and expert
-    weights, 0.02 embedding, head and router, unit norms, zero biases)
-    from a
-    ``torch.Generator``: not the reference's numbers, which come from
-    ``jax.random`` (carry them with ``carry.params_from_numpy``).
+    weights, 0.02 embedding, head and router, unit norms, zero biases;
+    the SSM's as ``ssm.init_ssm``) from a ``torch.Generator``: not the
+    reference's numbers, which come from ``jax.random`` (carry them with
+    ``carry.params_from_numpy``).
     """
     check_family(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -231,16 +265,29 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> LM:
     if not cfg.tie_embeddings:
         t["head"] = dense_init(gen, d, cfg.vocab_padded, scale=0.02,
                                device=device)
+
+    def add(prefix, layer):
+        t.update({f"{prefix}.{k}": v for k, v in layer.items()})
+    if cfg.family == "ssm":
+        for i in range(cfg.n_layers):
+            add(f"layers.{i}", _init_ssm_layer(gen, cfg, device))
+        return LM(cfg, t)
+    if cfg.family == "hybrid":
+        n_super, n_tail = divmod(cfg.n_layers, cfg.attn_every)
+        for s in range(n_super):
+            for j in range(cfg.attn_every):
+                add(f"layers.{s}.{j}", _init_ssm_layer(gen, cfg, device))
+        for i in range(n_tail):
+            add(f"tail.{i}", _init_ssm_layer(gen, cfg, device))
+        add("shared_attn", _init_dense_layer(gen, cfg, device, cfg.d_ff))
+        return LM(cfg, t)
     nf = cfg.first_dense_layers
     for i in range(nf):
-        for k, v in _init_dense_layer(gen, cfg, device,
-                                      cfg.dense_d_ff or cfg.d_ff).items():
-            t[f"first_dense.{i}.{k}"] = v
+        add(f"first_dense.{i}",
+            _init_dense_layer(gen, cfg, device, cfg.dense_d_ff or cfg.d_ff))
     for i in range(cfg.n_layers - nf):
-        for k, v in _init_dense_layer(
-                gen, cfg, device,
-                None if cfg.n_experts else cfg.d_ff).items():
-            t[f"layers.{i}.{k}"] = v
+        add(f"layers.{i}", _init_dense_layer(
+            gen, cfg, device, None if cfg.n_experts else cfg.d_ff))
     return LM(cfg, t)
 
 
@@ -274,12 +321,57 @@ def _dense_block(p: DenseLayer, x, cfg: ModelConfig, *, positions, cache,
     return x + h, new_cache, aux
 
 
+def _ssm_block(p: SSMLayer, x, cfg: ModelConfig, *, state):
+    """One SSM layer: (x, its new SSM / conv state)."""
+    h, new_state = ssm_layer(p.ssm, rmsnorm(p.ln1, x, cfg.norm_eps), cfg,
+                             state=state)
+    return x + h, new_state
+
+
 #: Cache groups in layer order: the leading dense layers, then the rest.
 _GROUPS = (("first_dense", "first_dense"), ("attn", "layers"))
 
 
 def _stack(caches) -> Dict[str, torch.Tensor]:
     return {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
+
+
+def _ssm_stack(p_layers, x, cfg: ModelConfig, want_cache: bool):
+    """The chunked pass through a run of SSM layers: (x, their states
+    stacked on a leading layer axis, or None)."""
+    states = []
+    for layer in p_layers:
+        x, st = _ssm_block(layer, x, cfg, state=None)
+        if want_cache:
+            states.append(st)
+    return x, (_stack(states) if states else None)
+
+
+def _forward_ssm(p: LM, cfg: ModelConfig, x, positions, want_cache: bool):
+    """The SSM and hybrid layer stacks of ``forward``: (x, caches).
+
+    The hybrid's states stack as the reference's nested scan does:
+    ``(n_super, attn_every, ...)`` under ``"ssm"``, the shared block's KV
+    caches ``(n_super, ...)`` under ``"attn"``, the tail's under
+    ``"tail"``.
+    """
+    caches = {}
+    if cfg.family == "ssm":
+        x, caches["ssm"] = _ssm_stack(p.layers, x, cfg, want_cache)
+        return x, caches
+    states, kvs = [], []
+    for block in p.layers:
+        x, st = _ssm_stack(block, x, cfg, want_cache)
+        x, kv, _ = _dense_block(p.shared_attn, x, cfg, positions=positions,
+                                cache=None, cache_index=None)
+        if want_cache:
+            states.append(st)
+            kvs.append(kv)
+    if want_cache:
+        caches["ssm"], caches["attn"] = _stack(states), _stack(kvs)
+    if len(p.tail):
+        x, caches["tail"] = _ssm_stack(p.tail, x, cfg, want_cache)
+    return x, caches
 
 
 # --------------------------------------------------------------------------
@@ -294,8 +386,10 @@ def forward(p: LM, cfg: ModelConfig, batch: Dict, *,
     ``caches`` is ``{"attn": {"k": (L, B, S, KH, Dh), "v": ...}}``, the
     reference's stacked layout (MLA: ``"latent"`` and ``"k_rope"``), with
     a ``"first_dense"`` group of the same kind for a MoE config's leading
-    dense layers; ``aux`` holds the MoE layers' losses summed, zero for
-    the dense family.  ``return_hidden`` skips the LM head.
+    dense layers; an SSM config's is ``{"ssm": {"ssm", "conv_x",
+    "conv_bc"}}``, a hybrid's as ``_forward_ssm`` says.  ``aux`` holds the
+    MoE layers' losses summed, zero for the other families.
+    ``return_hidden`` skips the LM head.
     """
     check_family(cfg)
     x = p.embed[batch["tokens"].long()].to(dtype)
@@ -303,18 +397,21 @@ def forward(p: LM, cfg: ModelConfig, batch: Dict, *,
     positions = _positions(batch, b, s, x.device)
     aux = {"aux_loss": torch.zeros((), device=x.device),
            "z_loss": torch.zeros((), device=x.device)}
-    caches = {}
-    for group, name in _GROUPS:
-        kvs = []
-        for layer in getattr(p, name):
-            x, kv, layer_aux = _dense_block(layer, x, cfg,
-                                            positions=positions, cache=None,
-                                            cache_index=None)
-            aux = {k: v + layer_aux.get(k, 0.0) for k, v in aux.items()}
-            if want_cache:
-                kvs.append(kv)
-        if kvs:
-            caches[group] = _stack(kvs)
+    if cfg.family in ("ssm", "hybrid"):
+        x, caches = _forward_ssm(p, cfg, x, positions, want_cache)
+    else:
+        caches = {}
+        for group, name in _GROUPS:
+            kvs = []
+            for layer in getattr(p, name):
+                x, kv, layer_aux = _dense_block(
+                    layer, x, cfg, positions=positions, cache=None,
+                    cache_index=None)
+                aux = {k: v + layer_aux.get(k, 0.0) for k, v in aux.items()}
+                if want_cache:
+                    kvs.append(kv)
+            if kvs:
+                caches[group] = _stack(kvs)
     x = rmsnorm(p.final_norm, x, cfg.norm_eps)
     caches = caches if want_cache else None
     if return_hidden:
@@ -335,21 +432,40 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 dtype=torch.bfloat16, device="cuda") -> Dict:
     """Zero KV caches, ``(L, B, max_len, KH, Dh)`` per k and v (MLA:
     ``(L, B, max_len, r)`` latent and ``(L, B, max_len, rd)`` rope key),
-    one group per layer group, as the reference stacks them."""
+    one group per layer group, as the reference stacks them.  SSM layers
+    get their float32 states (``ssm.make_ssm_state``) stacked the same
+    way: ``"ssm"`` over the layers, or for a hybrid over (super-block,
+    layer), beside the shared block's ``"attn"`` per super-block and the
+    tail's ``"tail"``."""
     check_family(cfg)
+
+    def stack(tree, *n):
+        return {k: torch.zeros((*n, *v.shape), dtype=v.dtype,
+                               device=v.device) for k, v in tree.items()}
+    if cfg.family == "ssm":
+        return {"ssm": stack(make_ssm_state(cfg, batch, device),
+                             cfg.n_layers)}
+    if cfg.family == "hybrid":
+        n_super, n_tail = divmod(cfg.n_layers, cfg.attn_every)
+        state = make_ssm_state(cfg, batch, device)
+        out = {"ssm": stack(state, n_super, cfg.attn_every),
+               "attn": stack(make_cache(cfg, batch, max_len, dtype, device),
+                             n_super)}
+        if n_tail:
+            out["tail"] = stack(state, n_tail)
+        return out
     base = make_cache(cfg, batch, max_len, dtype, device)
     nf = cfg.first_dense_layers
     out = {}
     for group, n in (("attn", cfg.n_layers - nf), ("first_dense", nf)):
         if n:
-            out[group] = {k: torch.zeros((n, *v.shape), dtype=v.dtype,
-                                         device=v.device)
-                          for k, v in base.items()}
+            out[group] = stack(base, n)
     return out
 
 
 def pad_caches(caches: Dict, max_len: int) -> Dict:
-    """Grow prefill caches (seq = prompt len) to the serving max_len."""
+    """Grow prefill caches (seq = prompt len) to the serving max_len; SSM
+    states have no sequence axis and pass as they are."""
     def pad(name, x):
         if name in ("k", "v", "latent", "k_rope"):
             axis = x.ndim - (3 if name in ("latent", "k_rope") else 4) + 1
@@ -367,24 +483,50 @@ def pad_caches(caches: Dict, max_len: int) -> Dict:
     return walk(caches)
 
 
+def _ssm_steps(p_layers, x, cfg: ModelConfig, states: Dict):
+    """One recurrent step through a run of SSM layers, each layer's
+    states (leaf ``[i]`` of ``states``) overwritten in place."""
+    for i, layer in enumerate(p_layers):
+        st = {k: c[i] for k, c in states.items()}
+        x, new = _ssm_block(layer, x, cfg, state=st)
+        for k, t in st.items():
+            t.copy_(new[k])
+    return x
+
+
 def decode_step(p: LM, cfg: ModelConfig, tokens: torch.Tensor, caches: Dict,
                 cache_index: int, *, dtype=torch.bfloat16):
     """One decode step.  tokens: (B, 1); cache_index: a Python int.
 
     The KV caches are updated in place (position ``cache_index`` of every
-    layer) and returned, where the reference returns new ones.
+    layer), and so are the SSM and conv states, and returned, where the
+    reference returns new ones.
     """
     check_family(cfg)
     x = p.embed[tokens.long()].to(dtype)
     b = tokens.shape[0]
     pos = torch.full((b, 1), cache_index, dtype=torch.int32, device=x.device)
-    for group, name in _GROUPS:
-        for i, layer in enumerate(getattr(p, name)):
-            # each leaf [i] is a view: the layer writes its rows in place
+    if cfg.family == "ssm":
+        x = _ssm_steps(p.layers, x, cfg, caches["ssm"])
+    elif cfg.family == "hybrid":
+        for s, block in enumerate(p.layers):
+            x = _ssm_steps(block, x, cfg,
+                           {k: c[s] for k, c in caches["ssm"].items()})
+            # the one shared block, each super-block's own KV cache
             x, _, _ = _dense_block(
-                layer, x, cfg, positions=pos,
-                cache={k: c[i] for k, c in caches[group].items()},
+                p.shared_attn, x, cfg, positions=pos,
+                cache={k: c[s] for k, c in caches["attn"].items()},
                 cache_index=cache_index)
+        if len(p.tail):
+            x = _ssm_steps(p.tail, x, cfg, caches["tail"])
+    else:
+        for group, name in _GROUPS:
+            for i, layer in enumerate(getattr(p, name)):
+                # each leaf [i] is a view: the layer writes its rows in place
+                x, _, _ = _dense_block(
+                    layer, x, cfg, positions=pos,
+                    cache={k: c[i] for k, c in caches[group].items()},
+                    cache_index=cache_index)
     x = rmsnorm(p.final_norm, x, cfg.norm_eps)
     return _logits(p, cfg, x), caches
 

@@ -1,5 +1,5 @@
-"""The LM decode slice: configs, verdict, layers, MoE, MLA, weights,
-engine, executor.
+"""The LM decode slice: configs, verdict, layers, MoE, MLA, the SSM and
+hybrid families, weights, engine, executor.
 
 The reference runs as its own tests run it (``jax_platform_name=cpu``,
 Pallas flash-decode in interpret mode); the port runs on the CPU with
@@ -55,7 +55,10 @@ ARCH_NAMES = sorted(j_configs.ARCHS)
 DENSE = ("deepseek-7b", "mistral-nemo-12b", "qwen1.5-32b", "stablelm-12b")
 #: The MoE family: MLA + a leading dense layer, and GQA at G = 16 in full.
 MOE = ("deepseek-v2-lite-16b", "qwen3-moe-235b-a22b")
-RUNNING = DENSE + MOE
+#: The SSM family (Mamba2) and the hybrid (Zamba2: SSM super-blocks, one
+#: shared attention block after each).
+SSM = ("mamba2-780m", "zamba2-7b")
+RUNNING = DENSE + MOE + SSM
 WAITING = sorted(set(ARCH_NAMES) - set(RUNNING))
 ENGINE_KW = dict(max_batch=2, prompt_len=6, max_gen=4, seed=0)
 
@@ -190,21 +193,34 @@ def test_mlp_matches_reference():
 
 @pytest.mark.parametrize("name", RUNNING)
 def test_params_round_trip_bit_for_bit(name):
-    """The layer stacks (``layers``, ``first_dense``) and the ``moe``,
-    ``moe/shared`` and MLA leaves cross both ways bit for bit."""
+    """The layer stacks (``layers``, ``first_dense``; a hybrid's
+    (super-block, layer) ``layers`` and ``tail``), the unstacked
+    ``shared_attn`` block and the ``moe``, ``moe/shared``, MLA and ``ssm``
+    leaves cross both ways bit for bit."""
     from repro.models import lm as j_lm
     j, p = (j_configs.reduced(c) for c in _pair(name))
     tree = _np(j_lm.init_params(j, jax.random.key(3)))
     port = params_from_numpy(tree, p, device="cpu")
-    assert len(port.layers) == p.n_layers - p.first_dense_layers
-    assert len(port.first_dense) == p.first_dense_layers
+    if p.family == "hybrid":
+        n_super, n_tail = divmod(p.n_layers, p.attn_every)
+        assert [len(b) for b in port.layers] == [p.attn_every] * n_super
+        assert len(port.tail) == n_tail
+        assert port.layers[1][2].ssm.w_z.data_ptr() != \
+            port.layers[0][2].ssm.w_z.data_ptr()
+    elif p.family == "ssm":
+        assert len(port.layers) == p.n_layers
+    else:
+        assert len(port.layers) == p.n_layers - p.first_dense_layers
+        assert len(port.first_dense) == p.first_dense_layers
     back = params_to_numpy(port)
     assert jax.tree.structure(back) == jax.tree.structure(tree)
     for a, b in zip(jax.tree.leaves(tree), jax.tree.leaves(back)):
         assert a.dtype == b.dtype and np.array_equal(a, b)
     n = sum(t.numel() for t in port.parameters())
     assert n == sum(a.size for a in jax.tree.leaves(tree))
-    if not p.use_mla:   # param_count leaves out MLA's kv_norm weights
+    # param_count leaves out MLA's kv_norm weights, and the SSM's conv
+    # biases and dt_bias (and an SSM model's ln1)
+    if not p.use_mla and p.family not in ("ssm", "hybrid"):
         assert n == p.param_count()
 
 
@@ -228,6 +244,26 @@ def test_cast_params_keeps_norms_in_float32():
             "ln1", "ln2", "final_norm") else torch.bfloat16
         assert v.dtype == want, k
     assert p_lm.cast_params(params, torch.float32) is params
+
+
+@pytest.mark.parametrize("name", SSM)
+def test_cast_params_keeps_ssm_float32_leaves(name):
+    """At bfloat16 the SSM's a_log, dt_bias, d_skip and norm stay float32
+    (the reference applies them in float32), with every norm; the
+    projections, convs and the shared block's matmuls are cast."""
+    cfg = p_configs.reduced(p_configs.get_arch(name))
+    params = p_lm.init_params(cfg, seed=0, device="cpu")
+    cast = p_lm.cast_params(params, torch.bfloat16)
+    f32 = ("ln1", "ln2", "final_norm", "a_log", "dt_bias", "d_skip", "norm")
+    seen = set()
+    for k, v in cast.state_dict().items():
+        leaf = k.split(".")[-1]
+        want = torch.float32 if leaf in f32 else torch.bfloat16
+        assert v.dtype == want, k
+        seen.add(leaf)
+    assert {"a_log", "dt_bias", "d_skip", "norm", "w_z", "conv_x",
+            "out_proj"} <= seen
+    assert sorted(cast.state_dict()) == sorted(params.state_dict())
 
 
 # --------------------------------------------------------------------------
@@ -479,7 +515,11 @@ def test_waiting_families_raise(name):
 
 @pytest.mark.parametrize("name", RUNNING)
 def test_dense_families_run(name):
+    """Every ported family generates on its own seeded weights (the SSM
+    and hybrid families' cases moved here from
+    ``test_waiting_families_raise``)."""
     cfg = p_configs.reduced(p_configs.get_arch(name))
+    p_lm.check_family(cfg)
     eng = PEngine(cfg, device="cpu", **ENGINE_KW)
     out = eng.generate(eng.make_prompt_batch())
     assert tuple(out.tokens.shape) == (2, 4)
@@ -780,3 +820,254 @@ def test_moe_init_and_pad_caches_match_reference(name):
         for k in want[group]:
             assert np.array_equal(got[group][k].numpy(),
                                   np.asarray(want[group][k]))
+
+
+# --------------------------------------------------------------------------
+# the SSM and hybrid families against the reference
+# --------------------------------------------------------------------------
+
+#: Two chunks of the reduced configs' 32: the chunked prefill runs its
+#: inter-chunk recurrence.  Prompts longer than a chunk must be multiples
+#: of it (the reference asserts so).
+SSM_KW = dict(ENGINE_KW, prompt_len=64)
+#: reduced mamba2-780m (4 SSM layers), and reduced zamba2-7b (7 layers,
+#: attn_every 3: two super-blocks, each followed by the shared block, and
+#: one tail layer) on both flash-decode engines and both attention paths
+SSM_ENGINES = [("mamba2-780m", "vector", "registry")] + [
+    ("zamba2-7b", e, impl) for e in ("vector", "matrix")
+    for impl in ("registry", "dense")]
+SSM_IDS = ["mamba2"] + [f"zamba2-{e}-{impl}" for _, e, impl in
+                        SSM_ENGINES[1:]]
+
+
+def _ssm_engines(name, engine, impl):
+    """A JAX engine and the port's engine on its carried weights."""
+    key = ("ssm", name, engine, impl)
+    if key not in _ENGINES:
+        j, p = (j_configs.reduced(c) for c in _pair(name))
+        je = JEngine(j, dtype=jnp.float32, engine=engine,
+                     attention_impl=impl, **SSM_KW)
+        params = params_from_numpy(_np(je.params), p, device="cpu")
+        pe = PEngine(p, dtype=torch.float32, engine=engine,
+                     attention_impl=impl, params=params, device="cpu",
+                     **SSM_KW)
+        _ENGINES[key] = (je, pe)
+    return _ENGINES[key]
+
+
+def _close_caches(pc, jc):
+    assert sorted(pc) == sorted(jc)
+    for group in jc:
+        assert sorted(pc[group]) == sorted(jc[group])
+        for k in jc[group]:
+            assert tuple(pc[group][k].shape) == jc[group][k].shape
+            _close(pc[group][k], jc[group][k])
+
+
+@pytest.mark.parametrize("name,engine,impl", SSM_ENGINES, ids=SSM_IDS)
+def test_ssm_engine_matches_reference_step_by_step(name, engine, impl):
+    """Prefill logits and caches (SSM states; the hybrid's KV caches per
+    super-block and its tail), every teacher-forced step's logits, and
+    the caches after the last step."""
+    je, pe = _ssm_engines(name, engine, impl)
+    jb, pb = je.make_prompt_batch(seed=1), pe.make_prompt_batch(seed=1)
+    jl, jc = je.prefill(jb)
+    pl, pc = pe.prefill(pb)
+    _close(pl, jl)
+    _close_caches(pc, jc)
+    tok = np.array(jnp.argmax(jl[:, -1], axis=-1))[:, None]
+    for i in range(je.prompt_len, je.max_len - 1):
+        jl, jc = je.decode_step(jnp.asarray(tok), jc, i)
+        pl, pc = pe.decode_step(torch.from_numpy(tok), pc, i)
+        _close(pl, jl)
+        tok = np.array(jnp.argmax(jl[:, 0], axis=-1))[:, None]
+    _close_caches(pc, jc)
+
+
+@pytest.mark.parametrize("name,engine,impl", SSM_ENGINES, ids=SSM_IDS)
+def test_ssm_engine_greedy_tokens_match_reference(name, engine, impl):
+    je, pe = _ssm_engines(name, engine, impl)
+    jr = je.generate(je.make_prompt_batch(seed=2))
+    pr = pe.generate(pe.make_prompt_batch(seed=2))
+    assert np.array_equal(pr.tokens.numpy(), np.asarray(jr.tokens))
+    _close(pr.logits, jr.logits)
+    assert pr.decode_steps == jr.decode_steps == je.max_gen - 1
+
+
+@pytest.mark.parametrize("name", SSM)
+def test_ssm_forward_matches_reference(name):
+    """forward over three chunks (96 tokens), the LM head on every
+    position; no aux loss."""
+    from repro.models import lm as j_lm
+    je, pe = _ssm_engines(name, "vector", "registry")
+    tokens = np.random.default_rng(4).integers(0, 512, (2, 96), np.int32)
+    want, _, _ = j_lm.forward(je.params, je.cfg,
+                              {"tokens": jnp.asarray(tokens)},
+                              dtype=jnp.float32, remat=False)
+    got, caches, aux = p_lm.forward(pe.params, pe.cfg,
+                                    {"tokens": torch.from_numpy(tokens)},
+                                    dtype=torch.float32)
+    _close(got, want)
+    assert caches is None and float(aux["aux_loss"]) == 0.0
+
+
+@pytest.mark.parametrize("name", SSM)
+def test_ssm_prompt_off_the_chunk_raises_as_the_reference(name):
+    """A prompt longer than a chunk that is not a multiple of it: the
+    reference's assertion (32, 40), kept; the port pads nothing."""
+    je, pe = _ssm_engines(name, "vector", "registry")
+    tokens = np.zeros((1, 40), np.int32)
+    with pytest.raises(AssertionError, match="40, 32"):
+        je.prefill({"tokens": jnp.asarray(tokens)})
+    with pytest.raises(AssertionError, match="40, 32"):
+        pe.prefill({"tokens": torch.from_numpy(tokens)})
+
+
+@pytest.mark.parametrize("name", SSM)
+def test_ssm_init_and_pad_caches_match_reference(name):
+    """Zero states and KV caches with the reference's structure, shapes
+    and dtypes (SSM states float32 whatever the KV dtype); pad_caches
+    grows the KV caches and leaves the states as they are."""
+    from repro.models import lm as j_lm
+    j, p = (j_configs.reduced(c) for c in _pair(name))
+    jc = j_lm.init_caches(j, 2, 8, jnp.bfloat16)
+    pc = p_lm.init_caches(p, 2, 8, torch.bfloat16, "cpu")
+    assert sorted(pc) == sorted(jc)
+    for group in jc:
+        assert sorted(pc[group]) == sorted(jc[group])
+        for k in jc[group]:
+            assert tuple(pc[group][k].shape) == jc[group][k].shape
+            assert str(pc[group][k].dtype).split(".")[-1] == \
+                jc[group][k].dtype.name
+            assert not pc[group][k].any()
+    short = {g: {k: jnp.ones(v[:, :, :5].shape if k in ("k", "v")
+                             else v.shape, jnp.float32)
+                 for k, v in c.items()} for g, c in jc.items()}
+    want = j_lm.pad_caches(short, 8)
+    got = p_lm.pad_caches({g: {k: torch.ones(v.shape) for k, v in c.items()}
+                           for g, c in short.items()}, 8)
+    for group in want:
+        for k in want[group]:
+            assert np.array_equal(got[group][k].numpy(),
+                                  np.asarray(want[group][k]))
+
+
+def test_ssm_cache_state_is_a_snapshot_matching_reference():
+    """decode_step writes the SSM and conv states (and the hybrid's KV
+    caches) in place: a state taken after prefill stays that of prefill,
+    equal to the reference's at the same point, and a loaded state is a
+    copy the next step does not write through."""
+    je, pe = _ssm_engines("zamba2-7b", "vector", "registry")
+    jlogits, jcaches = je.prefill(je.make_prompt_batch(seed=8))
+    plogits, pcaches = pe.prefill(pe.make_prompt_batch(seed=8))
+    jstate, pstate = je.cache_state(jcaches), pe.cache_state(pcaches)
+    loaded = pe.load_cache_state(pcaches, pstate)
+    ptok = torch.argmax(plogits[:, -1], dim=-1)[:, None]
+    pe.decode_step(ptok, pcaches, pe.prompt_len)
+    pe.decode_step(ptok, loaded, pe.prompt_len)
+    for group in ("ssm", "tail"):
+        for k in ("ssm", "conv_x", "conv_bc"):
+            assert not torch.equal(pcaches[group][k], pstate[group][k])
+            assert torch.equal(loaded[group][k], pcaches[group][k])
+            _close(pstate[group][k], jstate[group][k])
+    assert not torch.equal(loaded["attn"]["k"], pstate["attn"]["k"])
+    bad = dict(pstate, tail={k: v[:0] for k, v in pstate["tail"].items()})
+    with pytest.raises(ValueError, match="mismatch"):
+        pe.load_cache_state(pcaches, bad)
+
+
+def test_ssm_decode_launches_flash_decode_per_super_block(monkeypatch):
+    """Zamba2's shared block runs the registry's flash-decode once per
+    super-block and step; Mamba2 runs none, and the engines say so."""
+    from repro_torch.kernels.attention import ops
+    calls = []
+    original = ops.ATTENTION_OP.engines["vector"]
+
+    def spy(*args, **kwargs):
+        calls.append(kwargs["backend"])
+        return original(*args, **kwargs)
+    monkeypatch.setitem(ops.ATTENTION_OP.engines, "vector", spy)
+    _, ze = _ssm_engines("zamba2-7b", "vector", "registry")
+    ze.generate(ze.make_prompt_batch(seed=6))
+    n_super = ze.cfg.n_layers // ze.cfg.attn_every
+    assert ze.flash_decode_layers == n_super == 2
+    assert calls == ["plain"] * (n_super * (ze.max_gen - 1))
+    calls.clear()
+    _, me = _ssm_engines("mamba2-780m", "vector", "registry")
+    me.generate(me.make_prompt_batch(seed=6))
+    assert calls == [] and me.flash_decode_layers == 0
+    _, dense = _ssm_engines("zamba2-7b", "vector", "dense")
+    assert dense.flash_decode_layers == 0
+
+
+@pytest.mark.parametrize("name", SSM)
+def test_ssm_bfloat16_engine_runs_on_cast_weights(name):
+    cfg = p_configs.reduced(p_configs.get_arch(name))
+    eng = PEngine(cfg, dtype=torch.bfloat16, device="cpu", **SSM_KW)
+    out = eng.generate(eng.make_prompt_batch(seed=8))
+    assert out.logits.dtype == torch.bfloat16
+    assert torch.isfinite(out.logits.float()).all()
+    assert out.caches["ssm"]["ssm"].dtype == torch.float32
+    if cfg.family == "hybrid":
+        assert out.caches["attn"]["k"].dtype == torch.bfloat16
+
+
+def test_ssm_executor_matches_reference():
+    """The serving executor on reduced Zamba2: the reference's engine,
+    shards, decode steps and launches, and its verdict at full size."""
+    j, p = (j_configs.reduced(c) for c in _pair("zamba2-7b"))
+    jfull, pfull = _pair("zamba2-7b")
+    kw = dict(max_batch=2, prompt_len=32, max_gen=4, engine="vector")
+    je = JExecutor(j, dtype=jnp.float32, verdict_cfg=jfull, **kw)
+    pe = PExecutor(p, dtype=torch.float32, verdict_cfg=pfull, device="cpu",
+                   **kw)
+    jreqs = [JRequest(rid=i, kernel="lm-decode", arrival_s=0.0, size=4)
+             for i in range(2)]
+    preqs = [PRequest(rid=i, kernel="lm-decode", arrival_s=0.0, size=4)
+             for i in range(2)]
+    jx, px = je.execute(jreqs), pe.execute(preqs)
+    assert px.engine == jx.engine and px.shards == jx.shards
+    jr, pr = je.record_extras(), pe.record_extras()
+    assert pr["model"] == jr["model"]
+    assert pr["phases"]["decode_steps"] == jr["phases"]["decode_steps"]
+    assert pr["phases"]["launches"] == jr["phases"]["launches"]
+    assert [o["name"] for o in pr["verdict"]["ops"]] == \
+        [o["name"] for o in jr["verdict"]["ops"]]
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card and nvcc (CUDA kernels have no "
+                    "CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("engine", ["vector", "matrix"])
+def test_card_ssm_families_launch_flash_decode_per_super_block(card, engine):
+    """On the card, reduced Zamba2 launches the engine's flash-decode
+    kernel once per super-block and decode step, the other engine's
+    never, and its greedy tokens are the dense-attention path's; reduced
+    Mamba2 launches none."""
+    from repro_torch.kernels import _ext
+    other = "matrix" if engine == "vector" else "vector"
+    for name in SSM:
+        cfg = p_configs.reduced(p_configs.get_arch(name))
+        eng = PEngine(cfg, dtype=torch.float32, engine=engine, device=card,
+                      **SSM_KW)
+        batch = eng.make_prompt_batch(seed=9)
+        eng.warmup(batch)
+        _ext.reset_launches()
+        got = eng.generate(batch)
+        steps = eng.max_gen - 1
+        assert _ext.LAUNCHES.get(f"attention_{engine}", 0) == \
+            eng.flash_decode_layers * steps
+        assert _ext.LAUNCHES.get(f"attention_{other}", 0) == 0
+        ref = PEngine(cfg, dtype=torch.float32, engine=engine,
+                      attention_impl="dense", params=eng.params, device=card,
+                      **SSM_KW)
+        want = ref.generate(batch)
+        assert torch.equal(got.tokens, want.tokens)
+        torch.testing.assert_close(got.logits, want.logits, atol=1e-4,
+                                   rtol=1e-3)
