@@ -17,7 +17,11 @@ MoE family, DeepSeek-V2-Lite-16B (MLA, 64 + 2 experts) at full width and
 depth and Qwen3-MoE-235B-A22B (128 experts, flash-decode at 16 query
 heads per KV head) at full width, 6 of its 94 layers; then the SSM and
 hybrid families, Mamba2-780m and Zamba2-7B (its shared attention block
-through flash-decode at head dim 112) at full width and depth.  Tile
+through flash-decode at head dim 112) at full width and depth; then the
+multimodal-frontend families, SeamlessM4T-large-v2 (an audio encoder and
+cross-attention on cached encoder K / V; flash-decode at head dim 64) at
+full width and depth and Qwen2-VL-72B (1024 vision patch positions,
+M-RoPE) at full width, 16 of its 80 layers.  Tile
 tuning and the report: the tunable kernels' tiles searched on the card,
 the STREAM sweep run again with the winners, SCALE / Triad / AXPY served
 with an online tile bandit, and the whole record directory rendered as
@@ -113,6 +117,19 @@ Phases, each fatal on failure:
      launches each (its shared attention block after each of 13
      super-blocks: flash-decode at G 1, Dh 112), its step held against
      the dense-attention path;
+ 8d. the multimodal-frontend families the same way: SeamlessM4T-large-v2
+     at full width and depth (~8.1 GB; 24 encoder layers over the prompt's
+     496 audio frames, 24 decoder layers with cross-attention on the
+     cached encoder K / V), one session per flash-decode engine on one set
+     of weights, (batches + 1) x 24 x 15 launches each (flash-decode at
+     G 1, Dh 64), its step held against the dense-attention path and its
+     prefill and 4 teacher-forced steps against forward over the prompt
+     plus those tokens (the same frames); Qwen2-VL-72B at full width cut
+     to 16 of 80 layers (~66 GB), a prompt of 1024 patch positions and
+     496 of text, one session per engine on one set of weights, (batches
+     + 1) x 16 x 15 launches each (G 8, Dh 128, cache 1536), its step held
+     against the dense-attention path; then K4 at both decode shapes as
+     in 8c, each S's kv_len edges bit for bit against the full read;
   9. tile tuning: repro_torch.tuning.tune_op for SCALE / Triad / AXPY,
      the stencils and flash-decode on both engines at their STREAM
      points (phase 4's inputs), every candidate of the family's tile
@@ -220,6 +237,17 @@ LM_RPS, LM_DURATION_S, LM_SLO_MS = 8.0, 1.0, 30000.0
 #: Phase 8b: Qwen3-MoE-235B-A22B's layers on one card (6 of 94: 64.7 GB
 #: of float32 weights with the embedding and head).
 MOE_QWEN_LAYERS = 6
+#: Phase 8d: SeamlessM4T-large-v2 at full width and depth, its prefill and
+#: this many teacher-forced steps also held against forward; Qwen2-VL-72B
+#: at full width on VISION_LAYERS of its 80 layers, the most that fit
+#: (3.51 GB of float32 weights each, 9.97 GB embedding and head: 66.2 GB;
+#: the prefill's and checks' working set took 9.1 GB more at 12 layers on
+#: an H100 80GB HBM3),
+#: its prompt 1024 patch positions and 496 of text, so that the served
+#: cache of 1536 keeps flash-decode's block_s at 512.
+ENCDEC_MODEL, VISION_MODEL = "seamless-m4t-large-v2", "qwen2-vl-72b"
+TEACHER_STEPS = 4
+VISION_LAYERS, VISION_PROMPT_LEN = 16, 1520
 #: The families with a tile space, tuned on both engines in phase 9.
 TUNED = ("scale", "triad", "axpy", "stencil", "attention")
 #: The online bandit's exploration pulls per key (the reference's default).
@@ -726,6 +754,9 @@ def main() -> int:
     # -- 8c. the SSM and hybrid families: Mamba2-780m and Zamba2-7B --------
     model_launches.update(_ssm_phase(torch, hw, card, failures))
 
+    # -- 8d. the frontend families: SeamlessM4T-large-v2 and Qwen2-VL-72B --
+    model_launches.update(_frontend_phase(torch, hw, card, failures))
+
     # -- 9. tile tuning on the card ---------------------------------------
     cache, tune_launches = _tune_phase(torch, hw, card, failures)
     torch.cuda.empty_cache()
@@ -1088,33 +1119,77 @@ def _ssm_phase(torch, hw, card, failures):
                                      share_params=True,
                                      prompt_len=SSM_PROMPT_LEN)
     torch.cuda.empty_cache()
-    _k4_model_points(torch, hw, card, failures, hybrid)
+    _k4_model_points(torch, hw, card, failures, hybrid,
+                     ((SSM_PROMPT_LEN, SSM_PROMPT_LEN),
+                      (SSM_PROMPT_LEN + MAX_GEN,
+                       SSM_PROMPT_LEN + MAX_GEN // 2)))
     return out
 
 
-def _k4_model_points(torch, hw, card, failures, cfg):
-    """Flash-decode at ``cfg``'s decode shape (Zamba2-7B's shared block: B
-    MODEL_BATCH, 32 KV heads of one query each, Dh 112) on both engines,
-    through the registry op as its decode step calls it: CUDA-event
-    median and IQR, profiler device time, the error against the plain
-    version, the valid-bytes bound and SDPA on the same valid positions.
-    Two points: the prompt's cache, every position valid, and the served
-    cache (prompt + MAX_GEN positions) half way through a generation.
-    These launches time the kernel; they are not the main path's."""
+def _frontend_phase(torch, hw, card, failures):
+    """The two multimodal-frontend families served on the card (phase 8d).
+
+    SeamlessM4T-large-v2 at full width and depth (24 encoder + 24 decoder
+    layers, d_model 1024, 16 heads of 64, G 1, d_ff 8192, vocab 256206;
+    ~8.1 GB float32), each prompt's PROMPT_LEN audio frames through the
+    encoder, every decoder layer's cross-attention on the cached encoder
+    K / V: one session per flash-decode engine on one set of weights, its
+    step held against the dense-attention path, and its prefill and
+    TEACHER_STEPS teacher-forced steps against forward.  Qwen2-VL-72B at
+    full width (64 query over 8 KV heads, Dh 128, d_ff 29568, vocab 152064,
+    M-RoPE, 1024 patch positions) cut to VISION_LAYERS of its 80 layers:
+    one session per engine on one set of weights, its step held against
+    the dense-attention path.  Then K4 at both decode shapes.  Returns
+    {model: flash-decode launches per kernel}.
+    """
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    seamless = get_arch(ENCDEC_MODEL)
+    out = {seamless.name: _serve_model(
+        torch, hw, card, failures, seamless, ("vector", "matrix"),
+        check="dense", share_params=True, teacher_steps=TEACHER_STEPS)}
+    torch.cuda.empty_cache()
+    full = get_arch(VISION_MODEL)
+    vision = dataclasses.replace(full, n_layers=VISION_LAYERS)
+    out[vision.name] = _serve_model(
+        torch, hw, card, failures, vision, ("vector", "matrix"),
+        check="dense", share_params=True, prompt_len=VISION_PROMPT_LEN,
+        reduced={"n_layers": f"{VISION_LAYERS} of {full.n_layers}"})
+    torch.cuda.empty_cache()
+    for cfg, prompt_len in ((seamless, PROMPT_LEN),
+                            (vision, VISION_PROMPT_LEN)):
+        s = prompt_len + MAX_GEN
+        _k4_model_points(torch, hw, card, failures, cfg,
+                         ((s, s), (s, prompt_len + MAX_GEN // 2)))
+    return out
+
+
+def _k4_model_points(torch, hw, card, failures, cfg, points):
+    """Flash-decode at ``cfg``'s decode shape (B MODEL_BATCH, its KV heads,
+    query heads per KV head and head dim) on both engines, through the
+    registry op as its decode step calls it, at each (S, kv_len) of
+    ``points``: CUDA-event median and IQR, profiler device time, the
+    host's enqueue time, the error against the plain version, the
+    valid-bytes bound and SDPA on the same valid positions.  At each S,
+    the kv_len edges (1, around 64 and block_s, S - 1, S) are held against
+    the plain version and bit for bit against the same kernel reading
+    every position.  These launches time and check the kernel; they are
+    not the main path's."""
     import torch.nn.functional as F
 
     from repro_torch.bench.bench_kernels import bound_work
     from repro_torch.core.timing import time_fn
+    from repro_torch.kernels import _ext
     from repro_torch.kernels.attention.flash_decode import flash_decode_plain
     from repro_torch.kernels.attention.ops import (DEFAULT_BLOCK_S,
                                                    _clamp_block_s,
                                                    decode_attention)
     b, kh, dh = MODEL_BATCH, cfg.n_kv_heads, cfg.head_dim
     g = cfg.n_heads // cfg.n_kv_heads
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    for s, kv_len in ((SSM_PROMPT_LEN, SSM_PROMPT_LEN),
-                      (SSM_PROMPT_LEN + MAX_GEN,
-                       SSM_PROMPT_LEN + MAX_GEN // 2)):
+    for s, kv_len in points:
         q = torch.randn((b, kh, g, dh), generator=gen, device="cuda")
         k = torch.randn((b, s, kh, dh), generator=gen, device="cuda")
         v = torch.randn((b, s, kh, dh), generator=gen, device="cuda")
@@ -1126,7 +1201,27 @@ def _k4_model_points(torch, hw, card, failures, cfg):
         sdpa_ms = time_fn(sdpa, warmup=WARMUP, iters=ITERS).median_us / 1e3
         _, sdpa_device_us = _host_and_device_us(torch, sdpa)
         point = f"B{b} KH{kh} G{g} Dh{dh} S{s} kv_len {kv_len}"
+        edges = sorted({e for e in (1, 63, 64, 65, block_s - 1, block_s,
+                                    block_s + 1, s - 1, s) if 1 <= e <= s})
         for engine in ("vector", "matrix"):
+            bad = []
+            for e in edges:
+                got = decode_attention(q, k, v, e, engine=engine)
+                rows = _ext.attention_ranges(s, block_s, b * kh, sms, e,
+                                             q.dtype, g, engine)[0]
+                full = _ext.attention_launch(q, k, v, e, rows=rows,
+                                             nsplit=-(-s // rows), end=s,
+                                             engine=engine)
+                want = flash_decode_plain(q, k, v, e, block_s=block_s,
+                                          engine=engine)
+                if not (torch.equal(got, full) and
+                        (got - want).abs().max().item() <= F32_TOL):
+                    bad.append(e)
+            if bad:
+                failures.append(f"K4 at {cfg.name}'s point {point}/{engine}: "
+                                f"kv_len {bad} differ from the full read or "
+                                f"the plain version")
+
             def fn(engine=engine):
                 return decode_attention(q, k, v, kv_len, engine=engine)
             got = fn()
@@ -1145,6 +1240,7 @@ def _k4_model_points(torch, hw, card, failures, cfg):
             print(json.dumps({
                 "phase": "model_k4_point", "model": cfg.name,
                 "point": point, "engine": engine, "block_s": block_s,
+                "kv_len_edges": edges, "kv_len_edges_failed": bad,
                 "median_us": t.median_us, "iqr_us": t.iqr_us,
                 "profiler_device_us": device_us,
                 "host_enqueue_us": host_us, "bound_ms": bound_ms,
@@ -1155,7 +1251,7 @@ def _k4_model_points(torch, hw, card, failures, cfg):
                 "sdpa_device_ms": (sdpa_device_us / 1e3 if sdpa_device_us
                                    != "not measured" else sdpa_device_us),
                 "card": card}), flush=True)
-        del q, k, v, args, got, want, sdpa
+        del q, k, v, args, got, want, full, sdpa
         torch.cuda.empty_cache()
 
 
@@ -1185,8 +1281,36 @@ def _moe_device_ms(torch, eng, cfg):
     return device_busy_us(moe_pass, calls=3) / 1e3
 
 
+def _teacher_forced(torch, eng, batch, steps, logits, caches):
+    """``eng``'s prefill logits (``logits``, ``caches``: a prefill of
+    ``batch``) and ``steps`` teacher-forced decode steps on those caches,
+    each held to 1e-4 + 1e-3 |b| against forward over the prompt and the
+    tokens before it, at the step's position; the batch's other inputs
+    (an encoder's frames) as they are.  The tokens are drawn from SEED + 1.
+    Returns (largest gap, all within, the last step's logits)."""
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.models import lm
+    prompt_len = batch["tokens"].shape[1]
+    extra = make_batch(eng.cfg, eng.max_batch, steps, seed=SEED + 1,
+                       device="cuda")["tokens"]
+    seq = torch.cat([batch["tokens"], extra], dim=1)
+    want, _, _ = lm.forward(eng.params, eng.cfg, dict(batch, tokens=seq),
+                            dtype=torch.float32)
+    step = logits[:, 0]
+    gaps = [(step, want[:, prompt_len - 1])]
+    for i in range(steps):
+        at = prompt_len + i
+        step, _ = eng.decode_step(seq[:, at:at + 1], caches, at)
+        gaps.append((step[:, 0], want[:, at]))
+    err = max((a - b).abs().max().item() for a, b in gaps)
+    within = all(torch.allclose(a, b, rtol=STEP_RTOL, atol=STEP_ATOL)
+                 for a, b in gaps)
+    return err, within, step
+
+
 def _serve_model(torch, hw, card, failures, cfg, engines, *, check,
-                 share_params=False, reduced=None, prompt_len=PROMPT_LEN):
+                 share_params=False, reduced=None, prompt_len=PROMPT_LEN,
+                 teacher_steps=0):
     """``cfg`` serves the reference's ``serve --workload lm`` traffic
     through run_session, once per flash-decode engine in ``engines``.
 
@@ -1203,17 +1327,18 @@ def _serve_model(torch, hw, card, failures, cfg, engines, *, check,
     tokens at its position), one profiled step, and the step beside two
     bounds: the traits' bytes (the experts a step touches; a hybrid's
     shared block once per application) and every weight once.
-    ``share_params`` draws the weights once for all engines;
-    ``prompt_len`` is the prompt's length (an SSM's: a multiple of its
-    chunk).  The records are written to build/runs_torch and verified.
+    ``teacher_steps`` adds, on a prefill of its own, the prefill's last
+    logits and that many teacher-forced steps against forward, as
+    "recurrent" does.  ``share_params`` draws the weights once for all
+    engines; ``prompt_len`` is the prompt's length (an SSM's: a multiple
+    of its chunk).  The records are written to build/runs_torch and
+    verified.
     Returns the sessions' flash-decode launches per kernel.
     """
     from repro_torch.bench.common import bench_env, write_serving_json
     from repro_torch.core.dispatch import DEFAULT_DISPATCHER
     from repro_torch.core.timing import busy_us
-    from repro_torch.data.synthetic import make_batch
     from repro_torch.kernels import _ext
-    from repro_torch.models import lm
     from repro_torch.models.advisor_map import step_traits
     from repro_torch.models.engine import DecodeEngine
     from repro_torch.report import check_records, load_file, violations
@@ -1239,6 +1364,13 @@ def _serve_model(torch, hw, card, failures, cfg, engines, *, check,
     else:
         attn = (f"MLA (kv_lora_rank {cfg.kv_lora_rank})" if cfg.use_mla
                 else gqa)
+        if cfg.enc_dec:
+            attn += (f", a {cfg.n_enc_layers}-layer encoder of audio frames "
+                     f"({cfg.frontend_dim} wide) and cross-attention")
+        if cfg.frontend == "vision":
+            attn += (f", M-RoPE {tuple(cfg.mrope_sections)}, "
+                     f"{cfg.frontend_len} patch positions of "
+                     f"{cfg.frontend_dim}")
         ffn = (f"{cfg.n_experts} experts top-{cfg.top_k}"
                + (f" + {cfg.n_shared_experts} shared"
                   if cfg.n_shared_experts else "")
@@ -1254,6 +1386,7 @@ def _serve_model(torch, hw, card, failures, cfg, engines, *, check,
     kernel = f"lm-{cfg.name}"
     launches, tokens, records = {}, {}, []
     params = None
+    torch.cuda.reset_peak_memory_stats()
     for engine in engines:
         other = "matrix" if engine == "vector" else "vector"
         t0 = time.perf_counter()
@@ -1369,24 +1502,12 @@ def _serve_model(torch, hw, card, failures, cfg, engines, *, check,
             # teacher-forced recurrent steps, each against forward
             # (chunked) over the prompt and every token, at the step's
             # position
-            extra = make_batch(cfg, MODEL_BATCH, RECURRENT_STEPS,
-                               seed=SEED + 1, device="cuda")["tokens"]
-            seq = torch.cat([batch["tokens"], extra], dim=1)
-            ref = None
-            want, _, _ = lm.forward(eng.params, eng.cfg, {"tokens": seq},
-                                    dtype=torch.float32)
-            step = logits[:, 0]
-            gaps = [(step, want[:, prompt_len - 1])]
-            for i in range(RECURRENT_STEPS):
-                at = prompt_len + i
-                step, _ = eng.decode_step(seq[:, at:at + 1], caches, at)
-                gaps.append((step[:, 0], want[:, at]))
-            step_err = max((a - b).abs().max().item() for a, b in gaps)
-            within = all(torch.allclose(a, b, rtol=STEP_RTOL, atol=STEP_ATOL)
-                         for a, b in gaps)
-            del gaps
+            ref = want = None
+            step_err, within, step = _teacher_forced(
+                torch, eng, batch, RECURRENT_STEPS, logits, caches)
             # the profiled step below is the next one on these caches
-            tok, at = torch.argmax(step[:, 0], dim=-1)[:, None], at + 1
+            tok, at = (torch.argmax(step[:, 0], dim=-1)[:, None],
+                       prompt_len + RECURRENT_STEPS)
             against = (f"forward_over_prompt_plus_{RECURRENT_STEPS}_tokens_"
                        f"at_each_of_{RECURRENT_STEPS + 1}_positions")
         else:
@@ -1417,6 +1538,21 @@ def _serve_model(torch, hw, card, failures, cfg, engines, *, check,
         if not within:
             failures.append(f"model {cfg.name}/{engine}: decode step "
                             f"differs from the {against} by {step_err}")
+        if teacher_steps:
+            # on a prefill of its own: its last logits and teacher_steps
+            # teacher-forced steps against forward over the prompt and
+            # those tokens, the batch's other inputs (an encoder's frames)
+            # the same
+            t_logits, t_caches = eng.prefill(batch)
+            teacher_err, t_within, _ = _teacher_forced(
+                torch, eng, batch, teacher_steps, t_logits, t_caches)
+            del t_logits, t_caches
+            if not t_within:
+                failures.append(
+                    f"model {cfg.name}/{engine}: prefill and "
+                    f"{teacher_steps} teacher-forced steps differ from "
+                    f"forward over the prompt plus those tokens by "
+                    f"{teacher_err}")
 
         # where a decode step's time goes: one more step under
         # torch.profiler, device time summed by kernel
@@ -1471,8 +1607,14 @@ def _serve_model(torch, hw, card, failures, cfg, engines, *, check,
             "flash_decode_launches": launches[f"attention_{engine}"],
             "decode_step_max_abs_err": step_err,
             "decode_step_against": against,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
             "card": card,
         }
+        if teacher_steps:
+            line["teacher_forced_max_abs_err"] = teacher_err
+            line["teacher_forced_against"] = (
+                f"forward_over_prompt_plus_{teacher_steps}_tokens_at_each_"
+                f"of_{teacher_steps + 1}_positions")
         if reduced is not None:
             line["reduced"] = reduced
         if cfg.n_experts:

@@ -7,7 +7,8 @@ pattern, never re-rounded), a block-ELL matrix becomes the port's
 own frozen ``StencilSpec``, and scalars pass through.  Objects are
 recognised by their fields, so nothing of the reference is imported.
 ``params_from_numpy`` turns the reference's LM parameter pytree (every
-family: stacked layers, a hybrid's super-blocks and shared block) into
+family: stacked layers, a hybrid's super-blocks and shared block, an
+encoder-decoder's encoder stack and cross-attention, a frontend) into
 the port's ``lm.LM`` bit for bit, and ``params_to_numpy`` turns it back.
 """
 from __future__ import annotations
@@ -69,11 +70,12 @@ def from_numpy(args: tuple, kwargs: dict, device: str = "cuda"):
 
 def _stacked_axes(cfg) -> dict:
     """The reference's stacked layer groups and their leading layer axes:
-    one under ``layers`` and ``first_dense``, and a hybrid's two under
-    ``layers`` (super-block, layer) and one under ``tail``.  Every other
-    group (``shared_attn``) is one unstacked node."""
+    one under ``layers``, ``first_dense`` and ``encoder``, and a hybrid's
+    two under ``layers`` (super-block, layer) and one under ``tail``.
+    Every other group (``shared_attn``, ``frontend``) is one unstacked
+    node."""
     return {"layers": 2 if cfg.family == "hybrid" else 1,
-            "first_dense": 1, "tail": 1}
+            "first_dense": 1, "encoder": 1, "tail": 1}
 
 
 def params_from_numpy(tree: dict, cfg, device: str = "cuda"):
@@ -81,7 +83,8 @@ def params_from_numpy(tree: dict, cfg, device: str = "cuda"):
 
     ``tree`` holds numpy arrays laid out as the reference keeps them:
     ``(d_in, d_out)`` weights for ``x @ W``, and stacked leading layer
-    axes under ``"layers"`` (and ``"first_dense"``, ``"tail"``).  Layer
+    axes under ``"layers"`` (and ``"first_dense"``, ``"encoder"``,
+    ``"tail"``).  Layer
     ``i`` of ``layers/attn/wq`` becomes ``layers.<i>.attn.wq``, of
     ``layers/moe/shared/w_up`` ``layers.<i>.moe.shared.w_up``, a hybrid's
     ``layers/ssm/w_z[s, j]`` ``layers.<s>.<j>.ssm.w_z`` and its

@@ -12,10 +12,12 @@ the end.
 
 ``--reduced`` (default) serves the smoke-size config; ``--no-reduced``
 serves the full-size architecture.  Runs on the card; ``--device cpu``
-runs the kernels' plain versions on the CPU.  The dense, MoE and MLA
-families run (``--arch deepseek-v2-lite-16b``, ``--arch
-qwen3-moe-235b-a22b``); architectures whose layer families are not
-ported yet raise ``NotImplementedError`` naming their ROADMAP item.
+runs the kernels' plain versions on the CPU.  Every architecture runs:
+dense, MoE and MLA (``--arch deepseek-v2-lite-16b``), SSM and hybrid
+(``--arch zamba2-7b``), the encoder-decoder (``--arch
+seamless-m4t-large-v2``: each prompt's audio frames through the encoder,
+cross-attention on the cached encoder K / V) and the vision frontend
+with M-RoPE (``--arch qwen2-vl-72b``).
 """
 import argparse
 import time

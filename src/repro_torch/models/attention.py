@@ -18,8 +18,15 @@ latent, ``w_uv`` applied after the weighted latent sum), the cache never
 decompressed.  MLA decode runs no flash-decode kernel, as in the
 reference.
 
-Not ported yet, each raising ``NotImplementedError``: cross-attention
-and the int8 KV cache (see ``lm.WAITING``).
+Cross-attention (the encoder-decoder family) projects the encoder's
+output to K / V once (``make_cross_kv``, cached across decode steps as
+``ck`` / ``cv``) and attends to every encoder position with the plain
+dense softmax, no RoPE and no causal mask (``cross_attend``): the
+reference runs it outside any Pallas kernel, and so it runs no
+flash-decode kernel here either.
+
+Not ported yet, raising ``NotImplementedError``: the int8 KV cache (see
+``lm.WAITING``).
 """
 from __future__ import annotations
 
@@ -30,7 +37,8 @@ import torch
 from .config import ModelConfig
 from .layers import apply_mrope, apply_rope, rmsnorm
 
-__all__ = ["attention", "make_cache", "mla_attention", "sdpa"]
+__all__ = ["attention", "cross_attend", "make_cache", "make_cross_kv",
+           "mla_attention", "sdpa"]
 
 NEG_INF = -1e30
 
@@ -169,13 +177,17 @@ def attention(p, x, cfg: ModelConfig, *, positions,
       cache ``{"k", "v"}``.
     decode: cache given + cache_index (a Python int) -> one-step attention
       against the cache, which is updated in place and returned.
+    cross: kv_x given -> encoder-decoder attention (no causal mask);
+      returns the encoder's K / V as ``{"ck", "cv"}``.
     """
-    if kv_x is not None:
-        raise _waits("enc_dec")
-    if cfg.use_mla:
+    if cfg.use_mla and kv_x is None:
         return mla_attention(p, x, cfg, positions=positions, cache=cache,
                              cache_index=cache_index)
-    del kv_positions
+    if kv_x is not None:                                     # cross-attention
+        k, v = make_cross_kv(p, kv_x, cfg)
+        out = cross_attend(p, x, cfg, (k, v), _scalar_pos(positions, cfg),
+                           kv_positions)
+        return out, {"ck": k, "cv": v}
     b, sq, _ = x.shape
     group = cfg.n_heads // cfg.n_kv_heads
     q, k, v = _project_qkv(p, x, x, cfg)
@@ -215,6 +227,36 @@ def attention(p, x, cfg: ModelConfig, *, positions,
                           kv_len=kv_len)
     out = out.reshape(b, sq, cfg.n_heads * cfg.head_dim)
     return out @ p.wo, cache
+
+
+def make_cross_kv(p, enc_out, cfg: ModelConfig):
+    """Project the encoder's output to K / V once (cached across decode
+    steps): two ``(B, Se, KH, Dh)`` tensors."""
+    b, se, _ = enc_out.shape
+    k = enc_out @ p.wk
+    v = enc_out @ p.wv
+    if "bk" in p:
+        k = k + p.bk
+        v = v + p.bv
+    return (k.reshape(b, se, cfg.n_kv_heads, cfg.head_dim),
+            v.reshape(b, se, cfg.n_kv_heads, cfg.head_dim))
+
+
+def cross_attend(p, x, cfg: ModelConfig, kv, q_pos, kv_pos):
+    """Attention of ``x`` to every position of the encoder's ``kv``: the
+    q projection (with its bias), the dense softmax unmasked, ``wo``."""
+    dtype = x.dtype
+    b, sq, _ = x.shape
+    group = cfg.n_heads // cfg.n_kv_heads
+    q = x @ p.wq
+    if "bq" in p:
+        q = q + p.bq
+    q = q.reshape(b, sq, cfg.n_kv_heads, group, cfg.head_dim)
+    k, v = kv
+    out = _sdpa_dense(q, k.to(dtype), v.to(dtype), q_pos, kv_pos,
+                      causal=False)
+    out = out.reshape(b, sq, cfg.n_heads * cfg.head_dim)
+    return out @ p.wo
 
 
 def make_cache(cfg: ModelConfig, batch: int, max_len: int,

@@ -11,7 +11,11 @@ card, and the engine ('vector'|'matrix'|'auto') is a constructor flag.
 MLA layers decode in the absorbed latent form and SSM layers from their
 recurrent state, and run no flash-decode; a hybrid's shared attention
 block runs it once per super-block (``flash_decode_layers`` counts the
-layers that do).
+layers that do).  An encoder-decoder's prompt batch carries its audio
+frames (``enc_frames``): prefill runs the encoder once and caches every
+decoder layer's cross K / V (``ck`` / ``cv``, the encoder's length), and
+each decode step reads them with the plain dense softmax; only the
+decoder's self-attention runs flash-decode.
 
 Everything lives on ``device``, ``"cuda"`` by default; the CPU runs the
 kernels' plain versions and is what the tests ask for.  The reference's

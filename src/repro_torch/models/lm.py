@@ -1,5 +1,5 @@
-"""Causal LM, dense / MoE / MLA / SSM / hybrid families: a module per
-layer, a layer loop.
+"""Causal LM, every family of ``configs/``: a module per layer, a layer
+loop.
 
 The reference scans a stacked parameter pytree with ``lax.scan``; here
 each layer is an ``nn.Module`` in an ``nn.ModuleList`` and the layer loop
@@ -14,14 +14,21 @@ carry a ``moe`` group (router, experts, ``shared`` experts) in place of
 config (Zamba2) nests its super-blocks as the reference stacks them,
 ``layers.<s>.<j>.ssm.w_z`` for ``layers/ssm/w_z[s, j]``, then ``tail.<i>``
 and the one ``shared_attn`` dense layer applied after every super-block.
+An encoder-decoder config (SeamlessM4T) adds the ``encoder`` stack
+(``encoder.<i>``, dense layers without cross-attention) and ``enc_norm``,
+and its decoder layers carry ``ln_cross`` and a ``cross`` attention
+group; a config with a modality frontend (the audio frames of SeamlessM4T,
+the vision patches of Qwen2-VL) adds the ``frontend`` group (``proj``,
+``bias``), the stub the reference puts in place of the real encoder of
+that modality.
 
 Modes:
   forward      -- full-sequence pass (logits, optional KV / SSM caches)
   prefill      -- prompt pass returning last-position logits + caches
   decode_step  -- one token against the caches, updated in place
 
-The dense GQA, MoE, MLA, SSM and hybrid families are ported.  The others
-raise ``NotImplementedError`` naming the ROADMAP.md item that ports them.
+Every family is ported.  The int8 KV cache and training wait, raising
+``NotImplementedError`` naming the ROADMAP.md item that ports them.
 """
 from __future__ import annotations
 
@@ -30,7 +37,7 @@ from typing import Dict, Mapping, Optional
 import torch
 from torch import nn
 
-from .attention import attention, make_cache
+from .attention import attention, cross_attend, make_cache
 from .config import ModelConfig
 from .layers import dense_init, init_mlp, mlp, rmsnorm
 from .moe import init_moe, moe_ffn
@@ -40,13 +47,9 @@ __all__ = ["Block", "DenseLayer", "LM", "SSMLayer", "cast_params",
            "check_family", "decode_step", "forward", "init_caches",
            "init_params", "loss_fn", "pad_caches", "prefill"]
 
-#: The families and features that wait, with the ROADMAP.md item that
-#: ports each (Queue 1 item 10, in order; 10.1 MoE, 10.2 MLA, 10.3 SSM and
-#: 10.4 hybrid are done).
+#: The features that wait, with the ROADMAP.md item that ports each (Queue
+#: 1 item 10, in order; 10.1-10.6, every model family, are done).
 WAITING = {
-    "enc_dec": "the encoder-decoder family and cross-attention: ROADMAP.md "
-               "Queue 1 item 10.5",
-    "vision": "the M-RoPE / vision frontend: ROADMAP.md Queue 1 item 10.6",
     "int8": "the int8 KV cache: ROADMAP.md Queue 1 item 10.7",
     "train": "loss_fn and training: ROADMAP.md Queue 1 item 10.8",
 }
@@ -56,12 +59,17 @@ def _waits(what: str) -> NotImplementedError:
     return NotImplementedError(f"not ported yet: {WAITING[what]}")
 
 
+#: The modality frontends: vision patches replace the first positions of
+#: the decoder's input, audio frames feed the encoder.
+FRONTENDS = (None, "vision", "audio")
+
+
 def check_family(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` unless the port runs ``cfg``."""
-    if cfg.enc_dec:
-        raise _waits("enc_dec")
-    if cfg.frontend or cfg.rope_kind == "mrope":
-        raise _waits("vision")
+    """Raise ``ValueError`` for a frontend the layer loop does not know;
+    every config in ``configs/`` runs."""
+    if cfg.frontend not in FRONTENDS:
+        raise ValueError(f"{cfg.name}: frontend {cfg.frontend!r} is none "
+                         f"of {FRONTENDS}")
 
 
 # --------------------------------------------------------------------------
@@ -101,7 +109,9 @@ def _group(tensors: Mapping[str, torch.Tensor], prefix: str
 
 class DenseLayer(nn.Module):
     """Pre-norm attention + FFN block: a SwiGLU ``mlp``, or a ``moe``
-    (``mlp`` / ``moe`` is None where the layer has the other)."""
+    (``mlp`` / ``moe`` is None where the layer has the other); an
+    encoder-decoder's decoder layer also has ``ln_cross`` and the
+    ``cross`` attention (None elsewhere)."""
 
     def __init__(self, tensors: Mapping[str, torch.Tensor]):
         super().__init__()
@@ -111,6 +121,10 @@ class DenseLayer(nn.Module):
         moe = _group(tensors, "moe.")
         self.moe = Block(moe) if moe else None
         self.mlp = None if moe else Block(_group(tensors, "mlp."))
+        cross = _group(tensors, "cross.")
+        self.ln_cross = (nn.Parameter(tensors["ln_cross"],
+                                      requires_grad=False) if cross else None)
+        self.cross = Block(cross) if cross else None
 
 
 class SSMLayer(nn.Module):
@@ -128,8 +142,9 @@ class LM(nn.Module):
     ``tensors`` maps ``state_dict`` names (``embed``, ``final_norm``,
     ``head``, ``layers.<i>.ln1``, ``layers.<i>.attn.wq``,
     ``first_dense.<i>.mlp.w_up``, ``layers.<s>.<j>.ssm.w_z``,
-    ``shared_attn.attn.wq``, ...) to the weights, which the module takes
-    over without copying.
+    ``shared_attn.attn.wq``, ``encoder.<i>.attn.wq``,
+    ``layers.<i>.cross.wq``, ``frontend.proj``, ...) to the weights, which
+    the module takes over without copying.
     """
 
     def __init__(self, cfg: ModelConfig,
@@ -142,6 +157,14 @@ class LM(nn.Module):
                                        requires_grad=False)
         if not cfg.tie_embeddings:
             self.head = nn.Parameter(tensors["head"], requires_grad=False)
+        if cfg.frontend:
+            self.frontend = Block(_group(tensors, "frontend."))
+        if cfg.enc_dec:
+            self.encoder = nn.ModuleList(
+                DenseLayer(_group(tensors, f"encoder.{i}."))
+                for i in range(cfg.n_enc_layers))
+            self.enc_norm = nn.Parameter(tensors["enc_norm"],
+                                         requires_grad=False)
         if cfg.family == "ssm":
             self.layers = nn.ModuleList(
                 SSMLayer(_group(tensors, f"layers.{i}."))
@@ -170,8 +193,8 @@ class LM(nn.Module):
 #: Parameters that stay float32 whatever the compute dtype: the reference
 #: applies them in float32 (``rmsnorm``; the SSM's decay, dt bias and skip
 #: in float32 arithmetic) and never casts them.
-_NORMS = ("ln1", "ln2", "final_norm", "kv_norm", "q_norm",
-          "a_log", "dt_bias", "d_skip", "norm")
+_NORMS = ("ln1", "ln2", "ln_cross", "final_norm", "enc_norm", "kv_norm",
+          "q_norm", "a_log", "dt_bias", "d_skip", "norm")
 
 
 def cast_params(p: LM, dtype: torch.dtype) -> LM:
@@ -193,10 +216,12 @@ def cast_params(p: LM, dtype: torch.dtype) -> LM:
 # init
 # --------------------------------------------------------------------------
 
-def _init_attention(gen: torch.Generator, cfg: ModelConfig, device
-                    ) -> Dict[str, torch.Tensor]:
+def _init_attention(gen: torch.Generator, cfg: ModelConfig, device,
+                    cross: bool = False) -> Dict[str, torch.Tensor]:
+    """One attention's weights: MLA's, or GQA's (a cross-attention is
+    always GQA)."""
     d = cfg.d_model
-    if cfg.use_mla:
+    if cfg.use_mla and not cross:
         r, h = cfg.kv_lora_rank, cfg.n_heads
         nope, rd, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
         t = {"wkv_a": dense_init(gen, d, r + rd, device=device),
@@ -223,9 +248,11 @@ def _init_attention(gen: torch.Generator, cfg: ModelConfig, device
 
 
 def _init_dense_layer(gen: torch.Generator, cfg: ModelConfig, device,
-                      d_ff: Optional[int]) -> Dict[str, torch.Tensor]:
+                      d_ff: Optional[int], cross: bool = False
+                      ) -> Dict[str, torch.Tensor]:
     """One layer's weights: attention, then a SwiGLU of ``d_ff``, or the
-    MoE where ``d_ff`` is None."""
+    MoE where ``d_ff`` is None; ``cross`` adds ``ln_cross`` and the
+    cross-attention."""
     d = cfg.d_model
     t = {"ln1": torch.ones(d, device=device),
          "ln2": torch.ones(d, device=device)}
@@ -237,6 +264,10 @@ def _init_dense_layer(gen: torch.Generator, cfg: ModelConfig, device,
     else:
         t.update({f"mlp.{k}": v
                   for k, v in init_mlp(gen, d, d_ff, device=device).items()})
+    if cross:
+        t["ln_cross"] = torch.ones(d, device=device)
+        t.update({f"cross.{k}": v for k, v in
+                  _init_attention(gen, cfg, device, cross=True).items()})
     return t
 
 
@@ -250,11 +281,11 @@ def _init_ssm_layer(gen: torch.Generator, cfg: ModelConfig, device
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> LM:
     """Seeded random float32 weights, drawn on ``device``.
 
-    The reference's distributions (N(0, 1/d_in) matmul and expert
-    weights, 0.02 embedding, head and router, unit norms, zero biases;
-    the SSM's as ``ssm.init_ssm``) from a ``torch.Generator``: not the
-    reference's numbers, which come from ``jax.random`` (carry them with
-    ``carry.params_from_numpy``).
+    The reference's distributions (N(0, 1/d_in) matmul, expert and
+    frontend weights, 0.02 embedding, head and router, unit norms, zero
+    biases; the SSM's as ``ssm.init_ssm``) from a ``torch.Generator``: not
+    the reference's numbers, which come from ``jax.random`` (carry them
+    with ``carry.params_from_numpy``).
     """
     check_family(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -268,6 +299,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> LM:
 
     def add(prefix, layer):
         t.update({f"{prefix}.{k}": v for k, v in layer.items()})
+    if cfg.frontend:
+        t["frontend.proj"] = dense_init(gen, cfg.frontend_dim, d,
+                                        device=device)
+        t["frontend.bias"] = torch.zeros(d, device=device)
     if cfg.family == "ssm":
         for i in range(cfg.n_layers):
             add(f"layers.{i}", _init_ssm_layer(gen, cfg, device))
@@ -285,6 +320,16 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> LM:
     for i in range(nf):
         add(f"first_dense.{i}",
             _init_dense_layer(gen, cfg, device, cfg.dense_d_ff or cfg.d_ff))
+    if cfg.enc_dec:
+        # the encoder's layers: no cross-attention, no MoE; the decoder's
+        # carry cross-attention and a SwiGLU, as the reference's
+        for i in range(cfg.n_enc_layers):
+            add(f"encoder.{i}", _init_dense_layer(gen, cfg, device, cfg.d_ff))
+        t["enc_norm"] = torch.ones(d, device=device)
+        for i in range(cfg.n_layers):
+            add(f"layers.{i}", _init_dense_layer(gen, cfg, device, cfg.d_ff,
+                                                 cross=True))
+        return LM(cfg, t)
     for i in range(cfg.n_layers - nf):
         add(f"layers.{i}", _init_dense_layer(
             gen, cfg, device, None if cfg.n_experts else cfg.d_ff))
@@ -295,25 +340,67 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> LM:
 # embedding / head
 # --------------------------------------------------------------------------
 
+def _embed_inputs(p: LM, cfg: ModelConfig, batch: Dict, dtype):
+    """Token embeddings; a vision config's first ``frontend_len``
+    positions are its patch embeddings through the frontend instead."""
+    x = p.embed[batch["tokens"].long()].to(dtype)
+    if cfg.frontend == "vision":
+        vis = batch["vision_embeds"].to(dtype)               # (B, Fl, Fd)
+        vis = vis @ p.frontend.proj + p.frontend.bias
+        x = torch.cat([vis, x[:, cfg.frontend_len:]], dim=1)
+    return x
+
+
 def _logits(p: LM, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     head = p.embed.T if cfg.tie_embeddings else p.head
     return x @ head.to(x.dtype)
 
 
-def _positions(batch: Dict, b: int, s: int, device) -> torch.Tensor:
+def _positions(cfg: ModelConfig, batch: Dict, b: int, s: int, device
+               ) -> torch.Tensor:
+    """``(B, S)`` positions; M-RoPE's ``(3, B, S)``, the temporal, height
+    and width streams equal, as the reference's."""
     if "positions" in batch:
         return batch["positions"]
-    return torch.arange(s, dtype=torch.int32, device=device)[None].expand(b, s)
+    pos = torch.arange(s, dtype=torch.int32, device=device)[None].expand(b, s)
+    if cfg.rope_kind == "mrope":
+        pos = pos[None].expand(3, b, s)
+    return pos
 
 
 def _dense_block(p: DenseLayer, x, cfg: ModelConfig, *, positions, cache,
-                 cache_index, causal=True):
+                 cache_index, enc_out=None, enc_pos=None, causal=True):
     """One layer: (x, its cache, the MoE's aux losses, ``{}`` for a
-    dense FFN)."""
+    dense FFN).
+
+    A decoder layer with cross-attention builds ``ck`` / ``cv`` from
+    ``enc_out`` in a full pass (into the returned cache), and in a decode
+    step attends to the cached ones at every encoder position, writing
+    only its self-attention's rows (the cache it returns is that one).
+    """
+    self_cache, cross_kv = cache, None
+    if cache is not None and "ck" in cache:
+        cross_kv = (cache["ck"], cache["cv"])
+        self_cache = {k: v for k, v in cache.items() if k not in ("ck", "cv")}
     h, new_cache = attention(p.attn, rmsnorm(p.ln1, x, cfg.norm_eps), cfg,
-                             positions=positions, cache=cache,
+                             positions=positions, cache=self_cache,
                              cache_index=cache_index, causal=causal)
     x = x + h
+    if p.cross is not None and enc_out is not None:    # full pass: build kv
+        h, ckv = attention(p.cross, rmsnorm(p.ln_cross, x, cfg.norm_eps),
+                           cfg, positions=positions, kv_x=enc_out,
+                           kv_positions=enc_pos)
+        x = x + h
+        new_cache = {**new_cache, **ckv}
+    elif p.cross is not None and cross_kv is not None:  # decode: cached kv
+        b, se = x.shape[0], cross_kv[0].shape[1]
+        kv_pos = torch.arange(se, dtype=torch.int32,
+                              device=x.device)[None].expand(b, se)
+        h = cross_attend(p.cross, rmsnorm(p.ln_cross, x, cfg.norm_eps), cfg,
+                         cross_kv,
+                         positions if positions.ndim == 2 else positions[0],
+                         kv_pos)
+        x = x + h
     if p.moe is not None:
         h, aux = moe_ffn(p.moe, rmsnorm(p.ln2, x, cfg.norm_eps), cfg)
     else:
@@ -392,11 +479,14 @@ def forward(p: LM, cfg: ModelConfig, batch: Dict, *,
     ``return_hidden`` skips the LM head.
     """
     check_family(cfg)
-    x = p.embed[batch["tokens"].long()].to(dtype)
+    x = _embed_inputs(p, cfg, batch, dtype)
     b, s, _ = x.shape
-    positions = _positions(batch, b, s, x.device)
+    positions = _positions(cfg, batch, b, s, x.device)
     aux = {"aux_loss": torch.zeros((), device=x.device),
            "z_loss": torch.zeros((), device=x.device)}
+    enc_out = enc_pos = None
+    if cfg.enc_dec:
+        enc_out, enc_pos = _encode(p, cfg, batch, dtype)
     if cfg.family in ("ssm", "hybrid"):
         x, caches = _forward_ssm(p, cfg, x, positions, want_cache)
     else:
@@ -406,7 +496,7 @@ def forward(p: LM, cfg: ModelConfig, batch: Dict, *,
             for layer in getattr(p, name):
                 x, kv, layer_aux = _dense_block(
                     layer, x, cfg, positions=positions, cache=None,
-                    cache_index=None)
+                    cache_index=None, enc_out=enc_out, enc_pos=enc_pos)
                 aux = {k: v + layer_aux.get(k, 0.0) for k, v in aux.items()}
                 if want_cache:
                     kvs.append(kv)
@@ -419,6 +509,22 @@ def forward(p: LM, cfg: ModelConfig, batch: Dict, *,
     return _logits(p, cfg, x), caches, aux
 
 
+def _encode(p: LM, cfg: ModelConfig, batch: Dict, dtype):
+    """The encoder: the audio frontend stub on ``enc_frames`` (B, Se,
+    frontend_dim), then the encoder stack unmasked (``causal=False``) at
+    positions ``0..Se-1``, then ``enc_norm``.  Returns (enc_out,
+    enc_pos)."""
+    frames = batch["enc_frames"].to(dtype)
+    h = frames @ p.frontend.proj + p.frontend.bias
+    b, se, _ = h.shape
+    pos = torch.arange(se, dtype=torch.int32, device=h.device)[None].expand(
+        b, se)
+    for layer in p.encoder:
+        h, _, _ = _dense_block(layer, h, cfg, positions=pos, cache=None,
+                               cache_index=None, causal=False)
+    return rmsnorm(p.enc_norm, h, cfg.norm_eps), pos
+
+
 def loss_fn(*args, **kwargs):
     """Training loss: waits for the training slice."""
     raise _waits("train")
@@ -429,10 +535,13 @@ def loss_fn(*args, **kwargs):
 # --------------------------------------------------------------------------
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
-                dtype=torch.bfloat16, device="cuda") -> Dict:
+                dtype=torch.bfloat16, device="cuda",
+                enc_len: Optional[int] = None) -> Dict:
     """Zero KV caches, ``(L, B, max_len, KH, Dh)`` per k and v (MLA:
     ``(L, B, max_len, r)`` latent and ``(L, B, max_len, rd)`` rope key),
-    one group per layer group, as the reference stacks them.  SSM layers
+    one group per layer group, as the reference stacks them; an
+    encoder-decoder's layers also hold the cross K / V, ``ck`` / ``cv`` of
+    ``(L, B, enc_len or max_len, KH, Dh)``.  SSM layers
     get their float32 states (``ssm.make_ssm_state``) stacked the same
     way: ``"ssm"`` over the layers, or for a hybrid over (super-block,
     layer), beside the shared block's ``"attn"`` per super-block and the
@@ -456,16 +565,21 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
         return out
     base = make_cache(cfg, batch, max_len, dtype, device)
     nf = cfg.first_dense_layers
-    out = {}
-    for group, n in (("attn", cfg.n_layers - nf), ("first_dense", nf)):
-        if n:
-            out[group] = stack(base, n)
+    layer = base
+    if cfg.enc_dec:
+        shape = (batch, enc_len or max_len, cfg.n_kv_heads, cfg.head_dim)
+        layer = {**base, "ck": torch.zeros(shape, dtype=dtype, device=device),
+                 "cv": torch.zeros(shape, dtype=dtype, device=device)}
+    out = {"attn": stack(layer, cfg.n_layers - nf)}
+    if nf:
+        out["first_dense"] = stack(base, nf)
     return out
 
 
 def pad_caches(caches: Dict, max_len: int) -> Dict:
     """Grow prefill caches (seq = prompt len) to the serving max_len; SSM
-    states have no sequence axis and pass as they are."""
+    states have no sequence axis, and the cross K / V (``ck`` / ``cv``)
+    keep the encoder's length: they pass as they are."""
     def pad(name, x):
         if name in ("k", "v", "latent", "k_rope"):
             axis = x.ndim - (3 if name in ("latent", "k_rope") else 4) + 1
@@ -500,12 +614,15 @@ def decode_step(p: LM, cfg: ModelConfig, tokens: torch.Tensor, caches: Dict,
 
     The KV caches are updated in place (position ``cache_index`` of every
     layer), and so are the SSM and conv states, and returned, where the
-    reference returns new ones.
+    reference returns new ones.  An encoder-decoder's cross K / V are
+    read, never written.
     """
     check_family(cfg)
     x = p.embed[tokens.long()].to(dtype)
     b = tokens.shape[0]
     pos = torch.full((b, 1), cache_index, dtype=torch.int32, device=x.device)
+    if cfg.rope_kind == "mrope":
+        pos = pos[None].expand(3, b, 1)
     if cfg.family == "ssm":
         x = _ssm_steps(p.layers, x, cfg, caches["ssm"])
     elif cfg.family == "hybrid":

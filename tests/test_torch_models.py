@@ -1,5 +1,7 @@
 """The LM decode slice: configs, verdict, layers, MoE, MLA, the SSM and
-hybrid families, weights, engine, executor.
+hybrid families, weights, engine, executor (the encoder-decoder and
+vision families in depth: ``test_torch_encdec.py``,
+``test_torch_vision.py``).
 
 The reference runs as its own tests run it (``jax_platform_name=cpu``,
 Pallas flash-decode in interpret mode); the port runs on the CPU with
@@ -58,8 +60,10 @@ MOE = ("deepseek-v2-lite-16b", "qwen3-moe-235b-a22b")
 #: The SSM family (Mamba2) and the hybrid (Zamba2: SSM super-blocks, one
 #: shared attention block after each).
 SSM = ("mamba2-780m", "zamba2-7b")
-RUNNING = DENSE + MOE + SSM
-WAITING = sorted(set(ARCH_NAMES) - set(RUNNING))
+#: The multimodal-frontend families: the encoder-decoder (SeamlessM4T,
+#: audio frames into its encoder) and the vision frontend with M-RoPE.
+FRONTEND = ("seamless-m4t-large-v2", "qwen2-vl-72b")
+RUNNING = DENSE + MOE + SSM + FRONTEND
 ENGINE_KW = dict(max_batch=2, prompt_len=6, max_gen=4, seed=0)
 
 
@@ -218,8 +222,10 @@ def test_params_round_trip_bit_for_bit(name):
         assert a.dtype == b.dtype and np.array_equal(a, b)
     n = sum(t.numel() for t in port.parameters())
     assert n == sum(a.size for a in jax.tree.leaves(tree))
-    # param_count leaves out MLA's kv_norm weights, and the SSM's conv
-    # biases and dt_bias (and an SSM model's ln1)
+    # param_count leaves out MLA's kv_norm weights, the SSM's conv
+    # biases and dt_bias (and an SSM model's ln1), and enc_norm
+    if p.enc_dec:
+        n -= p.d_model
     if not p.use_mla and p.family not in ("ssm", "hybrid"):
         assert n == p.param_count()
 
@@ -501,16 +507,31 @@ def test_executor_matches_reference(engine):
 
 
 # --------------------------------------------------------------------------
-# what waits, and no card
+# every config runs; what waits, and no card
 # --------------------------------------------------------------------------
 
-@pytest.mark.parametrize("name", WAITING)
-def test_waiting_families_raise(name):
-    cfg = p_configs.reduced(p_configs.get_arch(name))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        PEngine(cfg, device="cpu", **ENGINE_KW)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        p_lm.init_params(cfg, device="cpu")
+@pytest.mark.parametrize("name", ARCH_NAMES)
+def test_every_config_builds_an_engine(name):
+    """check_family refuses no config in configs/ (at full size), and each
+    builds an engine whose prompt batch carries the reference's inputs:
+    tokens, and a family's patch embeddings or audio frames, bit for bit
+    (``test_dense_families_run`` generates with each)."""
+    from repro.data.synthetic import make_batch as j_make_batch
+    p_lm.check_family(p_configs.get_arch(name))
+    j, p = (j_configs.reduced(c) for c in _pair(name))
+    eng = PEngine(p, device="cpu", **ENGINE_KW)
+    got = eng.make_prompt_batch(seed=3)
+    want = j_make_batch(j, ENGINE_KW["max_batch"], ENGINE_KW["prompt_len"],
+                        seed=3)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert np.array_equal(got[k].numpy(), np.asarray(want[k])), k
+
+
+def test_unknown_frontend_raises():
+    cfg = dataclasses.replace(_smoke_pair()[1], frontend="video")
+    with pytest.raises(ValueError, match="frontend"):
+        p_lm.check_family(cfg)
 
 
 @pytest.mark.parametrize("name", RUNNING)

@@ -16,12 +16,13 @@ limit (``--parts`` picks some, default all):
   (``_ext.attention_split``), both dtypes and engines, CUDA-event median
   and IQR of 20 calls after 3 warm-ups: the evidence for
   ``_ext.ctas_per_sm``;
-* ``steps``: for Mistral-NeMo-12B, DeepSeek-V2-Lite-16B and
-  Qwen3-MoE-235B-A22B at full width and 2 layers (3 for DeepSeek: its
-  first is dense), batch 4, prompt 32, float32 random weights from seed 0,
-  counts the host synchronisations of one decode step
-  (``torch.cuda.set_sync_debug_mode``) and the kernels it launches
-  (``torch.profiler``), per layer.
+* ``steps``: for Mistral-NeMo-12B, DeepSeek-V2-Lite-16B,
+  Qwen3-MoE-235B-A22B, SeamlessM4T-large-v2 and Qwen2-VL-72B at full
+  width and 2 layers (3 for DeepSeek: its first is dense; SeamlessM4T's
+  encoder 2 as well), batch 4, prompt 32 (Qwen2-VL: its 1024 patch
+  positions and 32), float32 random weights from seed 0, counts the host
+  synchronisations of one decode step (``torch.cuda.set_sync_debug_mode``)
+  and the kernels it launches (``torch.profiler``), per layer.
 
 Needs an NVIDIA card and the CUDA toolkit.
 """
@@ -96,20 +97,23 @@ def main() -> int:
         from repro_torch.configs import get_arch
         from repro_torch.models.engine import DecodeEngine
         for name in ("mistral-nemo-12b", "deepseek-v2-lite-16b",
-                     "qwen3-moe-235b-a22b"):
+                     "qwen3-moe-235b-a22b", "seamless-m4t-large-v2",
+                     "qwen2-vl-72b"):
             full = get_arch(name)
             cfg = dataclasses.replace(
-                full, n_layers=2 + full.first_dense_layers)
-            eng = DecodeEngine(cfg, max_batch=4, prompt_len=32, max_gen=4)
+                full, n_layers=2 + full.first_dense_layers,
+                n_enc_layers=min(full.n_enc_layers, 2))
+            at = 32 + cfg.frontend_len
+            eng = DecodeEngine(cfg, max_batch=4, prompt_len=at, max_gen=4)
             logits, caches = eng.prefill(eng.make_prompt_batch())
             tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
-            eng.decode_step(tok, caches, 32)
+            eng.decode_step(tok, caches, at)
             torch.cuda.synchronize()
             torch.cuda.set_sync_debug_mode("warn")
             try:
                 with warnings.catch_warnings(record=True) as caught:
                     warnings.simplefilter("always")
-                    eng.decode_step(tok, caches, 33)
+                    eng.decode_step(tok, caches, at + 1)
             finally:
                 torch.cuda.set_sync_debug_mode(0)
             syncs = sum("synchronizing" in str(w.message) for w in caught)
@@ -117,7 +121,7 @@ def main() -> int:
             with torch.profiler.profile(activities=[
                     torch.profiler.ProfilerActivity.CPU,
                     torch.profiler.ProfilerActivity.CUDA]) as prof:
-                eng.decode_step(tok, caches, 34)
+                eng.decode_step(tok, caches, at + 2)
                 torch.cuda.synchronize()
             kernels = sum(1 for e in prof.events()
                           if e.device_type == torch.autograd.DeviceType.CUDA)
