@@ -21,7 +21,11 @@ through flash-decode at head dim 112) at full width and depth; then the
 multimodal-frontend families, SeamlessM4T-large-v2 (an audio encoder and
 cross-attention on cached encoder K / V; flash-decode at head dim 64) at
 full width and depth and Qwen2-VL-72B (1024 vision patch positions,
-M-RoPE) at full width, 16 of its 80 layers.  Tile
+M-RoPE) at full width, 16 of its 80 layers; then Mistral-NeMo-12B
+decoding from an int8 KV cache, dequantized into the flash-decode kernel.
+Training: Mistral-NeMo-12B at full width on 8 of its 40 layers takes
+AdamW steps with remat, a crashed run resumes bit for bit, and the
+training launcher runs as a user runs it.  Tile
 tuning and the report: the tunable kernels' tiles searched on the card,
 the STREAM sweep run again with the winners, SCALE / Triad / AXPY served
 with an online tile bandit, and the whole record directory rendered as
@@ -130,6 +134,15 @@ Phases, each fatal on failure:
      + 1) x 16 x 15 launches each (G 8, Dh 128, cache 1536), its step held
      against the dense-attention path; then K4 at both decode shapes as
      in 8c, each S's kv_len edges bit for bit against the full read;
+ 8e. the int8 KV cache: Mistral-NeMo-12B at full width and depth, the
+     model phase's prompts prefilled into float caches, quantized into an
+     int8 cache of 512 by the step's own _int8_cache_update, then per
+     flash-decode engine 16 decode steps on it through the kernel, each
+     held against the dense-attention path on the same int8 cache, 40 x
+     16 launches of the engine's kernel and none of the other; the logit
+     gap and greedy agreement against the float32 cache printed; one
+     layer's cache read at S 32768, kv_len 28672 from a float32 and from an
+     int8 cache (device time beside the bytes each moves);
   9. tile tuning: repro_torch.tuning.tune_op for SCALE / Triad / AXPY,
      the stencils and flash-decode on both engines at their STREAM
      points (phase 4's inputs), every candidate of the family's tile
@@ -153,7 +166,18 @@ Phases, each fatal on failure:
  13. repro_torch.report.write_report on build/runs_torch into
      build/runs_torch/REPORT.md and build/runs_torch/docs/benchmarks/,
      twice, byte-identical, the ceiling column at 0 violations;
- 14. one JSON line of per-kernel numbers, then the result line.
+ 14. training: Mistral-NeMo-12B at full width on 8 of 40 layers, 8 x
+     128 tokens a step from TokenPipeline, float32 (TF32 off), remat,
+     AdamW on a cosine schedule, 6 steps: step 0's loss against forward's
+     masked NLL (1e-5), its gradients with and without remat, step 1's
+     AdamW update of two leaves against the CPU's (1e-6 + 1e-5 |b|), every
+     loss finite, batch 0's loss lower after the 6 steps, an int8
+     gradient-compressed step against the CPU's quantization bit for
+     bit; step time, device time, peak memory, tokens/s, 6 N D over the
+     float32 peak; the restart drill at reduced DeepSeek-7B under
+     deterministic algorithms, bit for bit; python -m
+     repro_torch.launch.train as a subprocess;
+ 15. one JSON line of per-kernel numbers, then the result line.
 
 Exits non-zero, printing no result, without a card or without the
 repository's sources beside this file.
@@ -248,6 +272,10 @@ MOE_QWEN_LAYERS = 6
 ENCDEC_MODEL, VISION_MODEL = "seamless-m4t-large-v2", "qwen2-vl-72b"
 TEACHER_STEPS = 4
 VISION_LAYERS, VISION_PROMPT_LEN = 16, 1520
+#: Phase 14: Mistral-NeMo-12B trained at full width on TRAIN_LAYERS of its
+#: 40 layers (3.52 B float32 parameters: 56 GB with their gradients and
+#: AdamW's two moments), at the reference launcher's batch and sequence.
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 8, 128, 6
 #: The families with a tile space, tuned on both engines in phase 9.
 TUNED = ("scale", "triad", "axpy", "stencil", "attention")
 #: The online bandit's exploration pulls per key (the reference's default).
@@ -757,6 +785,9 @@ def main() -> int:
     # -- 8d. the frontend families: SeamlessM4T-large-v2 and Qwen2-VL-72B --
     model_launches.update(_frontend_phase(torch, hw, card, failures))
 
+    # -- 8e. the int8 KV cache through flash-decode ------------------------
+    model_launches.update(_int8_phase(torch, hw, card, failures))
+
     # -- 9. tile tuning on the card ---------------------------------------
     cache, tune_launches = _tune_phase(torch, hw, card, failures)
     torch.cuda.empty_cache()
@@ -782,7 +813,10 @@ def main() -> int:
     # -- 13. the report -----------------------------------------------------
     _report_phase(card, failures)
 
-    # -- 14. the per-kernel line ---------------------------------------------
+    # -- 14. training ---------------------------------------------------------
+    _train_phase(torch, hw, card, failures)
+
+    # -- 15. the per-kernel line ---------------------------------------------
     kernels = []
     for r in rows:
         entry = {
@@ -810,8 +844,8 @@ def main() -> int:
         if r["name"] == "stencil_matrix":
             entry["dmma_floor_ms"] = r["dmma_floor_ms"]
         if r["op"] == "attention":
-            # flash-decode's own main path is LM decode serving (phases 8
-            # and 8b): its launches summed over the models' sessions
+            # flash-decode's own main path is LM decode (phases 8-8e): its
+            # launches summed over the models' sessions and the int8 steps
             per_model = {m: n.get(r["name"], 0)
                          for m, n in model_launches.items()}
             entry["experiment_launches"] = entry["launches"]
@@ -1163,6 +1197,486 @@ def _frontend_phase(torch, hw, card, failures):
         _k4_model_points(torch, hw, card, failures, cfg,
                          ((s, s), (s, prompt_len + MAX_GEN // 2)))
     return out
+
+
+def _int8_phase(torch, hw, card, failures):
+    """The int8 KV cache through flash-decode (phase 8e).
+
+    Mistral-NeMo-12B at full width and depth, float32 (seeded random
+    weights, ~49 GB), at the model phase's shape: one prefill of
+    MODEL_BATCH prompts of PROMPT_LEN into float caches, whose rows are
+    quantized into an int8 cache of PROMPT_LEN + MAX_GEN with the step's
+    own ``_int8_cache_update``.  Then, per flash-decode engine, MAX_GEN
+    decode steps on the int8 cache through the kernel, each held against
+    the dense-attention path on a copy of the same int8 cache (1e-4 +
+    1e-3 |b|), launches counted; the same tokens on the float32 cache give
+    the logit gap and the greedy agreement the quantization costs
+    (information, not a gate).  Last, one attention layer's cache read at
+    the STREAM point (S 32768, kv_len 28672) from a float32 and from an
+    int8 cache (``int8_k4_point`` lines).  Returns {key: flash-decode
+    launches per kernel}.
+    """
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import _ext
+    from repro_torch.models import lm
+    from repro_torch.models.attention import _int8_cache_update
+    from repro_torch.models.engine import DecodeEngine
+    cfg = get_arch(MODEL)
+    max_len = PROMPT_LEN + MAX_GEN
+    print(f"int8 cache: {cfg.name} at full width and depth, batch "
+          f"{MODEL_BATCH}, prompt {PROMPT_LEN}, {MAX_GEN} steps from an "
+          f"int8 cache of {max_len}", flush=True)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    launches = {}
+    for engine in ("vector", "matrix"):
+        other = "matrix" if engine == "vector" else "vector"
+        kw = dict(max_batch=MODEL_BATCH, prompt_len=PROMPT_LEN,
+                  max_gen=MAX_GEN, dtype=torch.float32, engine=engine,
+                  params=params)
+        eng = DecodeEngine(cfg, **kw)
+        dense = DecodeEngine(cfg, attention_impl="dense", **kw)
+        batch = eng.make_prompt_batch(seed=SEED)
+        logits, floats = eng.prefill(batch)
+        q8 = lm.init_caches(cfg, MODEL_BATCH, max_len, dtype=torch.int8,
+                            device="cuda")
+        for i in range(cfg.n_layers):
+            _int8_cache_update({n: c[i] for n, c in q8["attn"].items()},
+                               floats["attn"]["k"][i, :, :PROMPT_LEN],
+                               floats["attn"]["v"][i, :, :PROMPT_LEN], 0)
+        twin = eng.cache_state(q8)
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        fed, got_logits, err, within = [], [], 0.0, True
+        torch.cuda.synchronize()
+        _ext.reset_launches()
+        t0 = time.perf_counter()
+        for at in range(PROMPT_LEN, max_len):
+            got, q8 = eng.decode_step(tok, q8, at)
+            want, twin = dense.decode_step(tok, twin, at)
+            err = max(err, (got - want).abs().max().item())
+            within = within and torch.allclose(got, want, rtol=STEP_RTOL,
+                                               atol=STEP_ATOL)
+            fed.append(tok)
+            got_logits.append(got[:, 0])
+            tok = torch.argmax(got[:, 0], dim=-1)[:, None]
+        torch.cuda.synchronize()
+        pair_s = time.perf_counter() - t0
+        counts = dict(_ext.LAUNCHES)
+        launches[f"attention_{engine}"] = counts.get(f"attention_{engine}",
+                                                     0)
+        launches.setdefault(f"attention_{other}", 0)
+        want_n = cfg.n_layers * MAX_GEN
+        if launches[f"attention_{engine}"] != want_n:
+            failures.append(f"int8 cache {cfg.name}/{engine}: "
+                            f"{launches[f'attention_{engine}']} flash-decode "
+                            f"launches, expected {want_n}")
+        if counts.get(f"attention_{other}", 0):
+            failures.append(f"int8 cache {cfg.name}/{engine}: the {other} "
+                            f"kernel ran {counts[f'attention_{other}']} times")
+        if not within:
+            failures.append(f"int8 cache {cfg.name}/{engine}: a step differs "
+                            f"from the dense path on the same int8 cache by "
+                            f"{err}")
+        del twin
+        # the same tokens on the float32 cache of the same prefill
+        gap, agree = 0.0, 0.0
+        for at, t, l8 in zip(range(PROMPT_LEN, max_len), fed, got_logits):
+            lf, floats = eng.decode_step(t, floats, at)
+            gap = max(gap, (l8 - lf[:, 0]).abs().max().item())
+            agree += (torch.argmax(l8, dim=-1) == torch.argmax(
+                lf[:, 0], dim=-1)).float().mean().item() / MAX_GEN
+        print(json.dumps({
+            "phase": "int8_cache", "model": cfg.name, "engine": engine,
+            "steps": MAX_GEN, "init_s": init_s,
+            "flash_decode_launches": launches[f"attention_{engine}"],
+            "other_engine_launches": counts.get(f"attention_{other}", 0),
+            "step_vs_dense_max_abs_err": err, "step_within": within,
+            "int8_and_dense_steps_s": pair_s,
+            "logit_gap_vs_float32_cache": gap,
+            "greedy_agree_vs_float32_cache": agree,
+            "card": card}), flush=True)
+        del eng, dense, q8, floats, logits, got_logits, got, want, batch
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    _int8_k4_point(torch, hw, card, failures, cfg)
+    return {f"{MODEL}/int8": launches}
+
+
+def _int8_k4_point(torch, hw, card, failures, cfg):
+    """One attention layer's cache read at Mistral-NeMo-12B's decode shape
+    (B MODEL_BATCH, KH 8, G 4, Dh 128) at the STREAM point (S 32768,
+    kv_len 28672), on both engines: ``_attend_cache`` as a decode step
+    calls it, from a float32 cache (the row written, flash-decode over it)
+    and from an int8 cache (the row quantized, the whole cache dequantized
+    into float32, flash-decode over that).  Device time (torch.profiler),
+    CUDA-event median, each beside the bytes it must move; each output
+    held against the dense path on the same cache."""
+    from repro_torch.core.timing import time_fn
+    from repro_torch.models.attention import (_attend_cache,
+                                              _int8_cache_update, make_cache)
+    b, kh, dh, s = MODEL_BATCH, cfg.n_kv_heads, cfg.head_dim, 32768
+    at = 7 * s // 8 - 1                   # this step's row: kv_len 28672
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    caches = {"float32": make_cache(cfg, b, s, torch.float32, "cuda"),
+              "int8": make_cache(cfg, b, s, torch.int8, "cuda")}
+    for name in ("k", "v"):
+        rows = torch.randn((b, at, kh, dh), generator=gen, device="cuda")
+        caches["float32"][name][:, :at] = rows
+        del rows
+    _int8_cache_update(caches["int8"], caches["float32"]["k"][:, :at],
+                       caches["float32"]["v"][:, :at], 0)
+    q = torch.randn((b, 1, cfg.n_heads, dh), generator=gen, device="cuda")
+    k, v = (torch.randn((b, 1, kh, dh), generator=gen, device="cuda")
+            for _ in range(2))
+    pos = torch.full((b, 1), at, dtype=torch.int32, device="cuda")
+    kv_bytes = 2 * b * (at + 1) * kh * dh * 4       # flash-decode's read
+    moved = {"float32": kv_bytes,
+             # + int8 k / v and their scales read over S, float32 written
+             "int8": kv_bytes + 2 * b * s * kh * (dh + 4 + dh * 4)}
+    dense_cfg = dataclasses.replace(cfg, decode_attention_impl="dense")
+    device_ms = {}
+    for engine in ("vector", "matrix"):
+        ecfg = dataclasses.replace(cfg, decode_attention_impl="registry",
+                                   decode_attention_engine=engine)
+        for kind, cache in caches.items():
+            def fn(cache=cache, ecfg=ecfg):
+                return _attend_cache(q, k, v, cache, at, ecfg, pos)
+            got = fn()
+            want = _attend_cache(q, k, v, cache, at, dense_cfg, pos)
+            err = (got - want).abs().max().item()
+            if not err <= F32_TOL:
+                failures.append(f"int8 K4 point {kind}/{engine}: "
+                                f"max_abs_err {err} against the dense path")
+            t = time_fn(fn, warmup=WARMUP, iters=ITERS)
+            host_us, device_us = _host_and_device_us(torch, fn, calls=20)
+            bound_ms = moved[kind] / hw.mem_bw * 1e3
+            device_ms[(engine, kind)] = (device_us / 1e3 if device_us !=
+                                         "not measured" else device_us)
+            print(json.dumps({
+                "phase": "int8_k4_point", "model": cfg.name,
+                "cache": kind, "engine": engine,
+                "point": f"B{b} KH{kh} G{cfg.n_heads // kh} Dh{dh} S{s} "
+                         f"kv_len {at + 1}",
+                "median_us": t.median_us, "iqr_us": t.iqr_us,
+                "profiler_device_us": device_us, "host_enqueue_us": host_us,
+                "bytes": moved[kind], "bound_ms": bound_ms,
+                "bound_by": "bytes", "max_abs_err": err, "card": card}),
+                flush=True)
+        f32, i8 = device_ms[(engine, "float32")], device_ms[(engine, "int8")]
+        if isinstance(f32, float) and isinstance(i8, float):
+            print(json.dumps({"phase": "int8_k4_ratio", "engine": engine,
+                              "device_ms_int8_over_float32": i8 / f32,
+                              "bytes_int8_over_float32":
+                                  moved["int8"] / moved["float32"],
+                              "card": card}), flush=True)
+    del caches, q, k, v, got, want
+    torch.cuda.empty_cache()
+
+
+def _train_phase(torch, hw, card, failures):
+    """Training on the card (phase 14).
+
+    Mistral-NeMo-12B at full width on TRAIN_LAYERS of its 40 layers
+    (float32, TF32 off; seeded random weights), TRAIN_BATCH x TRAIN_SEQ
+    tokens a step from ``TokenPipeline``, AdamW on
+    ``cosine_schedule(3e-4, 10, TRAIN_STEPS)``, remat on.  Checks: step
+    0's loss against the masked NLL of ``forward``'s logits
+    (``F.cross_entropy``) within 1e-5; step 0's gradients with remat on
+    and off, leaf for leaf, within 1e-6 + 1e-5 |b|; step 1's AdamW update
+    of ``final_norm`` and layer 0's ``wq`` against the same update on the
+    CPU (the global norm summed there from every gradient) within 1e-6 +
+    1e-5 |b|; every loss finite; the loss of batch 0 after TRAIN_STEPS
+    steps below step 0's; one more step with int8 gradient compression,
+    its compressed leaves equal to the CPU's ``_q_int8`` of the same
+    gradients.  Prints step time, device time, peak memory, tokens/s and
+    6 N D over the float32 CUDA-core peak.  Then the restart drill at
+    ``reduced("deepseek-7b")`` under deterministic algorithms, and
+    ``python -m repro_torch.launch.train`` as a subprocess.
+    """
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.timing import busy_us
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch.steps import make_train_step, make_value_and_grad
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.optim.compression import _q_int8, compress_in_place
+    from repro_torch.optim.tree import named_leaves
+
+    full = get_arch(MODEL)
+    cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
+    n_params = cfg.param_count()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"train: {cfg.name} at full width, {TRAIN_LAYERS} of "
+          f"{full.n_layers} layers ({n_params / 1e9:.2f} B float32 "
+          f"parameters), batch {TRAIN_BATCH} x {TRAIN_SEQ}, AdamW, remat",
+          flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    params = lm.init_params(cfg, seed=SEED, device="cuda")
+    pipe = TokenPipeline(cfg, global_batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                         device="cuda")
+    batch0 = pipe.batch(0)
+
+    def close(a, b):
+        return bool(((a - b).abs() <= 1e-6 + 1e-5 * b.abs()).all())
+
+    # step 0's gradients, remat on and off: remat changes no value
+    value_and_grad = make_value_and_grad(cfg, dtype=torch.float32)
+    (loss0, _), grads = value_and_grad(params, batch0)
+    (_, _), no_remat = make_value_and_grad(cfg, dtype=torch.float32,
+                                           remat=False)(params, batch0)
+    remat_err, remat_ok = 0.0, True
+    for (name, a), (_, b) in zip(named_leaves(grads),
+                                 named_leaves(no_remat)):
+        remat_err = max(remat_err, (a - b).abs().max().item())
+        remat_ok = remat_ok and close(a, b)
+    del grads, no_remat
+    if not remat_ok:
+        failures.append(f"train {cfg.name}: step 0's gradients with remat "
+                        f"differ from those without by {remat_err}")
+    # step 0's loss against the masked NLL of forward's logits
+    with torch.no_grad():
+        logits, _, _ = lm.forward(params, cfg, batch0, dtype=torch.float32,
+                                  remat=False)
+        nll = F.cross_entropy(logits.flatten(0, 1),
+                              batch0["labels"].long().flatten(),
+                              reduction="none").view(TRAIN_BATCH, TRAIN_SEQ)
+        mask = batch0["loss_mask"]
+        want0 = ((nll * mask).sum() / mask.sum().clamp_min(1.0)).item()
+        del logits, nll
+    loss_err = abs(loss0.item() - want0)
+    if not loss_err <= 1e-5:
+        failures.append(f"train {cfg.name}: step 0's loss {loss0.item()} "
+                        f"differs from forward's masked NLL {want0} by "
+                        f"{loss_err}")
+
+    opt = AdamW(lr=cosine_schedule(3e-4, 10, TRAIN_STEPS))
+    state = opt.init(params)
+    step_fn = make_train_step(cfg, opt, dtype=torch.float32)
+    losses, step_s, adam_err, adam_ok = [], [], None, None
+    for step in range(TRAIN_STEPS):
+        batch = pipe.batch(step)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if step != 1:
+            params, state, metrics = step_fn(params, state, batch)
+            loss = metrics["loss"]
+        else:
+            # the train step's pieces, the update held against the CPU's
+            (loss, _), grads = value_and_grad(params, batch)
+            params, state, adam_err, adam_ok = _adamw_against_cpu(
+                torch, opt, grads, state, params,
+                ("final_norm", "layers.0.attn.wq"))
+            del grads
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    if not all(map(lambda x: x == x and abs(x) != float("inf"), losses)):
+        failures.append(f"train {cfg.name}: losses {losses}")
+    if not adam_ok:
+        failures.append(f"train {cfg.name}: step 1's AdamW update differs "
+                        f"from the CPU's by {adam_err}")
+    with torch.no_grad():
+        replay, _ = lm.loss_fn(params, cfg, batch0, dtype=torch.float32)
+    replay = replay.item()
+    if not replay < loss0.item():
+        failures.append(f"train {cfg.name}: batch 0's loss {replay} after "
+                        f"{TRAIN_STEPS} steps is not below step 0's "
+                        f"{loss0.item()}")
+    # one more step under torch.profiler: where its device time goes
+    batch = pipe.batch(TRAIN_STEPS)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        params, state, metrics = step_fn(params, state, batch)
+        torch.cuda.synchronize()
+    spans = [(e.name, e.time_range.start, e.time_range.end)
+             for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = busy_us((a, b) for _, a, b in spans) / 1e3
+    by_name = {}
+    for n, a, b in spans:
+        by_name[n[:90]] = by_name.get(n[:90], 0.0) + (b - a) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    del prof
+    # one more with int8 gradient compression: the train step's pieces
+    batch = pipe.batch(TRAIN_STEPS + 1)
+    (loss, _), grads = value_and_grad(params, batch)
+    named = dict(named_leaves(grads))
+    host = {n: named[n].cpu() for n in ("final_norm", "layers.0.attn.wq")}
+    compress_in_place(grads, "int8")
+    compress_ok = all(torch.equal(named[n].cpu(), _q_int8(g))
+                      for n, g in host.items())
+    params, state = opt.update(grads, state, params)
+    del grads, named
+    if not (compress_ok and bool(torch.isfinite(loss))):
+        failures.append(f"train {cfg.name}: int8-compressed step: leaves "
+                        f"equal to the CPU's {compress_ok}, loss "
+                        f"{loss.item()}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    median_s = sorted(step_s[2:])[len(step_s[2:]) // 2]
+    flops = 6.0 * n_params * tokens
+    print(json.dumps({
+        "phase": "train", "model": cfg.name,
+        "reduced": {"n_layers": f"{TRAIN_LAYERS} of {full.n_layers}"},
+        "params": n_params, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "losses": losses, "replayed_batch0_loss": replay,
+        "loss0_vs_forward_nll_err": loss_err,
+        "remat_grads_max_abs_err": remat_err,
+        "adamw_vs_cpu_max_abs_err": adam_err,
+        "int8_compressed_leaves_equal_cpu": compress_ok,
+        "step_s": step_s, "median_step_s_2_to_5": median_s,
+        "device_ms_one_step": device_ms or "not measured",
+        "kernels_one_step": len(spans),
+        "top_kernels_ms": top,
+        "tokens_per_s": tokens / median_s,
+        "model_flops_6ND": flops,
+        "flops_share_of_fp32_peak": flops / median_s / PEAK_OPS,
+        "fp32_peak_source": "67 TFLOP/s, H100 SXM float32 outside the "
+                            "tensor cores (NVIDIA datasheet)",
+        "peak_memory_gb": peak_gb, "phase_s": time.perf_counter() - t_phase,
+        "card": card}), flush=True)
+    del params, state, metrics, batch, batch0, loss0, value_and_grad
+    del step_fn
+    torch.cuda.empty_cache()
+    _restart_drill(torch, failures, card)
+    _launch_train(failures)
+
+
+def _adamw_against_cpu(torch, opt, grads, state, params, names):
+    """``opt.update`` on the card, and the same update of the leaves
+    ``names`` on the CPU from copies of their gradients, moments and
+    weights, the clip scale from every gradient summed on the CPU.
+    Returns (params, the new state, largest gap, all within 1e-6 + 1e-5
+    |b|)."""
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.optim.tree import leaves, named_leaves
+
+    def pick(tree):
+        named = dict(named_leaves(tree))
+        return {n: named[n].detach().cpu().clone() for n in names}
+    sq = torch.zeros(())
+    for g in leaves(grads):
+        sq = sq + torch.sum(torch.square(g.detach().cpu()))
+    scale = torch.clamp_max(opt.clip_norm / (torch.sqrt(sq) + 1e-9), 1.0)
+    cpu_g = {n: g * scale for n, g in pick(grads).items()}
+    cpu_p = pick(params)
+    cpu_state = AdamWState(state.count.cpu(), pick(state.m), pick(state.v))
+    cpu_opt = dataclasses.replace(opt, clip_norm=None)
+    cpu_p, cpu_state = cpu_opt.update(cpu_g, cpu_state, cpu_p)
+    params, state = opt.update(grads, state, params)
+    err, ok = 0.0, True
+    for got_tree, want in ((params, cpu_p), (state.m, cpu_state.m),
+                           (state.v, cpu_state.v)):
+        got = pick(got_tree)
+        for n in names:
+            a, b = got[n], want[n]
+            err = max(err, (a - b).abs().max().item())
+            ok = ok and bool(((a - b).abs() <= 1e-6 + 1e-5 * b.abs()).all())
+    return params, state, err, ok
+
+
+def _restart_drill(torch, failures, card):
+    """``tests/test_fault_tolerance.py``'s drill on the card at
+    ``reduced("deepseek-7b")``: ten steps straight against a crash at step
+    7 and a resume from step 6's checkpoint, the parameters and moments
+    bit for bit, under ``torch.use_deterministic_algorithms(True)`` (the
+    embedding's backward accumulates with atomics otherwise), set for the
+    drill alone with ``CUBLAS_WORKSPACE_CONFIG=:4096:8``."""
+    import os
+
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.optim.tree import leaves
+    from repro_torch.runtime import checkpoint as ckpt
+    from repro_torch.runtime.train_loop import (FailureInjector,
+                                                TrainLoopConfig, run)
+    cfg = reduced(get_arch("deepseek-7b"))
+    opt = AdamW(lr=1e-3, clip_norm=1.0)
+    pipe = TokenPipeline(cfg, global_batch=4, seq=32, device="cuda")
+    step_fn = make_train_step(cfg, opt, dtype=torch.float32)
+
+    def init_state():
+        params = lm.init_params(cfg, seed=SEED, device="cuda")
+        return params, opt.init(params)
+    root = ROOT / "build" / "train_drill"
+    shutil.rmtree(root, ignore_errors=True)
+    saved = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    t0 = time.perf_counter()
+    try:
+        lc = TrainLoopConfig(total_steps=10, ckpt_every=3, log_every=100,
+                             ckpt_dir=str(root / "a"), async_ckpt=False)
+        straight = run(lc, init_state=init_state, step_fn=step_fn,
+                       batch_fn=pipe.batch, log=lambda *_: None)
+        lc2 = dataclasses.replace(lc, ckpt_dir=str(root / "b"),
+                                  async_ckpt=True)
+        try:
+            run(lc2, init_state=init_state, step_fn=step_fn,
+                batch_fn=pipe.batch,
+                injector=FailureInjector(fail_at_step=7),
+                log=lambda *_: None)
+            crashed = False
+        except RuntimeError as exc:
+            if "injected failure" not in str(exc):
+                raise
+            crashed = True
+        resumed_at = ckpt.latest_step(root / "b")
+        resumed = run(lc2, init_state=init_state, step_fn=step_fn,
+                      batch_fn=pipe.batch, log=lambda *_: None)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if saved is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = saved
+    equal = {what: all(torch.equal(a, b) for a, b in
+                       zip(leaves(x), leaves(y)))
+             for what, x, y in (("params", straight[0], resumed[0]),
+                                ("m", straight[1].m, resumed[1].m),
+                                ("v", straight[1].v, resumed[1].v))}
+    print(json.dumps({"phase": "restart_drill", "model": cfg.name,
+                      "crashed_at_7": crashed, "resumed_from": resumed_at,
+                      "bit_equal": equal,
+                      "final_loss": float(resumed[2]["loss"]),
+                      "drill_s": time.perf_counter() - t0, "card": card}),
+          flush=True)
+    if not (crashed and resumed_at == 6 and all(equal.values())):
+        failures.append(f"restart drill {cfg.name}: crashed {crashed}, "
+                        f"resumed from {resumed_at}, bit-equal {equal}")
+    del straight, resumed
+    torch.cuda.empty_cache()
+
+
+def _launch_train(failures):
+    """``python -m repro_torch.launch.train`` on the card, as a user runs
+    it: reduced DeepSeek-7B, 2 steps of 2 x 16."""
+    import os
+    import subprocess
+    ckpts = ROOT / "build" / "train_launch"
+    shutil.rmtree(ckpts, ignore_errors=True)
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           "deepseek-7b", "--reduced", "--steps", "2", "--batch", "2",
+           "--seq", "16", "--ckpt-dir", str(ckpts)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=600, env={**os.environ,
+                                            "PYTHONPATH": str(ROOT / "src")})
+    tail = (proc.stdout + proc.stderr).strip().splitlines()[-4:]
+    print(json.dumps({"phase": "launch_train", "rc": proc.returncode,
+                      "wall_s": time.perf_counter() - t0, "tail": tail}),
+          flush=True)
+    if proc.returncode != 0 or "done: loss=" not in proc.stdout:
+        failures.append(f"launch.train: rc {proc.returncode}: {tail}")
 
 
 def _k4_model_points(torch, hw, card, failures, cfg, points):

@@ -9,7 +9,9 @@ recognised by their fields, so nothing of the reference is imported.
 ``params_from_numpy`` turns the reference's LM parameter pytree (every
 family: stacked layers, a hybrid's super-blocks and shared block, an
 encoder-decoder's encoder stack and cross-attention, a frontend) into
-the port's ``lm.LM`` bit for bit, and ``params_to_numpy`` turns it back.
+the port's ``lm.LM`` bit for bit, and ``params_to_numpy`` turns it back;
+``adamw_state_from_numpy`` / ``adamw_state_to_numpy`` do the same for the
+optimizer's state (its moments and masters of the parameters' shape).
 """
 from __future__ import annotations
 
@@ -19,8 +21,9 @@ from typing import Any
 import numpy as np
 import torch
 
-__all__ = ["cast", "from_numpy", "params_from_numpy", "params_to_numpy",
-           "tensor"]
+__all__ = ["adamw_state_from_numpy", "adamw_state_to_numpy", "cast",
+           "from_numpy", "params_from_numpy", "params_to_numpy",
+           "stacked_axes", "tensor"]
 
 
 def tensor(a: Any, device: str = "cuda") -> torch.Tensor:
@@ -68,7 +71,7 @@ def from_numpy(args: tuple, kwargs: dict, device: str = "cuda"):
 # model weights
 # --------------------------------------------------------------------------
 
-def _stacked_axes(cfg) -> dict:
+def stacked_axes(cfg) -> dict:
     """The reference's stacked layer groups and their leading layer axes:
     one under ``layers``, ``first_dense`` and ``encoder``, and a hybrid's
     two under ``layers`` (super-block, layer) and one under ``tail``.
@@ -92,7 +95,7 @@ def params_from_numpy(tree: dict, cfg, device: str = "cuda"):
     bit for bit.
     """
     from .models.lm import LM
-    axes = _stacked_axes(cfg)
+    axes = stacked_axes(cfg)
     flat = {}
     for key, val in tree.items():
         if not isinstance(val, dict):
@@ -109,7 +112,7 @@ def params_from_numpy(tree: dict, cfg, device: str = "cuda"):
 
 def params_to_numpy(p) -> dict:
     """The inverse of ``params_from_numpy``: the reference's pytree."""
-    axes = _stacked_axes(p.cfg)
+    axes = stacked_axes(p.cfg)
     tree: dict = {}
     stacks: dict = {}
     for key, val in p.state_dict().items():
@@ -149,3 +152,30 @@ def _leaves(tree: dict, prefix: str = ""):
             yield from _leaves(val, f"{prefix}{key}.")
         else:
             yield f"{prefix}{key}", val
+
+
+# --------------------------------------------------------------------------
+# optimizer state
+# --------------------------------------------------------------------------
+
+def adamw_state_from_numpy(state, cfg, device: str = "cuda"):
+    """The reference's ``AdamWState`` of an LM's parameters (numpy
+    leaves; fields ``count``, ``m``, ``v``, ``master``) as the port's
+    ``optim.adamw.AdamWState``, its trees as ``lm.LM`` of ``cfg``."""
+    from .optim.adamw import AdamWState
+
+    def tree(t):
+        return None if t is None else params_from_numpy(t, cfg, device)
+    return AdamWState(tensor(state.count, device), tree(state.m),
+                      tree(state.v), tree(state.master))
+
+
+def adamw_state_to_numpy(state):
+    """The inverse of ``adamw_state_from_numpy``: the port's
+    ``AdamWState`` with the reference's numpy trees as its fields."""
+    from .optim.adamw import AdamWState
+
+    def tree(t):
+        return None if t is None else params_to_numpy(t)
+    return AdamWState(state.count.cpu().numpy(), tree(state.m),
+                      tree(state.v), tree(state.master))

@@ -1,4 +1,6 @@
 """Launchers: ``python -m repro_torch.launch.serve`` (LM serving under
-traffic, on the card).  The reference's other launchers (``train``,
-``steps``, ``dryrun``, ``mesh``, ``cells``, ``report``) wait for ROADMAP
-Queue 1 item 14."""
+traffic) and ``python -m repro_torch.launch.train`` (training with
+checkpoint / restart), on the card; ``steps`` holds their step functions
+and ``cells`` the (architecture x input shape) grid.  The reference's
+other launchers (``dryrun``, ``mesh``, ``report``) wait for ROADMAP Queue
+1 items 13-14."""

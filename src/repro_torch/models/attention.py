@@ -25,8 +25,12 @@ dense softmax, no RoPE and no causal mask (``cross_attend``): the
 reference runs it outside any Pallas kernel, and so it runs no
 flash-decode kernel here either.
 
-Not ported yet, raising ``NotImplementedError``: the int8 KV cache (see
-``lm.WAITING``).
+The int8 KV cache (``make_cache(dtype=torch.int8)``) holds k and v as
+int8 with one float32 scale per (position, KV head), ``max|x| / 127``
+floored at 1e-8; a decode step quantizes its new rows into it
+(``_int8_cache_update``) and dequantizes the whole cache into the compute
+dtype before the flash-decode kernel or the dense path reads it, as the
+reference does.
 """
 from __future__ import annotations
 
@@ -41,11 +45,6 @@ __all__ = ["attention", "cross_attend", "make_cache", "make_cross_kv",
            "mla_attention", "sdpa"]
 
 NEG_INF = -1e30
-
-
-def _waits(what: str) -> NotImplementedError:
-    from .lm import WAITING
-    return NotImplementedError(f"not ported yet: {WAITING[what]}")
 
 
 # --------------------------------------------------------------------------
@@ -199,13 +198,31 @@ def attention(p, x, cfg: ModelConfig, *, positions,
         out = sdpa(q, k, v, qpos, qpos, causal=causal)
         out = out.reshape(b, sq, cfg.n_heads * cfg.head_dim)
         return out @ p.wo, new_cache
+    out = _attend_cache(q, k, v, cache, cache_index, cfg, positions)
+    out = out.reshape(b, sq, cfg.n_heads * cfg.head_dim)
+    return out @ p.wo, cache
+
+
+def _attend_cache(q, k, v, cache: Dict, cache_index: int, cfg: ModelConfig,
+                  positions) -> torch.Tensor:
+    """A decode step's attention against its KV cache: the step's ``k`` /
+    ``v`` rows (B, Sq, KH, Dh) written into ``cache`` in place at
+    ``cache_index`` (quantized where the cache is int8), then ``q`` (B,
+    Sq, H, Dh) against every valid position of the cache in q's dtype.
+    Returns (B, Sq, KH, G, Dh)."""
+    b, sq = q.shape[:2]
+    group = cfg.n_heads // cfg.n_kv_heads
     if cache["k"].dtype == torch.int8:
-        raise _waits("int8")
-    # decode: write the new rows into the cache in place
-    cache["k"][:, cache_index:cache_index + sq] = k.to(cache["k"].dtype)
-    cache["v"][:, cache_index:cache_index + sq] = v.to(cache["v"].dtype)
-    ck = cache["k"].to(x.dtype)
-    cv = cache["v"].to(x.dtype)
+        _int8_cache_update(cache, k, v, cache_index)
+        # int8 -> q.dtype is exact, so the promoting multiply rounds as
+        # the reference's cast-then-multiply does, in one pass
+        ck = cache["k"] * cache["k_scale"][..., None].to(q.dtype)
+        cv = cache["v"] * cache["v_scale"][..., None].to(q.dtype)
+    else:
+        cache["k"][:, cache_index:cache_index + sq] = k.to(cache["k"].dtype)
+        cache["v"][:, cache_index:cache_index + sq] = v.to(cache["v"].dtype)
+        ck = cache["k"].to(q.dtype)
+        cv = cache["v"].to(q.dtype)
     q = q.reshape(b, sq, cfg.n_kv_heads, group, cfg.head_dim)
     if cfg.decode_attention_impl == "registry" and sq == 1:
         # single-token decode through the registered flash-decode op:
@@ -216,17 +233,13 @@ def attention(p, x, cfg: ModelConfig, *, positions,
         out = decode_attention(q[:, 0], ck, cv, cache_index + sq,
                                engine=cfg.decode_attention_engine,
                                backend="cuda" if q.is_cuda else "plain")
-        out = out[:, None]
-    else:
-        kv_len = torch.full((b,), cache_index + sq, dtype=torch.int32,
-                            device=x.device)
-        kv_pos = torch.arange(ck.shape[1], device=x.device)[None].expand(
-            b, ck.shape[1])
-        qpos = _scalar_pos(positions, cfg)
-        out = _sdpa_dense(q, ck, cv, qpos, kv_pos, causal=True,
-                          kv_len=kv_len)
-    out = out.reshape(b, sq, cfg.n_heads * cfg.head_dim)
-    return out @ p.wo, cache
+        return out[:, None]
+    kv_len = torch.full((b,), cache_index + sq, dtype=torch.int32,
+                        device=q.device)
+    kv_pos = torch.arange(ck.shape[1], device=q.device)[None].expand(
+        b, ck.shape[1])
+    return _sdpa_dense(q, ck, cv, _scalar_pos(positions, cfg), kv_pos,
+                       causal=True, kv_len=kv_len)
 
 
 def make_cross_kv(p, enc_out, cfg: ModelConfig):
@@ -271,11 +284,36 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int,
                                       dtype=lat, device=device),
                 "k_rope": torch.zeros((batch, max_len, cfg.qk_rope_dim),
                                       dtype=lat, device=device)}
-    if dtype == torch.int8:
-        raise _waits("int8")
     shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    c = {"k": torch.zeros(shape, dtype=dtype, device=device),
+         "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if dtype == torch.int8:
+        for name in ("k_scale", "v_scale"):
+            c[name] = torch.zeros(shape[:3], dtype=torch.float32,
+                                  device=device)
+    return c
+
+
+def _quantize_int8(x: torch.Tensor):
+    """Rows of ``x`` (..., Dh) as int8 and their float32 scales (...):
+    ``max|x| / 127`` floored at 1e-8, ``round(x / scale)`` (half to even,
+    a true division as the reference's) clipped to +-127."""
+    scale = torch.clamp_min(x.abs().amax(dim=-1) / 127.0, 1e-8)
+    xq = torch.clamp(torch.round(x / scale[..., None]), -127, 127)
+    return xq.to(torch.int8), scale
+
+
+def _int8_cache_update(cache: Dict, k, v, cache_index: int) -> Dict:
+    """Quantize the new K / V rows (B, S, KH, Dh) with per-(position,
+    head) scales and write them, and their scales, into the int8 ``cache``
+    in place at ``cache_index``.  Returns ``cache``."""
+    sq = k.shape[1]
+    kq, ks = _quantize_int8(k.float())
+    vq, vs = _quantize_int8(v.float())
+    for name, val in (("k", kq), ("v", vq), ("k_scale", ks),
+                      ("v_scale", vs)):
+        cache[name][:, cache_index:cache_index + sq] = val
+    return cache
 
 
 # --------------------------------------------------------------------------

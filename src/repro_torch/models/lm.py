@@ -23,15 +23,21 @@ the vision patches of Qwen2-VL) adds the ``frontend`` group (``proj``,
 that modality.
 
 Modes:
-  forward      -- full-sequence pass (logits, optional KV / SSM caches)
+  forward      -- full-sequence pass (logits, optional KV / SSM caches),
+                  each layer recomputed in the backward pass (remat)
+  loss_fn      -- teacher-forced training loss (masked next-token NLL +
+                  the MoE's aux and z losses)
   prefill      -- prompt pass returning last-position logits + caches
-  decode_step  -- one token against the caches, updated in place
+  decode_step  -- one token against the caches (float or int8), updated
+                  in place
 
-Every family is ported.  The int8 KV cache and training wait, raising
-``NotImplementedError`` naming the ROADMAP.md item that ports them.
+The weights are frozen (``requires_grad`` off) as built: serving computes
+no gradients.  Training turns them on (``params.requires_grad_(True)``,
+as ``launch.steps.make_train_step`` does).
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Mapping, Optional
 
 import torch
@@ -43,20 +49,14 @@ from .layers import dense_init, init_mlp, mlp, rmsnorm
 from .moe import init_moe, moe_ffn
 from .ssm import init_ssm, make_ssm_state, ssm_layer
 
-__all__ = ["Block", "DenseLayer", "LM", "SSMLayer", "cast_params",
-           "check_family", "decode_step", "forward", "init_caches",
-           "init_params", "loss_fn", "pad_caches", "prefill"]
+__all__ = ["Block", "DenseLayer", "LM", "SSMLayer", "abstract_params",
+           "cast_params", "cast_view", "check_family", "decode_step",
+           "forward", "init_caches", "init_params", "loss_fn", "pad_caches",
+           "prefill"]
 
-#: The features that wait, with the ROADMAP.md item that ports each (Queue
-#: 1 item 10, in order; 10.1-10.6, every model family, are done).
-WAITING = {
-    "int8": "the int8 KV cache: ROADMAP.md Queue 1 item 10.7",
-    "train": "loss_fn and training: ROADMAP.md Queue 1 item 10.8",
-}
-
-
-def _waits(what: str) -> NotImplementedError:
-    return NotImplementedError(f"not ported yet: {WAITING[what]}")
+#: The reference's model features still to port, with the ROADMAP.md item
+#: of each: none (Queue 1 items 10.1-10.8 are done).
+WAITING: Dict[str, str] = {}
 
 
 #: The modality frontends: vision patches replace the first positions of
@@ -84,7 +84,8 @@ class Block(nn.Module):
     on the reference's dicts.
     """
 
-    def __init__(self, tensors: Mapping[str, torch.Tensor]):
+    def __init__(self, tensors: Mapping[str, torch.Tensor],
+                 view: bool = False):
         super().__init__()
         groups: Dict[str, Dict[str, torch.Tensor]] = {}
         for name, t in tensors.items():
@@ -92,13 +93,23 @@ class Block(nn.Module):
             if rest:
                 groups.setdefault(head, {})[rest] = t
             else:
-                self.register_parameter(name,
-                                        nn.Parameter(t, requires_grad=False))
+                _hold(self, name, t, view)
         for head, sub in groups.items():
-            self.add_module(head, Block(sub))
+            self.add_module(head, Block(sub, view))
 
     def __contains__(self, name: str) -> bool:
-        return name in self._parameters or name in self._modules
+        return (name in self._parameters or name in self._buffers
+                or name in self._modules)
+
+
+def _hold(module: nn.Module, name: str, t: torch.Tensor, view: bool):
+    """``t`` as ``module.<name>``: a frozen parameter, or in a view the
+    tensor itself (a buffer), which keeps a view made from parameters in
+    their autograd graph."""
+    if view:
+        module.register_buffer(name, t)
+    else:
+        module.register_parameter(name, nn.Parameter(t, requires_grad=False))
 
 
 def _group(tensors: Mapping[str, torch.Tensor], prefix: str
@@ -113,27 +124,31 @@ class DenseLayer(nn.Module):
     encoder-decoder's decoder layer also has ``ln_cross`` and the
     ``cross`` attention (None elsewhere)."""
 
-    def __init__(self, tensors: Mapping[str, torch.Tensor]):
+    def __init__(self, tensors: Mapping[str, torch.Tensor],
+                 view: bool = False):
         super().__init__()
-        self.ln1 = nn.Parameter(tensors["ln1"], requires_grad=False)
-        self.ln2 = nn.Parameter(tensors["ln2"], requires_grad=False)
-        self.attn = Block(_group(tensors, "attn."))
+        _hold(self, "ln1", tensors["ln1"], view)
+        _hold(self, "ln2", tensors["ln2"], view)
+        self.attn = Block(_group(tensors, "attn."), view)
         moe = _group(tensors, "moe.")
-        self.moe = Block(moe) if moe else None
-        self.mlp = None if moe else Block(_group(tensors, "mlp."))
+        self.moe = Block(moe, view) if moe else None
+        self.mlp = None if moe else Block(_group(tensors, "mlp."), view)
         cross = _group(tensors, "cross.")
-        self.ln_cross = (nn.Parameter(tensors["ln_cross"],
-                                      requires_grad=False) if cross else None)
-        self.cross = Block(cross) if cross else None
+        if cross:
+            _hold(self, "ln_cross", tensors["ln_cross"], view)
+        else:
+            self.ln_cross = None
+        self.cross = Block(cross, view) if cross else None
 
 
 class SSMLayer(nn.Module):
     """Pre-norm Mamba2 block: ``ln1`` then the ``ssm`` mixer's weights."""
 
-    def __init__(self, tensors: Mapping[str, torch.Tensor]):
+    def __init__(self, tensors: Mapping[str, torch.Tensor],
+                 view: bool = False):
         super().__init__()
-        self.ln1 = nn.Parameter(tensors["ln1"], requires_grad=False)
-        self.ssm = Block(_group(tensors, "ssm."))
+        _hold(self, "ln1", tensors["ln1"], view)
+        self.ssm = Block(_group(tensors, "ssm."), view)
 
 
 class LM(nn.Module):
@@ -144,49 +159,51 @@ class LM(nn.Module):
     ``first_dense.<i>.mlp.w_up``, ``layers.<s>.<j>.ssm.w_z``,
     ``shared_attn.attn.wq``, ``encoder.<i>.attn.wq``,
     ``layers.<i>.cross.wq``, ``frontend.proj``, ...) to the weights, which
-    the module takes over without copying.
+    the module takes over without copying.  A ``view`` holds them as they
+    are (buffers, not parameters): ``cast_view`` casts an LM's weights
+    inside the autograd graph so.
     """
 
     def __init__(self, cfg: ModelConfig,
-                 tensors: Mapping[str, torch.Tensor]):
+                 tensors: Mapping[str, torch.Tensor], view: bool = False):
         super().__init__()
         check_family(cfg)
         self.cfg = cfg
-        self.embed = nn.Parameter(tensors["embed"], requires_grad=False)
-        self.final_norm = nn.Parameter(tensors["final_norm"],
-                                       requires_grad=False)
+        _hold(self, "embed", tensors["embed"], view)
+        _hold(self, "final_norm", tensors["final_norm"], view)
         if not cfg.tie_embeddings:
-            self.head = nn.Parameter(tensors["head"], requires_grad=False)
+            _hold(self, "head", tensors["head"], view)
         if cfg.frontend:
-            self.frontend = Block(_group(tensors, "frontend."))
+            self.frontend = Block(_group(tensors, "frontend."), view)
         if cfg.enc_dec:
             self.encoder = nn.ModuleList(
-                DenseLayer(_group(tensors, f"encoder.{i}."))
+                DenseLayer(_group(tensors, f"encoder.{i}."), view)
                 for i in range(cfg.n_enc_layers))
-            self.enc_norm = nn.Parameter(tensors["enc_norm"],
-                                         requires_grad=False)
+            _hold(self, "enc_norm", tensors["enc_norm"], view)
         if cfg.family == "ssm":
             self.layers = nn.ModuleList(
-                SSMLayer(_group(tensors, f"layers.{i}."))
+                SSMLayer(_group(tensors, f"layers.{i}."), view)
                 for i in range(cfg.n_layers))
             return
         if cfg.family == "hybrid":
             n_super, n_tail = divmod(cfg.n_layers, cfg.attn_every)
             self.layers = nn.ModuleList(
-                nn.ModuleList(SSMLayer(_group(tensors, f"layers.{s}.{j}."))
+                nn.ModuleList(SSMLayer(_group(tensors, f"layers.{s}.{j}."),
+                                       view)
                               for j in range(cfg.attn_every))
                 for s in range(n_super))
             self.tail = nn.ModuleList(
-                SSMLayer(_group(tensors, f"tail.{i}."))
+                SSMLayer(_group(tensors, f"tail.{i}."), view)
                 for i in range(n_tail))
-            self.shared_attn = DenseLayer(_group(tensors, "shared_attn."))
+            self.shared_attn = DenseLayer(_group(tensors, "shared_attn."),
+                                          view)
             return
         nf = cfg.first_dense_layers
         self.first_dense = nn.ModuleList(
-            DenseLayer(_group(tensors, f"first_dense.{i}."))
+            DenseLayer(_group(tensors, f"first_dense.{i}."), view)
             for i in range(nf))
         self.layers = nn.ModuleList(
-            DenseLayer(_group(tensors, f"layers.{i}."))
+            DenseLayer(_group(tensors, f"layers.{i}."), view)
             for i in range(cfg.n_layers - nf))
 
 
@@ -195,6 +212,12 @@ class LM(nn.Module):
 #: in float32 arithmetic) and never casts them.
 _NORMS = ("ln1", "ln2", "ln_cross", "final_norm", "enc_norm", "kv_norm",
           "q_norm", "a_log", "dt_bias", "d_skip", "norm")
+
+
+def _cast(tensors: Mapping[str, torch.Tensor], dtype: torch.dtype
+          ) -> Dict[str, torch.Tensor]:
+    return {k: (v if k.split(".")[-1] in _NORMS else v.to(dtype))
+            for k, v in tensors.items()}
 
 
 def cast_params(p: LM, dtype: torch.dtype) -> LM:
@@ -207,9 +230,19 @@ def cast_params(p: LM, dtype: torch.dtype) -> LM:
     """
     if dtype == torch.float32:
         return p
-    tensors = {k: (v if k.split(".")[-1] in _NORMS else v.to(dtype))
-               for k, v in p.state_dict().items()}
-    return LM(p.cfg, tensors)
+    return LM(p.cfg, _cast(p.state_dict(), dtype))
+
+
+def cast_view(p: LM, dtype: torch.dtype, norms: bool = False) -> LM:
+    """``p``'s weights in ``dtype`` (the norms too with ``norms``), cast
+    inside the autograd graph: gradients of a loss computed on the view
+    reach ``p``'s own parameters.  The reference casts at every use; one
+    cast per step rounds the same."""
+    tensors = p.state_dict(keep_vars=True)
+    if norms:
+        tensors = {k: (v.to(dtype) if v.dtype == torch.float32 else v)
+                   for k, v in tensors.items()}
+    return LM(p.cfg, _cast(tensors, dtype), view=True)
 
 
 # --------------------------------------------------------------------------
@@ -285,10 +318,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> LM:
     frontend weights, 0.02 embedding, head and router, unit norms, zero
     biases; the SSM's as ``ssm.init_ssm``) from a ``torch.Generator``: not
     the reference's numbers, which come from ``jax.random`` (carry them
-    with ``carry.params_from_numpy``).
+    with ``carry.params_from_numpy``).  On the ``meta`` device the shapes
+    alone (``abstract_params``).
     """
     check_family(cfg)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = (None if torch.device(device).type == "meta" else
+           torch.Generator(device=device).manual_seed(seed))
     d = cfg.d_model
     t = {"embed": torch.randn((cfg.vocab_padded, d), generator=gen,
                               device=device).mul_(0.02),
@@ -334,6 +369,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> LM:
         add(f"layers.{i}", _init_dense_layer(
             gen, cfg, device, None if cfg.n_experts else cfg.d_ff))
     return LM(cfg, t)
+
+
+def abstract_params(cfg: ModelConfig) -> LM:
+    """The parameters' shapes and dtypes without storage: an ``LM`` on the
+    ``meta`` device (the reference's ``eval_shape`` of ``init_params``)."""
+    return init_params(cfg, device="meta")
 
 
 # --------------------------------------------------------------------------
@@ -423,50 +464,90 @@ def _stack(caches) -> Dict[str, torch.Tensor]:
     return {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
 
 
-def _ssm_stack(p_layers, x, cfg: ModelConfig, want_cache: bool):
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat_policy="dots"``: keep the
+    outputs of plain matmuls (``aten.mm`` / ``addmm``, the reference's
+    ``dots_with_no_batch_dims_saveable``), recompute everything else."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, remat: bool, remat_policy: Optional[str] = None):
+    """``fn`` recomputed in the backward pass instead of keeping its
+    activations (the reference's ``jax.checkpoint`` of a layer body) when
+    ``remat`` is set and autograd records; "dots" keeps the matmuls'
+    outputs.  The values are the same either way."""
+    if not (remat and torch.is_grad_enabled()):
+        return fn
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+    kw = {}
+    if remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
+
+
+def _ssm_stack(p_layers, x, cfg: ModelConfig, want_cache: bool,
+               block=_ssm_block):
     """The chunked pass through a run of SSM layers: (x, their states
     stacked on a leading layer axis, or None)."""
     states = []
     for layer in p_layers:
-        x, st = _ssm_block(layer, x, cfg, state=None)
+        x, st = block(layer, x, cfg, state=None)
         if want_cache:
             states.append(st)
     return x, (_stack(states) if states else None)
 
 
-def _forward_ssm(p: LM, cfg: ModelConfig, x, positions, want_cache: bool):
+def _super_block(p: LM, layers, x, cfg: ModelConfig, positions,
+                 want_cache: bool):
+    """One hybrid super-block: its SSM layers, then the shared block."""
+    x, st = _ssm_stack(layers, x, cfg, want_cache)
+    x, kv, _ = _dense_block(p.shared_attn, x, cfg, positions=positions,
+                            cache=None, cache_index=None)
+    return x, st, kv
+
+
+def _forward_ssm(p: LM, cfg: ModelConfig, x, positions, want_cache: bool,
+                 remat):
     """The SSM and hybrid layer stacks of ``forward``: (x, caches).
 
     The hybrid's states stack as the reference's nested scan does:
     ``(n_super, attn_every, ...)`` under ``"ssm"``, the shared block's KV
     caches ``(n_super, ...)`` under ``"attn"``, the tail's under
-    ``"tail"``.
+    ``"tail"``.  ``remat`` wraps each rematerialized body (an SSM layer, a
+    hybrid's super-block and tail layer) as the reference's scans do.
     """
     caches = {}
     if cfg.family == "ssm":
-        x, caches["ssm"] = _ssm_stack(p.layers, x, cfg, want_cache)
+        x, caches["ssm"] = _ssm_stack(p.layers, x, cfg, want_cache,
+                                      remat(_ssm_block))
         return x, caches
     states, kvs = [], []
-    for block in p.layers:
-        x, st = _ssm_stack(block, x, cfg, want_cache)
-        x, kv, _ = _dense_block(p.shared_attn, x, cfg, positions=positions,
-                                cache=None, cache_index=None)
+    super_block = remat(_super_block)
+    for layers in p.layers:
+        x, st, kv = super_block(p, layers, x, cfg, positions, want_cache)
         if want_cache:
             states.append(st)
             kvs.append(kv)
     if want_cache:
         caches["ssm"], caches["attn"] = _stack(states), _stack(kvs)
     if len(p.tail):
-        x, caches["tail"] = _ssm_stack(p.tail, x, cfg, want_cache)
+        x, caches["tail"] = _ssm_stack(p.tail, x, cfg, want_cache,
+                                       remat(_ssm_block))
     return x, caches
 
 
 # --------------------------------------------------------------------------
-# forward (prefill)
+# forward (train / prefill)
 # --------------------------------------------------------------------------
 
 def forward(p: LM, cfg: ModelConfig, batch: Dict, *,
             dtype=torch.bfloat16, want_cache: bool = False,
+            remat: bool = True, remat_policy: Optional[str] = None,
             return_hidden: bool = False):
     """Full-sequence pass.  Returns (logits, caches|None, aux).
 
@@ -476,7 +557,12 @@ def forward(p: LM, cfg: ModelConfig, batch: Dict, *,
     dense layers; an SSM config's is ``{"ssm": {"ssm", "conv_x",
     "conv_bc"}}``, a hybrid's as ``_forward_ssm`` says.  ``aux`` holds the
     MoE layers' losses summed, zero for the other families.
-    ``return_hidden`` skips the LM head.
+    ``return_hidden`` skips the LM head.  ``remat`` recomputes each layer
+    in the backward pass (``remat_policy="dots"`` keeps the matmuls'
+    outputs), where autograd records; the encoder's layers always are, as
+    the reference's.  The reference's ``unroll`` and ``act_spec`` (a
+    scan's unrolling, a sharding constraint) have no counterpart in a
+    Python layer loop on one device.
     """
     check_family(cfg)
     x = _embed_inputs(p, cfg, batch, dtype)
@@ -487,14 +573,18 @@ def forward(p: LM, cfg: ModelConfig, batch: Dict, *,
     enc_out = enc_pos = None
     if cfg.enc_dec:
         enc_out, enc_pos = _encode(p, cfg, batch, dtype)
+
+    def wrap(fn):
+        return _remat(fn, remat, remat_policy)
     if cfg.family in ("ssm", "hybrid"):
-        x, caches = _forward_ssm(p, cfg, x, positions, want_cache)
+        x, caches = _forward_ssm(p, cfg, x, positions, want_cache, wrap)
     else:
         caches = {}
+        block = wrap(_dense_block)
         for group, name in _GROUPS:
             kvs = []
             for layer in getattr(p, name):
-                x, kv, layer_aux = _dense_block(
+                x, kv, layer_aux = block(
                     layer, x, cfg, positions=positions, cache=None,
                     cache_index=None, enc_out=enc_out, enc_pos=enc_pos)
                 aux = {k: v + layer_aux.get(k, 0.0) for k, v in aux.items()}
@@ -519,15 +609,79 @@ def _encode(p: LM, cfg: ModelConfig, batch: Dict, dtype):
     b, se, _ = h.shape
     pos = torch.arange(se, dtype=torch.int32, device=h.device)[None].expand(
         b, se)
+    block = _remat(_dense_block, True)
     for layer in p.encoder:
-        h, _, _ = _dense_block(layer, h, cfg, positions=pos, cache=None,
-                               cache_index=None, causal=False)
+        h, _, _ = block(layer, h, cfg, positions=pos, cache=None,
+                        cache_index=None, causal=False)
     return rmsnorm(p.enc_norm, h, cfg.norm_eps), pos
 
 
-def loss_fn(*args, **kwargs):
-    """Training loss: waits for the training slice."""
-    raise _waits("train")
+# --------------------------------------------------------------------------
+# loss
+# --------------------------------------------------------------------------
+
+def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-position negative log-likelihood in float32.  The gold logit is
+    gathered: the reference contracts a one-hot, whose other terms add
+    exact zeros, so the value is the same."""
+    lf = logits.float()
+    gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    return torch.logsumexp(lf, dim=-1) - gold
+
+
+def _chunk_nll(hidden, labels, mask, head):
+    """One sequence chunk's LM head and masked NLL sum."""
+    return (_nll(hidden @ head, labels) * mask).sum()
+
+
+def loss_fn(p: LM, cfg: ModelConfig, batch: Dict, *, dtype=torch.bfloat16,
+            remat_policy: Optional[str] = None, loss_chunks: int = 0,
+            remat: bool = True):
+    """Teacher-forced loss: (loss, metrics).
+
+    The mean NLL of ``batch["labels"]`` over the positions ``loss_mask``
+    keeps (all without one), plus the MoE layers' aux and z losses;
+    metrics ``{"loss", "nll", "aux_loss", "z_loss"}``.  The weights are
+    used in ``dtype`` (norms float32) through ``cast_view``, so the
+    gradients reach ``p``'s own parameters.  ``loss_chunks`` > 0 runs
+    the LM head and softmax over that many sequence chunks, each
+    recomputed in the backward pass, so the (B, S, V) logits never exist
+    at once.
+    """
+    if dtype != torch.float32:
+        p = cast_view(p, dtype)
+    labels = batch["labels"]
+    mask = batch.get("loss_mask")
+    if loss_chunks:
+        hidden, _, aux = forward(p, cfg, batch, dtype=dtype, remat=remat,
+                                 remat_policy=remat_policy,
+                                 return_hidden=True)
+        b, s, _ = hidden.shape
+        if s % loss_chunks:
+            raise ValueError(f"loss_chunks {loss_chunks} must divide the "
+                             f"sequence length {s}")
+        c = s // loss_chunks
+        if mask is None:
+            mask = torch.ones((b, s), device=hidden.device)
+        mask = mask.float()
+        head = (p.embed.T if cfg.tie_embeddings else p.head).to(hidden.dtype)
+        chunk = _remat(_chunk_nll, True)
+        tot = torch.zeros((), device=hidden.device)
+        cnt = torch.zeros((), device=hidden.device)
+        for i in range(loss_chunks):
+            sl = slice(i * c, (i + 1) * c)
+            tot = tot + chunk(hidden[:, sl], labels[:, sl], mask[:, sl],
+                              head)
+            cnt = cnt + mask[:, sl].sum()
+        nll_mean = tot / torch.clamp_min(cnt, 1.0)
+    else:
+        logits, _, aux = forward(p, cfg, batch, dtype=dtype, remat=remat,
+                                 remat_policy=remat_policy)
+        nll = _nll(logits, labels)
+        mask = torch.ones_like(nll) if mask is None else mask.float()
+        nll_mean = (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    loss = nll_mean + aux["aux_loss"] + aux["z_loss"]
+    return loss, {"loss": loss, "nll": nll_mean, **aux}
 
 
 # --------------------------------------------------------------------------
@@ -655,6 +809,6 @@ def prefill(p: LM, cfg: ModelConfig, batch: Dict, *, dtype=torch.bfloat16):
     every position's logits and keeps the last.
     """
     x, caches, _ = forward(p, cfg, batch, dtype=dtype, want_cache=True,
-                           return_hidden=True)
+                           remat=False, return_hidden=True)
     return _logits(p, cfg, x[:, -1:]), caches
 

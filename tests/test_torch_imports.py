@@ -50,6 +50,36 @@ def test_fresh_interpreter_loads_no_jax_or_reference():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+#: The training slice's modules: optimizer, pipeline, checkpoints, the
+#: loop and the launcher.
+TRAINING = ("repro_torch.optim.adamw", "repro_torch.optim.compression",
+            "repro_torch.optim.tree", "repro_torch.data.pipeline",
+            "repro_torch.runtime.checkpoint", "repro_torch.runtime.train_loop",
+            "repro_torch.launch.cells", "repro_torch.launch.steps",
+            "repro_torch.launch.train")
+
+
+def test_training_modules_load_no_jax_or_reference():
+    """The training modules, imported on their own in a fresh
+    interpreter, pull in neither JAX nor the reference; each is among the
+    sources the AST scan below reads."""
+    names = {str(p.relative_to(REPO / "src"))[:-3].replace("/", ".")
+             for p in _port_files()[:-1]}
+    assert set(TRAINING) <= names
+    code = ("import sys\n"
+            f"for m in {TRAINING!r}:\n"
+            "    __import__(m)\n"
+            "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    env = {"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin",
+           "JAX_PLATFORMS": "cpu"}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 @pytest.mark.parametrize("path", _port_files(),
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_source_imports_no_jax_or_reference(path):

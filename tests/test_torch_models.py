@@ -548,11 +548,20 @@ def test_dense_families_run(name):
 
 
 def test_training_and_int8_cache_wait():
+    """Nothing waits any more: ``loss_fn`` and the int8 cache run (their
+    parity with the reference: ``test_torch_train.py`` and
+    ``test_torch_int8_cache.py``)."""
     _, p = _smoke_pair()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        p_lm.loss_fn(None, p, {})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_cache(p, 1, 8, torch.int8, "cpu")
+    assert p_lm.WAITING == {}
+    params = p_lm.init_params(p, device="cpu")
+    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32),
+             "labels": torch.ones((1, 4), dtype=torch.int32)}
+    loss, metrics = p_lm.loss_fn(params, p, batch, dtype=torch.float32)
+    assert bool(torch.isfinite(loss)) and set(metrics) == {
+        "loss", "nll", "aux_loss", "z_loss"}
+    cache = make_cache(p, 1, 8, torch.int8, "cpu")
+    assert cache["k"].dtype == torch.int8
+    assert cache["k_scale"].shape == (1, 8, p.n_kv_heads)
 
 
 def test_default_device_raises_without_card():
