@@ -161,6 +161,27 @@ Phases, each fatal on failure:
      log (one per batch plus one warm-up per arm pulled), the record's
      online_ceiling passing, BENCH_serve_<k>_online.json and
      tuned-online.json written;
+ 11b. the sharded sweep: bench_kernels.records_for at every family's
+     STREAM points, both engines and both dtypes, split 4 ways
+     (repro_torch.sharding, one shard after another on the card; K4 at
+     Mistral-NeMo's KH 8, 2 heads a shard, and at Qwen3-MoE's G 16, KH 4,
+     1 head a shard), launch counts reset before and read after; every
+     combined output bit for bit against the unsharded kernel's on the
+     card, and again at 3 shards, untimed (uneven ranges, the stencils'
+     clipped halos); build/runs_torch/BENCH_<kernel>_mesh4.json written
+     and verified (the shard claims included, 0 violations); one line per
+     point with parallel / serial time, each shard's wall beside its time
+     on the card (20 queued calls between one CUDA-event pair), and the
+     unsharded kernel's time from phase 6;
+ 11c. elastic serving: ElasticSession under ChaosInjector.seeded(0, 0.5,
+     max_width=4) at 2 shards for SCALE at phase 7's traffic and for 2d5pt
+     and float32 flash-decode at 200 req/s; every re-dispatch exact, every
+     resize reshard_exact, availability >= 0.99, elastic_integrity passing
+     (BENCH_serve_<kernel>_mesh2.json); checkpoint_session mid-session and
+     ElasticSession.restore landing on the uninterrupted run's checksum;
+     then python -m repro_torch.bench serve --mesh 4 and --online-tune
+     --slo-route (an overload: router widths above 1) into
+     build/runs_torch_serve/, verified and gated;
  12. repro_torch.bench.compare with build/runs_torch as both baseline and
      candidate, which must pass (the regret gate joins the online pairs);
  13. repro_torch.report.write_report on build/runs_torch into
@@ -185,6 +206,7 @@ repository's sources beside this file.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import pathlib
 import re
@@ -280,6 +302,18 @@ TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 8, 128, 6
 TUNED = ("scale", "triad", "axpy", "stencil", "attention")
 #: The online bandit's exploration pulls per key (the reference's default).
 ONLINE_BUDGET = 8
+#: Phase 11b: the STREAM points split this many ways, then checked
+#: untimed at SHARD_UNEVEN shards (uneven ranges, clipped halos).
+SHARD_MESH, SHARD_UNEVEN = 4, 3
+#: Phase 11c: elastic sessions start at ELASTIC_WIDTH shards and may grow
+#: to ELASTIC_MAX; the checkpoint drill stops after this many batches.
+ELASTIC_WIDTH, ELASTIC_MAX, ELASTIC_STOP = 2, 4, 100
+#: Phase 11c's per-request sessions: 2d5pt at its STREAM side and
+#: flash-decode at a cache of this length (make_inputs' KH 2 shape).
+ELASTIC_STENCIL, ELASTIC_ATTENTION = 8192, 32768
+#: Phase 11c's SLO-routed session: an overload of small requests, so the
+#: queue outgrows the router's grow depth while headroom is thin.
+ROUTE_SIZE, ROUTE_RPS, ROUTE_DURATION_S = 2**20, 200000.0, 0.05
 
 
 class SmokeFailure(RuntimeError):
@@ -800,6 +834,14 @@ def main() -> int:
     online_launches = _online_phase(torch, card, failures)
     torch.cuda.empty_cache()
 
+    # -- 11b. the sharded sweep ---------------------------------------------
+    sharded_launches = _sharded_phase(torch, hw, card, failures)
+    torch.cuda.empty_cache()
+
+    # -- 11c. elastic serving -----------------------------------------------
+    elastic_launches = _elastic_phase(torch, card, failures)
+    torch.cuda.empty_cache()
+
     # -- 12. the compare gate -----------------------------------------------
     from repro_torch.bench import compare
     runs = str(ROOT / "build" / "runs_torch")
@@ -829,6 +871,8 @@ def main() -> int:
             "tune_launches": tune_launches.get(r["name"], 0),
             "tuned_sweep_launches": tuned_launches.get(r["name"], 0),
             "online_serving_launches": online_launches.get(r["name"], 0),
+            "sharded_launches": sharded_launches.get(r["name"], 0),
+            "elastic_launches": elastic_launches.get(r["name"], 0),
             "max_abs_err": r["err"],
             "ms": r["t"].median_us / 1e3,
             "plain_ms": r["plain"].median_us / 1e3,
@@ -2438,6 +2482,295 @@ def _online_phase(torch, card, failures):
         "online_entries": len(entries),
         "phase_s": time.perf_counter() - t_phase, "card": card}}),
         flush=True)
+    return launches
+
+
+def _sharded_phase(torch, hw, card, failures):
+    """The sweep's STREAM points split SHARD_MESH ways on the card (and
+    SHARD_UNEVEN ways, untimed), every combined output held bit for bit
+    against the unsharded kernel's, the records written beside phase 6's
+    and verified.  Returns the sweep's launches per kernel.
+    """
+    from repro_torch.bench import bench_kernels
+    from repro_torch.bench.common import bench_env, write_json
+    from repro_torch.kernels import _ext, registry
+    from repro_torch.report import check_records, load_file, violations
+
+    out_dir = ROOT / "build" / "runs_torch"
+    # phase 6's unsharded records of the same points
+    unsharded = {}
+    for op in registry.all_ops():
+        try:
+            rs = load_file(str(out_dir / f"BENCH_{op.name}.json"))
+        except (OSError, ValueError) as exc:
+            failures.append(f"sharded: phase 6's records of {op.name}: {exc}")
+            continue
+        for rec in rs.records:
+            unsharded[(rec.kernel, rec.engine, rec.size, rec.dtype,
+                       tuple(rec.shape))] = rec
+    env = dict(bench_env("cuda", hw.name), mesh_shape=[SHARD_MESH],
+               mesh_exec_mode="virtual")
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    _ext.reset_launches()
+    paths = []
+    for op in registry.all_ops():
+        recs = bench_kernels.records_for(op, hw=hw, device="cuda",
+                                         stream=True, mesh=SHARD_MESH,
+                                         check_widths=(SHARD_UNEVEN,))
+        paths.append(write_json(op.name, recs, str(out_dir), env=env,
+                                mesh=SHARD_MESH))
+        del recs
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    launches = dict(_ext.LAUNCHES)
+    sweep_s = time.perf_counter() - t0
+    for op in registry.all_ops():
+        for engine in ("vector", "matrix"):
+            if launches.get(f"{op.name}_{engine}", 0) == 0:
+                failures.append(f"{op.name}_{engine}: no launch in the "
+                                f"sharded sweep")
+    by_claim = {}
+    uneven = {"checked": 0, "bit_equal": 0}
+    for path in paths:
+        try:
+            results = check_records([load_file(path)])
+        except (OSError, ValueError, NotImplementedError) as exc:
+            failures.append(f"sharded records {path}: {exc}")
+            continue
+        for r in results:
+            c = by_claim.setdefault(r.claim, {"checked": 0, "violations": 0})
+            c["checked"] += 1
+            c["violations"] += int(not r.passed)
+        for r in violations(results):
+            rec = r.record
+            failures.append(f"sharded claim {r.claim} violated by "
+                            f"{rec.kernel}/{rec.engine}/{rec.size}/"
+                            f"{rec.dtype}: {r.detail}")
+        for raw in json.loads(pathlib.Path(path).read_text())["records"]:
+            spec, run = raw["shard_spec"], raw["shard_run"]
+            base = unsharded.get((raw["kernel"], raw["engine"], raw["size"],
+                                  raw["dtype"], tuple(raw["shape"])))
+            tag = (f"sharded/{raw['kernel']}/{raw['engine']}/"
+                   f"{raw['dtype']}/{raw['shape']}")
+            if not run["equal_unsharded"]:
+                failures.append(f"{tag}: combined output differs from the "
+                                f"unsharded kernel's")
+            at = run.get("equal_unsharded_at", {}).get(str(SHARD_UNEVEN))
+            uneven["checked"] += 1
+            uneven["bit_equal"] += int(bool(at))
+            if not at:
+                failures.append(f"{tag}: at {SHARD_UNEVEN} shards the "
+                                f"output differs from the unsharded "
+                                f"kernel's")
+            if run["shard_event_us"] is None or \
+                    len(run["shard_event_us"]) != spec["num_shards"]:
+                failures.append(f"{tag}: no card time per shard")
+            print(json.dumps({
+                "phase": "sharded", "mesh": SHARD_MESH,
+                "kernel": raw["kernel"], "engine": raw["engine"],
+                "dtype": raw["dtype"], "size": raw["size"],
+                "shape": raw["shape"], "kind": spec["kind"],
+                "shards": spec["num_shards"], "halo": spec["halo"],
+                "agg_over_total": spec["agg_bytes"] / spec["total_bytes"],
+                "equal_unsharded": run["equal_unsharded"],
+                f"equal_unsharded_at_{SHARD_UNEVEN}": at,
+                "parallel_s": run["parallel_us"] * 1e-6,
+                "serial_s": run["serial_us"] * 1e-6,
+                "shard_wall_us": run["shard_wall_us"],
+                "shard_event_us": run["shard_event_us"],
+                "sharded_call_us": raw["us_per_call"],
+                "sharded_call_device_us": raw["profiler_device_us"],
+                "unsharded_us": base.us_per_call if base else None,
+                "unsharded_device_us": (base.profiler_device_us if base
+                                        else None),
+                "max_err": raw["max_err"], "card": card}), flush=True)
+    for claim in ("shard_ceiling", "shard_traffic"):
+        if by_claim.get(claim, {}).get("checked", 0) == 0:
+            failures.append(f"sharded: no {claim} claim checked")
+    print(json.dumps({"sharded_claims": by_claim, "sweep_s": sweep_s,
+                      "card": card}), flush=True)
+
+    print(json.dumps({"sharded_uneven": dict(uneven, mesh=SHARD_UNEVEN,
+                                             card=card)}), flush=True)
+    return launches
+
+
+def _elastic_phase(torch, card, failures):
+    """Elastic sessions under the seeded adversary on the card, the
+    checkpoint / restore drill, and the serve CLI's --mesh and
+    --slo-route sessions.  Returns the phase's launches per kernel."""
+    from repro_torch.bench import compare
+    from repro_torch.bench import serve as serve_cli
+    from repro_torch.bench.common import bench_env, write_serving_json
+    from repro_torch.core.dispatch import DEFAULT_DISPATCHER
+    from repro_torch.kernels import _ext
+    from repro_torch.report import (check_records, load_dir, load_file,
+                                    violations)
+    from repro_torch.serving import (BatchPolicy, ChaosInjector,
+                                     ElasticSession, SessionConfig,
+                                     checkpoint_session)
+
+    out_dir = str(ROOT / "build" / "runs_torch")
+    env = dict(bench_env("cuda", DEFAULT_DISPATCHER.hw.name),
+               mesh_shape=[ELASTIC_WIDTH], mesh_exec_mode="virtual")
+    policy = BatchPolicy(max_batch=SERVE_MAX_BATCH,
+                         max_wait_s=SERVE_MAX_WAIT_S)
+    injector = ChaosInjector.seeded(SEED, SERVE_DURATION_S,
+                                    max_width=ELASTIC_MAX)
+    t_phase = time.perf_counter()
+    # the earlier phases leave a large heap, whose full collections pause
+    # the host 0.2-0.4 s inside a timed batch (phase 7's gc lines); the
+    # elastic claim bounds the chaos leg's p99 by the fault-free leg's, so
+    # the heap that exists now is frozen out of collection for this phase
+    gc.collect()
+    gc.freeze()
+    gc_pauses = _GcPauses()
+    torch.cuda.synchronize()
+    _ext.reset_launches()
+    engines = {}
+    fault_free = {}
+    for name, size, rate in (("scale", SERVE_ELEMENTWISE,
+                              SERVE_ELEMENTWISE_RPS),
+                             ("stencil", ELASTIC_STENCIL, SERVE_OTHER_RPS),
+                             ("attention", ELASTIC_ATTENTION,
+                              SERVE_OTHER_RPS)):
+        cfg = SessionConfig(kernel=name, workload="poisson", engine="auto",
+                            rate_rps=rate, duration_s=SERVE_DURATION_S,
+                            size=size, seed=SEED, policy=policy,
+                            num_shards=ELASTIC_WIDTH)
+        gc_pauses.reset()
+        t0 = time.perf_counter()
+        log, summary, record = ElasticSession(
+            cfg, injector=injector, max_shards=ELASTIC_MAX).run()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        ev = record["events"]
+        fault_free[name] = (cfg, ev["fault_free"]["checksum"])
+        engines[name] = record["engine"]
+        tag = f"elastic/{name}"
+        applied = [e for e in ev["log"] if not e.get("skipped")]
+        fails = [e for e in applied if e["kind"] == "fail"]
+        resizes = [e for e in applied if e["kind"] == "resize"]
+        if not fails or not resizes:
+            failures.append(f"{tag}: {len(fails)} failures and "
+                            f"{len(resizes)} resizes applied, expected "
+                            f"both")
+        if not all(e["redispatch_exact"] for e in fails):
+            failures.append(f"{tag}: a re-dispatch was not exact")
+        if not all(e["reshard_exact"] for e in resizes):
+            failures.append(f"{tag}: a resize was not reshard_exact")
+        if ev["availability"] < 0.99 or \
+                ev["checksum"] != ev["fault_free"]["checksum"]:
+            failures.append(f"{tag}: availability {ev['availability']}, "
+                            f"checksum {ev['checksum']!r} vs fault-free "
+                            f"{ev['fault_free']['checksum']!r}")
+        path = write_serving_json(name, [record], out_dir, env=env,
+                                  mesh=ELASTIC_WIDTH)
+        try:
+            results = check_records([load_file(path)])
+        except (OSError, ValueError, NotImplementedError) as exc:
+            failures.append(f"{tag} records: {exc}")
+            results = []
+        integrity = [r for r in results if r.claim == "elastic_integrity"]
+        if not integrity:
+            failures.append(f"{tag}: no elastic_integrity claim checked")
+        for r in violations(results):
+            failures.append(f"{tag}: claim {r.claim} violated: {r.detail}")
+        print(json.dumps({
+            "phase": "elastic", "kernel": name, "engine": record["engine"],
+            "size": size, "rate_rps": rate, "spec": ev["spec"],
+            "offered": log.offered, "completed": log.completed,
+            "availability": ev["availability"],
+            "failures": ev["failures"], "resizes": ev["resizes"],
+            "recovery_ms_total": ev["recovery_ms_total"],
+            "log": [{k: e.get(k) for k in
+                     ("kind", "at_s", "shard", "width", "from", "to",
+                      "reason", "redispatch_exact", "reshard_exact",
+                      "recovery_ms", "skipped")} for e in ev["log"]],
+            "checksum": ev["checksum"],
+            "fault_free_checksum": ev["fault_free"]["checksum"],
+            "p99_ms": summary.p99_ms,
+            "fault_free_p99_ms": ev["fault_free"]["p99_ms"],
+            "elastic_integrity": [r.passed for r in integrity],
+            "gc_full_collections": len(gc_pauses.ms),
+            "gc_full_max_ms": max(gc_pauses.ms, default=0.0),
+            "wall_s": wall_s, "card": card}), flush=True)
+        del log, record
+        torch.cuda.empty_cache()
+
+    # the checkpoint / restore drill: a session stopped mid-flight,
+    # checkpointed, restored into a fresh session and finished lands on
+    # the uninterrupted run's checksum
+    cfg, want = fault_free["scale"]
+    ckpt_dir = ROOT / "build" / "elastic_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    interrupted = ElasticSession(cfg, max_shards=ELASTIC_MAX)
+    interrupted.serve(chaos=False, stop_after_batches=ELASTIC_STOP)
+    step = checkpoint_session(interrupted, ckpt_dir)
+    resumed = ElasticSession.restore(cfg, ckpt_dir, max_shards=ELASTIC_MAX)
+    done_before = len(resumed._resume["completed"])
+    log = resumed.serve(chaos=False)
+    got = resumed.checksum()
+    if got != want:
+        failures.append(f"elastic restore: checksum {got!r} != the "
+                        f"uninterrupted run's {want!r}")
+    print(json.dumps({"elastic_restore": {
+        "kernel": "scale", "step": step, "completed_before": done_before,
+        "completed_after": log.completed, "checksum": got,
+        "uninterrupted_checksum": want, "card": card}}), flush=True)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    del interrupted, resumed, log
+
+    # the serve CLI: a 4-way sharded sweep, and an SLO-routed overload
+    serve_dir = ROOT / "build" / "runs_torch_serve"
+    shutil.rmtree(serve_dir, ignore_errors=True)
+    common = ["--kernels", "scale", "--out", str(serve_dir)]
+    rcs = [serve_cli.main(common + [
+        "--size", str(SERVE_ELEMENTWISE),
+        "--rate", str(SERVE_ELEMENTWISE_RPS),
+        "--duration", str(SERVE_DURATION_S), "--mesh", str(SHARD_MESH)])]
+    rcs.append(serve_cli.main(common + [
+        "--size", str(ROUTE_SIZE), "--rate", str(ROUTE_RPS),
+        "--duration", str(ROUTE_DURATION_S), "--online-tune",
+        "--slo-route"]))
+    torch.cuda.synchronize()
+    launches = dict(_ext.LAUNCHES)
+    for name in ("scale", "stencil", "attention"):
+        key = f"{name}_{engines.get(name, 'vector')}"
+        if launches.get(key, 0) == 0:
+            failures.append(f"{key}: no launch in the elastic phase")
+    try:
+        results = check_records(load_dir(str(serve_dir)))
+    except (OSError, ValueError, NotImplementedError) as exc:
+        failures.append(f"serve CLI records: {exc}")
+        results = []
+    for r in violations(results):
+        failures.append(f"serve CLI claim {r.claim} violated: {r.detail}")
+    gate_rc = compare.main([str(serve_dir), str(serve_dir)])
+    online = json.loads((serve_dir / "BENCH_serve_scale_online.json")
+                        .read_text())["records"][0]
+    widths = sorted({d["width"] for d in
+                     online["tuning"]["router"]["decisions"]})
+    mesh = json.loads((serve_dir / f"BENCH_serve_scale_mesh{SHARD_MESH}"
+                                   ".json").read_text())["records"]
+    if rcs != [0, 0] or gate_rc != 0 or max(widths) <= 1 or \
+            any(r["num_shards"] != SHARD_MESH for r in mesh):
+        failures.append(f"serve CLI: rcs {rcs}, gate rc {gate_rc}, router "
+                        f"widths {widths}, mesh sessions "
+                        f"{[r['num_shards'] for r in mesh]}")
+    print(json.dumps({"elastic_serve_cli": {
+        "rcs": rcs, "gate_rc": gate_rc, "claims": len(results),
+        "router_widths": widths,
+        "router_decisions": len(online["tuning"]["router"]["decisions"]),
+        "mesh_sessions": [{k: r[k] for k in
+                           ("engine", "num_shards", "p50_ms", "p99_ms",
+                            "compute_p50_ms", "completed")}
+                          for r in mesh],
+        "phase_s": time.perf_counter() - t_phase, "card": card}}),
+        flush=True)
+    gc_pauses.close()
+    gc.unfreeze()
     return launches
 
 

@@ -31,14 +31,32 @@ the tuner's own ``tuned_us`` / ``default_us`` (the reference's
 ``_tile_config_field``); without one, or on a cache miss, it is null and
 the static tiles run.
 
-The sweep is single-device: ``mesh_shape`` / ``shard_spec`` /
-``mesh_exec`` are written as null (the mesh legs wait for ROADMAP Queue 1
-item 13).
+``mesh=N`` (``--mesh N``) sweeps the same points split N ways
+(``repro_torch.sharding``), one shard after another on one device: the
+dispatcher plans the shard spec onto its Advice, every engine runs
+through the :class:`~repro_torch.sharding.ShardedExecutor`, ``max_err``
+certifies the *sharded* result against the oracle, and each record
+carries ``mesh_shape`` ``[N]`` and a ``shard_spec`` with the plan's
+traffic accounting (per-shard bytes, aggregate vs. unsharded bytes, worst
+per-shard intensity, ``pred_shard_us``), which the shard claims verify.
+On a mesh record ``us_per_call`` is the median time of the whole sharded
+call (every shard, its slicing and the reassembly), and ``shard_run``
+holds the modelled clock's inputs: ``parallel_us`` / ``serial_us`` (the
+medians of the slowest shard and of the sum, host wall time between
+synchronizations, as the virtual clock charges them), each shard's median
+wall ``shard_wall_us``, on the card each shard's time per call over 20
+queued calls between one CUDA-event pair, ``shard_event_us`` (the card's
+time where the calls queue, :func:`~repro_torch.core.timing.queued_event_us`),
+and ``equal_unsharded``, whether the combined output equals the
+unsharded call's bit for bit.  ``mesh_exec`` (the reference's
+measured mesh) is written as null: it waits for ROADMAP Queue 1 item
+13.3.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import math
 import statistics
 from typing import Iterator, List, Optional, Sequence, Tuple
@@ -50,10 +68,11 @@ from ..carry import cast
 from ..core.advisor import EngineAdvisor
 from ..core.dispatch import DEFAULT_DISPATCHER, Dispatcher, TuningPolicy
 from ..core.hw import HardwareSpec, spec_for_device_name
-from ..core.timing import device_busy_us
+from ..core.timing import device_busy_us, queued_event_us
 from ..kernels import registry
 from ..obs.counters import roofline_sample
 from ..obs.trace import capture, write_chrome_trace
+from ..sharding import ShardedExecutor, shard_call, traffic
 from .common import bench_env, time_fn, write_json
 
 __all__ = ["SEED", "Point", "bound_work", "default_hw", "records_for",
@@ -177,6 +196,26 @@ def _tile_config_field(dispatcher: Dispatcher, op, engine: str,
     }
 
 
+def _shard_spec_field(op, plan, args, kw, hw: HardwareSpec) -> dict:
+    """The schema-5 ``shard_spec`` evidence for one mesh sweep point: the
+    plan's compact spec plus its Eq. 2 traffic accounting and the
+    per-shard memory floor on the record's hardware model."""
+    t = traffic(op, plan, args, kw)
+    return {
+        **plan.spec.to_json(),
+        "total_bytes": t["total_bytes"],
+        "agg_bytes": t["agg_bytes"],
+        "wire_bytes": t["wire_bytes"],
+        "shard_bytes": t["shard_bytes"],
+        "shard_intensity": t["shard_intensity"],
+        "pred_shard_us": round(t["shard_bytes"] / hw.mem_bw * 1e6, 3),
+    }
+
+
+def _median(xs: Sequence[float]) -> float:
+    return float(statistics.median(xs))
+
+
 def _shape(args: tuple) -> List[int]:
     """The shape of the call's largest array (a BlockEll: its dense shape)."""
     arrays = [a for a in args if hasattr(a, "shape")]
@@ -185,7 +224,8 @@ def _shape(args: tuple) -> List[int]:
 
 def records_for(op, sizes: Optional[Sequence[int]] = None, *,
                 hw: Optional[HardwareSpec] = None, device: str = "cuda",
-                stream: bool = False, tuned=None) -> List[dict]:
+                stream: bool = False, tuned=None, mesh: int = 1,
+                check_widths: Sequence[int] = ()) -> List[dict]:
     """One record per (engine, size, dtype) for a registered kernel.
 
     ``sizes`` overrides the reference's ``bench_sizes``; ``stream=True``
@@ -194,13 +234,20 @@ def records_for(op, sizes: Optional[Sequence[int]] = None, *,
     (default: the card's spec, or the default advisor's on the CPU) is
     the hardware model the Advice, the predictions and the roofline
     gauge use.  ``tuned`` (a ``TuningCache``) supplies each engine's tile
-    by (kernel, engine, dtype, ``hw.name``).
+    by (kernel, engine, dtype, ``hw.name``).  ``mesh > 1`` splits every
+    point ``mesh`` ways (module docstring); each width of
+    ``check_widths`` also runs the point split that many ways, untimed, and
+    ``shard_run["equal_unsharded_at"]`` records whether it equals the
+    unsharded output bit for bit.
     """
     if device not in _COUNTS:
         raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
     hw = default_hw(device) if hw is None else hw
-    dispatcher = Dispatcher(EngineAdvisor(hw), TuningPolicy(tuned))
+    dispatcher = Dispatcher(EngineAdvisor(hw), TuningPolicy(tuned),
+                            mesh_shards=mesh)
     backend = "cuda" if device == "cuda" else "plain"
+    sharded = (ShardedExecutor(mesh, backend=backend, dispatcher=dispatcher)
+               if mesh > 1 else None)
     warmup, iters = _COUNTS[device]
     clock = "cuda_event" if device == "cuda" else "wall"
     rng = np.random.default_rng(SEED)
@@ -216,18 +263,43 @@ def records_for(op, sizes: Optional[Sequence[int]] = None, *,
                       iters=iters, label="ref_call", layer="bench",
                       kernel=op.name, size=pt.size, dtype=pt.dtype)
         bound_bytes, _ = bound_work(op.name, args, traits)
+        plan = sharded.plan(op, *args, **kw) if sharded else None
+        # engine-invariant: the split and its byte accounting depend only
+        # on the call shape
+        shard_field = (_shard_spec_field(op, plan, args, kw, hw)
+                       if plan is not None else None)
         for engine in sorted(op.engines):
             # the correctness check and the timing both run the tile the
             # record reports (the tuned one, else the static default)
             got = dispatcher.run(op, *args, engine=engine, backend=backend,
                                  **kw)
-            err = float((got.float() - want).abs().max())
-            del got
             fn = op.engines[engine]
             tile = dispatcher.tile_params(op, engine, *args, **kw) or {}
+            shard_run = None
+            if sharded is None:
+                def call(fn=fn, tile=tile):
+                    return fn(*args, backend=backend, **{**kw, **tile})
+            else:
+                runs = []
 
-            def call(fn=fn, tile=tile):
-                return fn(*args, backend=backend, **{**kw, **tile})
+                def call(engine=engine, tile=tile, runs=runs):
+                    run = sharded.run(op, *args, engine=engine, plan=plan,
+                                      **{**kw, **tile})
+                    runs.append(run.shard_seconds)
+                    return run.out
+                full, got = got, call()
+                shard_run = {"equal_unsharded": bool(torch.equal(got,
+                                                                 full))}
+                for width in check_widths:
+                    other = ShardedExecutor(
+                        width, backend=backend, dispatcher=dispatcher).run(
+                            op, *args, engine=engine, **{**kw, **tile}).out
+                    shard_run.setdefault("equal_unsharded_at", {})[
+                        str(width)] = bool(torch.equal(other, full))
+                    del other
+                del full
+            err = float((got.float() - want).abs().max())
+            del got
             with capture() as view:
                 t = time_fn(call, warmup=warmup, iters=iters,
                             label="engine_call", layer="bench",
@@ -237,6 +309,12 @@ def records_for(op, sizes: Optional[Sequence[int]] = None, *,
             us = round(t.median_us, 3)
             device_us = (round(device_busy_us(call, calls=iters), 3)
                          if device == "cuda" else None)
+            if shard_run is not None:
+                # the time_fn iterations: after the correctness call and
+                # the warm-up calls
+                timed = runs[1 + warmup:1 + warmup + iters]
+                shard_run.update(_shard_times(op, plan, args, kw, fn,
+                                              tile, timed, backend))
             recs.append({
                 "kernel": op.name,
                 "engine": engine,
@@ -272,13 +350,36 @@ def records_for(op, sizes: Optional[Sequence[int]] = None, *,
                 "mxu_ceiling": advice.max_speedup_matrix,
                 "tile_config": _tile_config_field(dispatcher, op, engine,
                                                   pt.dtype),
-                "mesh_shape": None,
-                "shard_spec": None,
+                "mesh_shape": [mesh] if mesh > 1 else None,
+                "shard_spec": shard_field,
+                "shard_run": shard_run,
                 "mesh_exec": None,
             })
         # free this point's inputs before the generator builds the next
         del args, kw, want, pt
     return recs
+
+
+def _shard_times(op, plan, args: tuple, kw: dict, fn, tile: dict,
+                 runs: Sequence[Tuple[float, ...]], backend: str) -> dict:
+    """``shard_run``'s times from the timed iterations' per-shard walls,
+    plus each shard's profiler device time on the card."""
+    out = {
+        "parallel_us": round(_median([max(r) for r in runs]) * 1e6, 3),
+        "serial_us": round(_median([sum(r) for r in runs]) * 1e6, 3),
+        "shard_wall_us": [round(_median(col) * 1e6, 3)
+                          for col in zip(*runs)],
+        "shard_event_us": None,
+    }
+    if backend == "cuda":
+        event_us = []
+        for shard in plan.shards:
+            sargs, skw = shard_call(plan, shard, args, kw)
+            event_us.append(round(queued_event_us(functools.partial(
+                fn, *sargs, backend=backend, **{**skw, **tile})), 3))
+            del sargs, skw
+        out["shard_event_us"] = event_us
+    return out
 
 
 def tracer_overhead(op, args: tuple, kw: dict, engine: str,
@@ -310,8 +411,10 @@ def tracer_overhead(op, args: tuple, kw: dict, engine: str,
 
 def rows(names: Optional[Sequence[str]] = None, json_dir: Optional[str] = None,
          *, trace_out: Optional[str] = None, stream: bool = False,
-         device: str = "cuda", tuned: Optional[str] = None) -> List[dict]:
-    """Sweep the registry; write ``BENCH_<kernel>.json`` per family.
+         device: str = "cuda", tuned: Optional[str] = None,
+         mesh: int = 1) -> List[dict]:
+    """Sweep the registry; write ``BENCH_<kernel>.json`` per family
+    (``BENCH_<kernel>_mesh<N>.json`` for ``mesh = N > 1``).
 
     ``stream=True`` adds the STREAM points to each family's records.
     With *trace_out* the whole sweep runs under the tracer (dispatch and
@@ -334,18 +437,23 @@ def rows(names: Optional[Sequence[str]] = None, json_dir: Optional[str] = None,
         for op in registry.all_ops():
             if wanted is not None and op.name not in wanted:
                 continue
-            recs = records_for(op, hw=hw, device=device, tuned=cache)
+            recs = records_for(op, hw=hw, device=device, tuned=cache,
+                               mesh=mesh)
             if stream:
                 recs += records_for(op, hw=hw, device=device, stream=True,
-                                    tuned=cache)
+                                    tuned=cache, mesh=mesh)
             if json_dir:
-                write_json(op.name, recs, json_dir,
-                           env=bench_env(device, hw.name))
+                env = bench_env(device, hw.name)
+                if mesh > 1:
+                    env["mesh_shape"] = [mesh]
+                    env["mesh_exec_mode"] = "virtual"
+                write_json(op.name, recs, json_dir, env=env, mesh=mesh)
             out.extend(_csv_rows(recs, hw, device))
     if sweep_view is not None:
         write_chrome_trace(trace_out, sweep_view.events,
                            meta={"source": "repro_torch.bench.bench_kernels",
-                                 "device": device, "hw_model": hw.name})
+                                 "device": device, "hw_model": hw.name,
+                                 "mesh": mesh})
     return out
 
 
@@ -361,9 +469,18 @@ def _csv_rows(recs: List[dict], hw: HardwareSpec,
         cfg = r.get("tile_config")
         tiles = "" if not cfg else ";tiles=" + ",".join(
             f"{k}={v}" for k, v in sorted(cfg["params"].items()))
+        spec = r.get("shard_spec")
+        name = f"{r['kernel']}/{r['engine']}/n={r['size']}/{r['dtype']}"
+        if spec:
+            run = r["shard_run"]
+            name += f"/mesh={r['mesh_shape'][0]}"
+            tiles += (f";shards={spec['num_shards']};halo={spec['halo']};"
+                      f"agg/total={spec['agg_bytes'] / spec['total_bytes']:.3f};"
+                      f"parallel_us={run['parallel_us']};"
+                      f"serial_us={run['serial_us']};"
+                      f"equal_unsharded={run['equal_unsharded']}")
         out.append({
-            "name": (f"{r['kernel']}/{r['engine']}/n={r['size']}/"
-                     f"{r['dtype']}"),
+            "name": name,
             "us_per_call": f"{r['us_per_call']:.3f}",
             "derived": (f"ref_us={r['ref_us_per_call']};"
                         f"pred_us={r['pred_us']};"

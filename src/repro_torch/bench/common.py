@@ -94,18 +94,22 @@ def _write_record_file(filename: str, kernel: str, schema: int,
 
 
 def write_json(kernel: str, records: List[dict], out_dir: str,
-               env: dict) -> str:
+               env: dict, mesh: int = 1) -> str:
     """Write one kernel's sweep records to ``out_dir/BENCH_<kernel>.json``.
 
     ``{"schema": 7, "kernel": ..., "env": {...}, "records": [...]}`` with
-    one record per (engine, size, dtype) sweep point, sorted keys.
+    one record per (engine, size, dtype) sweep point, sorted keys.  Mesh
+    sweeps (``mesh > 1``) land in ``BENCH_<kernel>_mesh<N>.json`` beside
+    the single-device records instead of clobbering them.
     """
-    return _write_record_file(f"BENCH_{kernel}.json", kernel,
-                              SCHEMA_VERSION, records, out_dir, env)
+    name = (f"BENCH_{kernel}.json" if mesh <= 1
+            else f"BENCH_{kernel}_mesh{mesh}.json")
+    return _write_record_file(name, kernel, SCHEMA_VERSION, records,
+                              out_dir, env)
 
 
 def write_serving_json(kernel: str, records: List[dict], out_dir: str,
-                       env: dict, suffix: str = "") -> str:
+                       env: dict, suffix: str = "", mesh: int = 1) -> str:
     """Write one kernel's serving sessions to
     ``out_dir/BENCH_serve_<kernel><suffix>.json``.
 
@@ -114,9 +118,11 @@ def write_serving_json(kernel: str, records: List[dict], out_dir: str,
     dtype) session, consumed by ``repro_torch.report`` and gated on
     p99/goodput by ``repro_torch.bench.compare``.  *suffix* (``"_online"``
     for ``serve --online-tune`` sessions) keeps a session variant beside
-    the baseline instead of clobbering it.  The reference's mesh file
-    names wait with their sessions (ROADMAP Queue 1 item 13).
+    the baseline instead of clobbering it; mesh sessions (``mesh > 1``)
+    land in ``BENCH_serve_<kernel><suffix>_mesh<N>.json`` the same way.
     """
-    return _write_record_file(f"BENCH_serve_{kernel}{suffix}.json", kernel,
-                              SERVING_SCHEMA_VERSION, records, out_dir, env,
+    name = (f"BENCH_serve_{kernel}{suffix}.json" if mesh <= 1
+            else f"BENCH_serve_{kernel}{suffix}_mesh{mesh}.json")
+    return _write_record_file(name, kernel, SERVING_SCHEMA_VERSION,
+                              records, out_dir, env,
                               extra={"kind": "serving"})

@@ -3,7 +3,8 @@
 Usage::
 
     python -m repro_torch.bench.compare BASELINE_DIR CANDIDATE_DIR \
-        [--threshold 0.25] [--kernels scale,triad] [--kind all]
+        [--threshold 0.25] [--kernels scale,triad] [--kind all] \
+        [--mesh all|N]
 
 Compares candidate records against the baseline and exits non-zero when
 
@@ -15,17 +16,21 @@ Compares candidate records against the baseline and exits non-zero when
   routing, oracle accuracy, Eq. 4 boundedness -- §6-under-load,
   percentile and goodput consistency and the model-scale verdict for
   serving records -- and ``trace_reconciliation``),
+* a joined pair of **chaos** serving sessions (both sides carrying an
+  ``events`` block from ``serve --chaos``) drops its availability under
+  failure by more than the same threshold,
 * a joined pair of **online-tuned** sessions (both sides carrying a
   ``tuning`` block from ``serve --online-tune``) grows its total bandit
   regret (``regret_us_total``) by more than the same threshold --
   exploration getting more expensive is an adaptive-control regression,
   gated beside the p99 drift the shared tail gate already catches,
 * a joined serving session pair disagrees on its load knobs
-  (rate/duration/SLO/seed/batching policy/mesh width/online tune budget):
-  sessions under different offered load are not comparable, so drifted
-  defaults fail loudly instead of gating noise, or
+  (rate/duration/SLO/seed/batching policy/mesh width/chaos spec/online
+  tune budget): sessions under different offered load, sharding or
+  injected adversary are not comparable, so drifted defaults fail loudly
+  instead of gating noise, or
 * a baseline point disappears from the candidate set (lost coverage is
-  a regression too).
+  a regression too, including a lost mesh width).
 
 **What a bench point gates.**  The reference gates ``ref_us_per_call``,
 which on its records is the measured kernel.  On the port's records that
@@ -39,15 +44,16 @@ different things, and fails as a config mismatch.
 Bench sweep points join on (kernel, engine, size, dtype, mesh width);
 serving sessions join on (kernel, engine, workload, size, dtype, mesh
 width, tuning mode).  ``--kind`` restricts the gate to one record kind
-(``bench``/``serving``; default ``all``); ``--kernels`` restricts both
-sides to a comma-separated subset.  Speed-ups and new points are
-reported but never fail the gate.
+(``bench``/``serving``; default ``all``); ``--mesh N`` restricts both
+bench points and serving sessions to the width they ran at (``--mesh 1``
+= the single-device records only; the default ``all`` demands every
+baseline width); ``--kernels`` restricts both sides to a comma-separated
+subset.  Speed-ups and new points are reported but never fail the gate.
 
-Not ported yet, and raising ``NotImplementedError`` naming the ROADMAP
-Queue 1 item when a record set carries what they gate: the
-chaos-availability gate (``events``, items 13-14) and the measured-mesh
-gate with the ``--mesh`` filter (``shard_spec`` / ``mesh_exec`` / sharded
-sessions, item 13).
+Not ported yet, and raising ``NotImplementedError`` naming ROADMAP Queue
+1 item 13.3 when a record set carries what it gates: the measured-mesh
+gate (``mesh_wall_us`` / ``mesh_skew`` of ``mesh_exec`` points, and
+sessions charged on the measured mesh).
 
 On failure the log ends with a per-kernel summary table (compared
 points, missing points, perf/goodput regressions, config mismatches,
@@ -73,14 +79,13 @@ KINDS = ("all", "bench", "serving")
 
 #: What the port's gate does not cover yet, by the record block it needs.
 WAITING = {
-    "events": "the chaos availability gate waits for ROADMAP Queue 1 "
-              "items 13-14 (sharding, runtime)",
-    "mesh": "the mesh gate waits for ROADMAP Queue 1 item 13 (sharding)",
+    "mesh": "the measured-mesh gate waits for ROADMAP Queue 1 item 13.3",
 }
 
 #: Serving-session load knobs that must agree on a joined pair.
 KNOBS = ("rate_rps", "duration_s", "slo_ms", "seed", "max_batch",
-         "max_wait_ms", "num_shards", "mesh_exec_mode", "tune_budget")
+         "max_wait_ms", "num_shards", "mesh_exec_mode", "chaos_spec",
+         "tune_budget")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,19 +132,15 @@ class GateResult:
 
 def _refuse_waiting(rs: RecordSet, rec: Record) -> None:
     """Raise for a record whose gate the port does not have yet."""
-    if rs.kind == "serving":
-        if rec.events:
-            raise NotImplementedError(f"{rs.path}: {WAITING['events']}")
-        sharded = (rec.num_shards or 1) > 1
-    else:
-        sharded = bool(rec.shard_spec or rec.mesh_exec
-                       or rec.mesh_devices > 1)
-    if sharded:
+    measured = (rec.mesh_exec_mode == "mesh" if rs.kind == "serving"
+                else bool(rec.mesh_exec))
+    if measured:
         raise NotImplementedError(f"{rs.path}: {WAITING['mesh']}")
 
 
 def _index(recsets: Iterable[RecordSet], which: str,
-           kernels: Optional[set] = None) -> Dict[Key, Record]:
+           kernels: Optional[set] = None,
+           mesh: Optional[int] = None) -> Dict[Key, Record]:
     out: Dict[Key, Record] = {}
     for rs in recsets:
         if rs.kind != which:
@@ -148,6 +149,15 @@ def _index(recsets: Iterable[RecordSet], which: str,
             continue
         for rec in rs.records:
             _refuse_waiting(rs, rec)
+            # filter on the requested mesh width, matching the join key:
+            # a clamped sweep (fewer effective shards than the mesh asked
+            # for) still belongs to the width it ran under; serving
+            # sessions filter on their own width field
+            if mesh is not None:
+                width = (rec.mesh_devices if which == "bench"
+                         else (rec.num_shards or 1))
+                if width != mesh:
+                    continue
             out[rec.point] = rec
     return out
 
@@ -203,11 +213,13 @@ def _timed_field(rec: BenchRecord) -> str:
 
 def gate(baseline_dir: str, candidate_dir: str, threshold: float = 0.25,
          kernels: Optional[Iterable[str]] = None,
-         kind: str = "all") -> GateResult:
+         kind: str = "all", mesh: Optional[int] = None) -> GateResult:
     """Run the full gate and return structured per-kernel results.
 
     ``kind`` selects which record kinds participate: 'bench' sweep
-    points, 'serving' session records, or 'all' (both).
+    points, 'serving' session records, or 'all' (both).  ``mesh``
+    restricts both to one shard width (None = every width the baseline
+    covers).
     """
     if kind not in KINDS:
         raise ValueError(f"unknown kind {kind!r}; expected one of {KINDS}")
@@ -221,8 +233,8 @@ def gate(baseline_dir: str, candidate_dir: str, threshold: float = 0.25,
     empty = True
 
     if kind in ("all", "bench"):
-        base = _index(base_sets, "bench", wanted)
-        cand = _index(cand_sets, "bench", wanted)
+        base = _index(base_sets, "bench", wanted, mesh)
+        cand = _index(cand_sets, "bench", wanted, mesh)
         empty = empty and not base
         for key in _diff_points(base, cand, "sweep", failures):
             compared[key[0]] = compared.get(key[0], 0) + 1
@@ -238,11 +250,16 @@ def gate(baseline_dir: str, candidate_dir: str, threshold: float = 0.25,
                          field, "us", threshold, "perf", failures)
 
     if kind in ("all", "serving"):
-        base = _index(base_sets, "serving", wanted)
-        cand = _index(cand_sets, "serving", wanted)
+        base = _index(base_sets, "serving", wanted, mesh)
+        cand = _index(cand_sets, "serving", wanted, mesh)
         empty = empty and not base
 
         def _knob(rec, field):
+            if field == "chaos_spec":
+                # the injected fault/resize schedule is a load knob too: a
+                # chaos session only gates against a baseline that
+                # suffered the same adversary
+                return (rec.events or {}).get("spec")
             if field == "tune_budget":
                 # exploration budget shapes both regret and the tail:
                 # online sessions only gate against the same budget
@@ -273,6 +290,16 @@ def gate(baseline_dir: str, candidate_dir: str, threshold: float = 0.25,
                          cand[key].goodput_rps, "goodput_rps", "rps",
                          threshold, "goodput", failures,
                          lower_is_better=False)
+            b_ev, c_ev = base[key].events, cand[key].events
+            if b_ev and c_ev:
+                # both sides are chaos sessions under the same spec:
+                # availability under failure is a first-class serving
+                # metric -- a recovery path that starts dropping requests
+                # fails here even before elastic_integrity goes red
+                _gate_metric(key, float(b_ev.get("availability", 0.0)),
+                             float(c_ev.get("availability", 0.0)),
+                             "availability", "", threshold, "goodput",
+                             failures, lower_is_better=False)
             b_tu, c_tu = base[key].tuning, cand[key].tuning
             if b_tu and c_tu:
                 # both sides tuned online under the same budget: total
@@ -288,7 +315,7 @@ def gate(baseline_dir: str, candidate_dir: str, threshold: float = 0.25,
             "empty", "",
             f"empty comparison: no baseline records in {baseline_dir!r} "
             f"match kernels={sorted(wanted) if wanted else 'all'} "
-            f"kind={kind} mesh=all"))
+            f"kind={kind} mesh={mesh if mesh is not None else 'all'}"))
 
     for v in violations(check_records(cand_sets)):
         failures.append(Failure(
@@ -300,10 +327,10 @@ def gate(baseline_dir: str, candidate_dir: str, threshold: float = 0.25,
 
 def compare(baseline_dir: str, candidate_dir: str, threshold: float = 0.25,
             kernels: Optional[Iterable[str]] = None,
-            kind: str = "all") -> List[str]:
+            kind: str = "all", mesh: Optional[int] = None) -> List[str]:
     """Return the list of failure messages (empty = gate passes)."""
     return gate(baseline_dir, candidate_dir, threshold=threshold,
-                kernels=kernels, kind=kind).messages
+                kernels=kernels, kind=kind, mesh=mesh).messages
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -317,11 +344,23 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--kind", default="all", choices=KINDS,
                    help="record kind to gate: bench sweeps, serving "
                         "sessions, or all (default)")
+    p.add_argument("--mesh", default="all",
+                   help="mesh filter: a shard count (1 = the single-device "
+                        "records) or 'all' to demand every baseline mesh "
+                        "width (default)")
     args = p.parse_args(argv)
     kernels = args.kernels.split(",") if args.kernels else None
+    if args.mesh == "all":
+        mesh = None
+    else:
+        try:
+            mesh = int(args.mesh)
+        except ValueError:
+            raise SystemExit(
+                f"--mesh must be an integer or 'all', got {args.mesh!r}")
     result = gate(args.baseline, args.candidate,
                   threshold=args.threshold, kernels=kernels,
-                  kind=args.kind)
+                  kind=args.kind, mesh=mesh)
     for f in result.failures:
         print(f"FAIL: {f.message}", file=sys.stderr)
     if result.failures:

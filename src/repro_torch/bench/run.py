@@ -2,6 +2,7 @@
 
     python -m repro_torch.bench [bounds|roofline|kernels|<kernel>] [--out DIR]
         [--trace FILE] [--verbose] [--stream] [--tuned FILE] [--device cpu]
+        [--mesh N]
     python -m repro_torch.bench serve [--workload lm] [--device cpu] ...
     python -m repro_torch.bench tune [--kernel K] [--size N] [--out FILE]
     python -m repro_torch.bench report [DIR]
@@ -28,10 +29,13 @@ every span of the sweep as Chrome-trace JSON.  ``--verbose`` raises the
 structured logger to info.  ``--tuned FILE`` sweeps with the tuned tile
 configs of a ``tuned.json``: each engine is launched and timed with its
 cached tile, and each record carries ``tile_config`` (``params``,
-``tuned_us``, ``default_us``, ``source``).
+``tuned_us``, ``default_us``, ``source``).  ``--mesh N`` sweeps every
+point split N ways, one shard after another on one device
+(``repro_torch.sharding``), into ``DIR/BENCH_<kernel>_mesh<N>.json``
+with ``shard_spec`` and ``shard_run`` per record.
 
 Not ported yet, and refused with a message naming the ROADMAP item:
-``--mesh`` / ``--real`` (item 13).
+``--real`` (the measured mesh, item 13.3).
 """
 from __future__ import annotations
 
@@ -51,8 +55,7 @@ DEFAULT_OUT = "build/runs_torch"
 
 #: Reference flags the port has no counterpart for yet.
 WAITING_FLAGS = {
-    "--mesh": "ROADMAP Queue 1 item 13 (sharding)",
-    "--real": "ROADMAP Queue 1 item 13 (sharding)",
+    "--real": "ROADMAP Queue 1 item 13.3 (the measured mesh)",
 }
 
 
@@ -115,6 +118,13 @@ def main(argv: Optional[List[str]] = None) -> None:
     trace_out = _take_flag(argv, "--trace", "an output path argument")
     device = _take_flag(argv, "--device", "'cuda' or 'cpu'") or "cuda"
     stream = _take_switch(argv, "--stream")
+    mesh_arg = _take_flag(argv, "--mesh", "a shard count")
+    try:
+        mesh = 1 if mesh_arg is None else int(mesh_arg)
+    except ValueError:
+        raise SystemExit(f"--mesh must be an integer, got {mesh_arg!r}")
+    if mesh < 1:
+        raise SystemExit(f"--mesh must be >= 1, got {mesh}")
     if _take_switch(argv, "--verbose"):
         from ..obs.log import LOG
         LOG.configure(level="info")
@@ -124,7 +134,8 @@ def main(argv: Optional[List[str]] = None) -> None:
         # the report is a pure function of the records: a sweep flag
         # silently ignored would lie about what was rendered
         for flag, given in (("--tuned", tuned), ("--trace", trace_out),
-                            ("--stream", stream)):
+                            ("--stream", stream),
+                            ("--mesh", mesh_arg is not None)):
             if given:
                 raise SystemExit(f"{flag} only applies to kernel sweeps")
         _report(argv[1:], out_arg)
@@ -140,7 +151,8 @@ def main(argv: Optional[List[str]] = None) -> None:
             f" + {sorted(kernel_names)}")
     sweeps = [k for k in which if k not in THEORY]
     for flag, given in (("--out", out_given), ("--trace", trace_out),
-                        ("--stream", stream), ("--tuned", tuned)):
+                        ("--stream", stream), ("--tuned", tuned),
+                        ("--mesh", mesh_arg is not None)):
         if given and not sweeps:
             raise SystemExit(f"{flag} only applies to kernel sweeps")
     if sweeps:
@@ -162,7 +174,7 @@ def main(argv: Optional[List[str]] = None) -> None:
             names = None if key == "kernels" else [key]
             emit(bench_kernels.rows(names, json_dir=out_dir,
                                     trace_out=trace_out, stream=stream,
-                                    device=device, tuned=tuned))
+                                    device=device, tuned=tuned, mesh=mesh))
 
 
 if __name__ == "__main__":

@@ -39,11 +39,27 @@ with a ``tuning`` block that the ``online_ceiling`` claim replays, and
 the bandit's winners persist to ``<out>/tuned-online.json`` through the
 cache's faster-wins merge.
 
+``--mesh N`` splits every launch N ways (``repro_torch.sharding``, one
+shard after another on one device) and charges each batch the slowest
+shard on the virtual clock; the sessions land in
+``BENCH_serve_<kernel>_mesh<N>.json``.  ``--slo-route`` (with
+``--online-tune``) lets the
+:class:`~repro_torch.serving.router.SLORouter` pick the shard width and
+gate exploration from queue depth + SLO headroom; the online session owns
+the width, so it refuses ``--mesh``.
+
+``--chaos SPEC`` routes each kernel session through the elastic runtime
+(:class:`~repro_torch.serving.elastic.ElasticSession`): the seeded spec
+(``fail@T[:SHARD]`` / ``resize@T:WIDTH`` tokens) injects shard failures
+and mesh resizes mid-session, the session re-dispatches and re-shards
+without dropping or corrupting a request, and the record grows an
+``events`` block that the ``elastic_integrity`` claim and the compare
+gate's availability check verify.  Chaos needs replayable arrivals, so it
+refuses ``--workload closed`` and ``--workload lm``, and ``--online-tune``.
+
 Sessions run on the card; ``--device cpu`` runs the kernels' plain
-versions on the CPU (the CPU tests' form).  Refused, naming their ROADMAP
-Queue 1 item: ``--chaos`` (the elastic session, items 13-14),
-``--slo-route`` (its router grows the mesh), ``--mesh N`` with N > 1 and
-``--real`` (item 13).
+versions on the CPU (the CPU tests' form).  Refused, naming its ROADMAP
+Queue 1 item: ``--real`` (the measured mesh, item 13.3).
 """
 from __future__ import annotations
 
@@ -72,10 +88,7 @@ DEFAULT_OUT = "build/runs_torch"
 #: Reference flags the port refuses, with the ROADMAP Queue 1 item each
 #: waits for.
 WAITING = {
-    "chaos": "items 13-14 (the elastic session: sharding, runtime)",
-    "slo_route": "item 13 (sharding: the router's mesh widths)",
-    "mesh": "item 13 (sharding)",
-    "real": "item 13 (sharding)",
+    "real": "item 13.3 (the measured mesh)",
 }
 
 
@@ -137,18 +150,27 @@ def _parse(argv: Optional[List[str]]) -> argparse.Namespace:
     p.add_argument("--tune-budget", type=int, default=8,
                    help="online bandit exploration pulls per (kernel, "
                         "engine, dtype, shard) key (default 8)")
-    # refused: each waits for a ROADMAP item (WAITING)
-    p.add_argument("--mesh", type=int, default=1, help=argparse.SUPPRESS)
-    p.add_argument("--chaos", default=None, help=argparse.SUPPRESS)
-    p.add_argument("--real", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--slo-route", action="store_true",
-                   help=argparse.SUPPRESS)
+                   help="with --online-tune: pick shard width and gate "
+                        "bandit exploration from queue depth + SLO "
+                        "headroom (repro_torch.serving.router.SLORouter)")
+    p.add_argument("--mesh", type=int, default=1,
+                   help="shard width: every launch splits into this many "
+                        "shards and batches are charged the slowest shard "
+                        "(default 1)")
+    p.add_argument("--chaos", default=None, metavar="SPEC",
+                   help="inject failures/resizes via the elastic session: "
+                        "comma-separated 'fail@T[:SHARD]' and "
+                        "'resize@T:WIDTH' tokens (virtual seconds); "
+                        "records grow an events block the "
+                        "elastic_integrity claim verifies")
+    # refused: waits for a ROADMAP item (WAITING)
+    p.add_argument("--real", action="store_true", help=argparse.SUPPRESS)
     return p.parse_args(argv)
 
 
 def _refuse_waiting(args: argparse.Namespace) -> None:
-    given = {"chaos": args.chaos is not None, "slo_route": args.slo_route,
-             "mesh": args.mesh > 1, "real": args.real}
+    given = {"real": args.real}
     for name, on in given.items():
         if on:
             flag = "--" + name.replace("_", "-")
@@ -230,8 +252,10 @@ def _serve_lm(args: argparse.Namespace, env: dict) -> int:
     return 0
 
 
-def _serve_kernels(args: argparse.Namespace, env: dict) -> int:
-    """One session per (kernel, forced engine) under the chosen workload."""
+def _serve_kernels(args: argparse.Namespace, env: dict,
+                   injector=None) -> int:
+    """One session per (kernel, forced engine) under the chosen workload
+    (through the elastic session under *injector*)."""
     explicit = args.kernels is not None and args.kernels != "all"
     names = (tuple(args.kernels.split(",")) if explicit
              else registry.names() if args.kernels == "all"
@@ -278,12 +302,18 @@ def _serve_kernels(args: argparse.Namespace, env: dict) -> int:
                 rate_rps=args.rate, duration_s=args.duration,
                 size=args.size, dtype=args.dtype, seed=args.seed,
                 policy=policy, slo=slo, trace_path=args.trace,
-                device=args.device,
+                num_shards=args.mesh, device=args.device,
                 backend=BACKEND_FOR_DEVICE[args.device])
-            _, summary, record = run_session(cfg, source=source)
+            if injector is not None:
+                from ..serving import ElasticSession
+                session = ElasticSession(cfg, injector=injector)
+                _, summary, record = session.run()
+            else:
+                _, summary, record = run_session(cfg, source=source)
             records.append(record)
             print(_row(kernel, args.workload, summary, record))
-        path = write_serving_json(kernel, records, args.out, env=env)
+        path = write_serving_json(kernel, records, args.out, env=env,
+                                  mesh=args.mesh)
         print(f"# wrote {path}")
         if args.online_tune:
             record, summary, entries = _online_session(args, kernel, policy,
@@ -302,27 +332,33 @@ def _online_session(args: argparse.Namespace, kernel: str,
                     policy: BatchPolicy, slo: SLO, source):
     """One ``--online-tune`` session: auto-routed engine, live bandit.
 
-    Builds the tuner/executor stack here (rather than letting
+    Builds the tuner/router/executor stack here (rather than letting
     ``run_session`` own it) so the sweep can persist the bandit's winners
-    after the session.
+    after the session; always restores the default dispatcher's mesh
+    width on the way out.
     """
-    from ..serving.router import OnlineKernelBatchExecutor
+    from ..serving.router import OnlineKernelBatchExecutor, SLORouter
     from ..tuning.online import OnlineTuner
 
     tuner = OnlineTuner(args.tune_budget,
                         cache=DEFAULT_DISPATCHER.tuning.cache,
                         hw_model=DEFAULT_DISPATCHER.hw.name)
+    router = SLORouter(slo_ms=args.slo_ms) if args.slo_route else None
     backend = BACKEND_FOR_DEVICE[args.device]
     executor = OnlineKernelBatchExecutor(
         engine="auto", max_batch=args.max_batch, seed=args.seed,
-        backend=backend, tuner=tuner)
+        backend=backend, tuner=tuner, router=router)
     cfg = SessionConfig(
         kernel=kernel, workload=args.workload, engine="auto",
         rate_rps=args.rate, duration_s=args.duration, size=args.size,
         dtype=args.dtype, seed=args.seed, policy=policy, slo=slo,
-        trace_path=args.trace, online_tune=True,
+        trace_path=args.trace, online_tune=True, slo_route=args.slo_route,
         tune_budget=args.tune_budget, device=args.device, backend=backend)
-    _, summary, record = run_session(cfg, executor=executor, source=source)
+    try:
+        _, summary, record = run_session(cfg, executor=executor,
+                                         source=source)
+    finally:
+        executor.dispatcher.set_mesh(1)
     return record, summary, tuner.to_entries()
 
 
@@ -367,11 +403,46 @@ def main(argv: Optional[List[str]] = None) -> int:
         args.slo_ms = 30000.0 if lm else 50.0
     if args.workload == "trace" and not args.trace:
         raise SystemExit("--workload trace requires --trace PATH")
-    if args.online_tune and lm:
-        raise SystemExit("--online-tune is not supported for --workload lm "
+    if args.slo_route and not args.online_tune:
+        raise SystemExit("--slo-route requires --online-tune (the "
+                         "router's exploration gate drives the bandit)")
+    if args.mesh < 1:
+        raise SystemExit(f"--mesh must be >= 1, got {args.mesh}")
+    if args.online_tune:
+        if lm:
+            raise SystemExit("--online-tune is not supported for "
+                             "--workload lm (kernel sessions only)")
+        if args.chaos:
+            raise SystemExit("--online-tune composes with the standard "
+                             "session, not --chaos (chaos replays a "
+                             "fault-free twin; live re-tuning would fork "
+                             "the legs)")
+        if args.mesh > 1:
+            raise SystemExit("--online-tune owns the mesh width (the "
+                             "router grows and shrinks it): drop --mesh")
+        if args.tune_budget < 1:
+            raise SystemExit("--tune-budget must be >= 1")
+    if lm and args.mesh > 1:
+        raise SystemExit("--mesh is not supported for --workload lm "
                          "(kernel sessions only)")
-    if args.tune_budget < 1:
-        raise SystemExit("--tune-budget must be >= 1")
+    injector = None
+    if args.chaos:
+        # validate the adversary up front: the elastic session needs
+        # replayable arrivals (open-loop traffic) so the fault-free
+        # checksum leg is exact
+        if lm:
+            raise SystemExit("--chaos is not supported for --workload lm "
+                             "(kernel sessions only)")
+        if args.workload == "closed":
+            raise SystemExit("--chaos requires an open-loop workload "
+                             "(poisson/bursty/trace): closed-loop arrivals "
+                             "react to completions and cannot replay "
+                             "fault-free")
+        from ..serving import ChaosInjector
+        try:
+            injector = ChaosInjector(args.chaos)
+        except ValueError as err:
+            raise SystemExit(f"bad --chaos spec: {err}")
     if args.tuned:
         DEFAULT_DISPATCHER.load_tuned(args.tuned)
     import torch
@@ -382,16 +453,24 @@ def main(argv: Optional[List[str]] = None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     env = bench_env(args.device, DEFAULT_DISPATCHER.hw.name)
-    sweep = _serve_lm if lm else _serve_kernels
+    if args.mesh > 1:
+        env["mesh_shape"] = [args.mesh]
+        env["mesh_exec_mode"] = "virtual"
+
+    def sweep():
+        if lm:
+            return _serve_lm(args, env)
+        return _serve_kernels(args, env, injector)
     if not args.trace_out:
-        return sweep(args, env)
+        return sweep()
     from ..obs.trace import capture, write_chrome_trace
     with capture() as view:
-        status = sweep(args, env)
+        status = sweep()
     write_chrome_trace(args.trace_out, view.events,
                        meta={"source": "repro_torch.bench.serve",
                              "workload": args.workload, "seed": args.seed,
-                             "device": args.device})
+                             "device": args.device,
+                             "chaos": args.chaos or "", "mesh": args.mesh})
     print(f"# wrote {args.trace_out}")
     return status
 

@@ -9,6 +9,12 @@ framework into kernel launches.
     (``repro_torch.tuning.cache``) for the winning tile configuration per
     (kernel, engine, dtype, hardware model, shard shape) before falling
     back to the static tile defaults.
+  * ``Dispatcher.set_mesh`` -- the shard width Advice is planned for:
+    above 1, every memoized Advice carries the ``ShardSpec`` of
+    ``repro_torch.sharding.plan`` and tile lookups read the per-shard
+    entries.  The shards run one after another on one device
+    (``"virtual"`` mode, ``repro_torch.sharding.ShardedExecutor``); the
+    measured mesh (``"mesh"``) waits for ROADMAP Queue 1 item 13.3.
   * ``elementwise_call`` -- the shared wrapper for same-shape
     elementwise kernels (SCALE, STREAM Triad, AXPY): one hand-written
     CUDA kernel per engine serves all three families.
@@ -40,7 +46,8 @@ from .advisor import DEFAULT_ADVISOR, Advice, EngineAdvisor
 from .intensity import KernelTraits
 
 __all__ = [
-    "BACKENDS", "DEFAULT_DISPATCHER", "Dispatcher", "TUNED_CACHE_ENV",
+    "BACKENDS", "DEFAULT_DISPATCHER", "Dispatcher", "MEASURED_MESH_WAITS",
+    "MESH_MODES", "TUNED_CACHE_ENV",
     "TuningPolicy", "check_backend", "default_cache_key", "dtype_name",
     "elementwise_call", "normalize_engine", "ELEMENTWISE_BLOCK_ROWS",
     "ELEMENTWISE_LANES",
@@ -181,15 +188,36 @@ class TuningPolicy:
         self._resolved = True
 
     def lookup(self, kernel: str, engine: str, dtype: Optional[str],
-               hw_model: str):
-        """The full-width TunedEntry for this key, or None (use static
-        defaults).  The port launches unsharded (the mesh waits for
-        ROADMAP Queue 1 item 13), so per-shard entries are never read.
+               hw_model: str, num_shards: int = 1):
+        """The TunedEntry for this key, or None (use static defaults).
+
+        ``num_shards`` scopes the lookup to the launch width via the
+        cache's ``shard_shape`` key component: a sharded launch only ever
+        sees per-shard winners, never the full-width tile.
         """
         cache = self.cache
         if cache is None or dtype is None:
             return None
-        return cache.lookup(kernel, engine, dtype, hw_model)
+        from ..tuning.cache import shard_shape_of
+        return cache.lookup(kernel, engine, dtype, hw_model,
+                            shard_shape_of(num_shards))
+
+
+#: How sharded calls execute: ``"virtual"`` (serial launches on one
+#: device, modelled N-way clock) or the reference's measured ``"mesh"``.
+MESH_MODES = ("virtual", "mesh")
+
+#: Where the measured mesh waits.
+MEASURED_MESH_WAITS = "the measured mesh waits for ROADMAP Queue 1 item 13.3"
+
+
+def _check_mesh_mode(mode: str) -> str:
+    if mode not in MESH_MODES:
+        raise ValueError(
+            f"mesh mode must be one of {MESH_MODES}, got {mode!r}")
+    if mode == "mesh":
+        raise NotImplementedError(f"mesh mode 'mesh': {MEASURED_MESH_WAITS}")
+    return mode
 
 
 class Dispatcher:
@@ -201,9 +229,12 @@ class Dispatcher:
     """
 
     def __init__(self, advisor: Optional[EngineAdvisor] = None,
-                 tuning: Optional[TuningPolicy] = None):
+                 tuning: Optional[TuningPolicy] = None,
+                 mesh_shards: int = 1, mesh_mode: str = "virtual"):
         self.advisor = advisor if advisor is not None else DEFAULT_ADVISOR
         self.tuning = tuning if tuning is not None else TuningPolicy()
+        self._mesh_shards = max(1, int(mesh_shards))
+        self._mesh_mode = _check_mesh_mode(mesh_mode)
         self._cache: Dict[Hashable, Advice] = {}
         self._hits = 0
         self._misses = 0
@@ -212,6 +243,39 @@ class Dispatcher:
     def hw(self):
         """The advisor's HardwareSpec (paper Table 1 platform model)."""
         return self.advisor.hw
+
+    @property
+    def mesh_shards(self) -> int:
+        """How many shards Advice is planned for (1 = no mesh)."""
+        return self._mesh_shards
+
+    @property
+    def mesh_mode(self) -> str:
+        """How sharded calls execute: ``"virtual"`` (the only mode the
+        port runs; see :data:`MESH_MODES`)."""
+        return self._mesh_mode
+
+    def set_mesh(self, num_shards: int, mode: str = "virtual") -> None:
+        """Configure the shard width (and execution mode) Advice plans for.
+
+        With ``num_shards > 1`` every memoized Advice carries the
+        ``ShardSpec`` the sharding layer (``repro_torch.sharding.plan``)
+        derives for its call -- the paper's §6 decision is then a
+        per-shard statement, which Eq. 2's intensity invariance under
+        data-parallel splitting keeps identical to the per-device one.
+        ``mode`` stamps how those shards execute: ``"virtual"`` (serial
+        launches on one device, modelled N-way clock); ``"mesh"`` raises
+        ``NotImplementedError`` naming ROADMAP Queue 1 item 13.3.  The
+        Advice cache embeds both, so changing either drops it.
+        """
+        num_shards = int(num_shards)
+        if num_shards < 1:
+            raise ValueError(f"num_shards must be >= 1, got {num_shards}")
+        mode = _check_mesh_mode(mode)
+        if num_shards != self._mesh_shards or mode != self._mesh_mode:
+            self._mesh_shards = num_shards
+            self._mesh_mode = mode
+            self.cache_clear()
 
     def _memoized(self, key: Hashable,
                   make: Callable[[], Advice]) -> Advice:
@@ -234,17 +298,29 @@ class Dispatcher:
         *which* tiles produced a number.
         """
         key_fn = op.cache_key or default_cache_key
-        key = (op.name, self.hw.name, key_fn(*args, **kwargs))
+        key = (op.name, self.hw.name, self._mesh_shards,
+               key_fn(*args, **kwargs))
 
         def make() -> Advice:
             advice = self.advisor.advise(op.traits(*args, **kwargs))
             entry = self.tuning.lookup(op.name, advice.engine,
                                        _dtype_of(args, kwargs),
-                                       self.hw.name)
+                                       self.hw.name,
+                                       num_shards=self._mesh_shards)
             if entry is not None:
                 advice = dataclasses.replace(
                     advice,
                     tile_config=tuple(sorted(entry.params.items())))
+            if self._mesh_shards > 1:
+                # planned once per (kernel, shape, mesh) and memoized
+                # with the engine decision: steady-state sharded dispatch
+                # stays a dict hit
+                from ..sharding.plan import spec_for
+                advice = dataclasses.replace(
+                    advice,
+                    shard_spec=spec_for(op, self._mesh_shards,
+                                        *args, **kwargs),
+                    exec_mode=self._mesh_mode)
             return advice
 
         return self._memoized(key, make)
@@ -271,11 +347,12 @@ class Dispatcher:
         """The tuned tile params this call would use, or None (defaults).
 
         Consults the TuningPolicy with the op's name, the resolved
-        engine, the call's dtype and the advisor's hardware model -- the
-        granularity winners are cached at.
+        engine, the call's dtype, the advisor's hardware model and the
+        current mesh width -- the granularity winners are cached at.
         """
         entry = self.tuning.lookup(op.name, eng, _dtype_of(args, kwargs),
-                                   self.hw.name)
+                                   self.hw.name,
+                                   num_shards=self._mesh_shards)
         return dict(entry.params) if entry is not None else None
 
     def run(self, op, *args, engine: str = "auto", backend: str = "cuda",

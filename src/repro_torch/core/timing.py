@@ -24,7 +24,8 @@ import torch
 
 from ..obs.trace import TRACER
 
-__all__ = ["Timing", "busy_us", "device_busy_us", "time_fn"]
+__all__ = ["Timing", "busy_us", "device_busy_us", "queued_event_us",
+           "time_fn"]
 
 
 class Timing(NamedTuple):
@@ -123,6 +124,29 @@ def busy_us(spans) -> float:
             busy += stop - max(start, end)
             end = stop
     return busy
+
+
+def queued_event_us(fn: Callable, calls: int = 20) -> float:
+    """Time per call of ``calls`` back-to-back calls of ``fn`` between one
+    pair of CUDA events, after one untimed call.
+
+    Where the host enqueues a call faster than the card runs it, the calls
+    queue behind each other and this is the card's time per call (the
+    host's enqueue of the first call, counted once, aside); otherwise it
+    is the host's.  One event pair for many calls, and no profiler: the
+    per-shard times of a sharded call, where short back-to-back
+    torch.profiler sessions dropped kernels.
+    """
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) * 1e3 / calls
 
 
 def device_busy_us(fn: Callable, *args, calls: int = 20, **kwargs) -> float:

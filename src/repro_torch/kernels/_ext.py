@@ -494,8 +494,15 @@ def attention_ranges(s: int, block_s: int, pairs: int, sms: int,
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              kv_len: int, *, block_s: int, engine: str) -> torch.Tensor:
-    """Launch flash-decode: q (B, KH, G, Dh) over k, v (B, S, KH, Dh)."""
+              kv_len: int, *, block_s: int, engine: str,
+              split_pairs: Optional[int] = None) -> torch.Tensor:
+    """Launch flash-decode: q (B, KH, G, Dh) over k, v (B, S, KH, Dh).
+
+    ``split_pairs`` (default ``B * KH``) is the pair count whose split-S
+    schedule the call runs: a head shard passes the unsharded call's, so
+    its heads are cut into the same ranges and merged in the same order as
+    in the unsharded call, and its output equals those heads' bit for bit.
+    """
     b, kh, g, dh = q.shape
     s = k.shape[1]
     if k.ndim != 4 or tuple(k.shape) != (b, s, kh, dh) or \
@@ -515,8 +522,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"Queue 2 item 7 (K4)")
     for t, what in ((q, "q"), (k, "k"), (v, "v")):
         _need(t, f"flash-decode {what}", dtype)
+    pairs = b * kh if split_pairs is None else int(split_pairs)
+    if pairs < b * kh:
+        raise ValueError(f"split_pairs={pairs} is below this call's "
+                         f"B * KH = {b * kh}")
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    rows, nsplit, end = attention_ranges(s, block_s, b * kh, sms,
+    rows, nsplit, end = attention_ranges(s, block_s, pairs, sms,
                                          int(kv_len), dtype, g, engine)
     return attention_launch(q, k, v, int(kv_len), rows=rows, nsplit=nsplit,
                             end=end, engine=engine)

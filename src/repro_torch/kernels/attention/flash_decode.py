@@ -13,6 +13,8 @@ of ``block_s`` positions.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from ...core.dispatch import check_backend
@@ -74,7 +76,8 @@ def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  kv_len: int, *, block_s: int = 512, engine: str = "matrix",
-                 backend: str = "cuda") -> torch.Tensor:
+                 backend: str = "cuda",
+                 split_pairs: Optional[int] = None) -> torch.Tensor:
     """q: (B, KH, G, Dh); k,v: (B, S, KH, Dh); kv_len a Python int.
 
     ``engine`` picks the kernel: 'matrix' runs the score and p.V
@@ -82,7 +85,10 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Either way the cache is streamed exactly once.  ``backend="cuda"``
     launches the kernel and needs tensors on the card; ``"plain"`` runs
     ``flash_decode_plain`` on CPU tensors.  ``kv_len`` is a host int, so
-    a decode loop never waits on the card for it.
+    a decode loop never waits on the card for it.  ``split_pairs`` is the
+    ``B * KH`` whose split-S schedule the kernel runs (default this
+    call's; a head shard of ``repro_torch.sharding`` passes the unsharded
+    call's); the plain version's block loop has no such schedule.
 
     Returns (B, KH, G, Dh) in q's dtype."""
     s = k.shape[1]
@@ -94,4 +100,4 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                   engine=engine)
     from .. import _ext
     return _ext.attention(q.contiguous(), k, v, int(kv_len), block_s=block_s,
-                          engine=engine)
+                          engine=engine, split_pairs=split_pairs)

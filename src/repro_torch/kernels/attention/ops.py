@@ -28,8 +28,8 @@ DEFAULT_BLOCK_S = 512
 ATTENTION_TILE_SPACE = {"block_s": (128, 256, 512)}
 
 
-def _traits(q, k, v, kv_len, *, block_s=None):
-    del v, kv_len, block_s
+def _traits(q, k, v, kv_len, *, block_s=None, split_pairs=None):
+    del v, kv_len, block_s, split_pairs
     b, kh, g, dh = q.shape
     s = k.shape[1]
     work = 4.0 * b * kh * g * s * dh
@@ -49,17 +49,18 @@ def _clamp_block_s(s: int, block_s) -> int:
 
 
 def _engine_fn(engine: str):
-    def call(q, k, v, kv_len, *, block_s=None, backend: str = "cuda"):
+    def call(q, k, v, kv_len, *, block_s=None, split_pairs=None,
+             backend: str = "cuda"):
         if block_s is None:
             block_s = DEFAULT_BLOCK_S
         bs = _clamp_block_s(k.shape[1], block_s)
         return flash_decode(q, k, v, kv_len, block_s=bs, engine=engine,
-                            backend=backend)
+                            backend=backend, split_pairs=split_pairs)
     return call
 
 
-def _reference(q, k, v, kv_len, *, block_s=None):
-    del block_s
+def _reference(q, k, v, kv_len, *, block_s=None, split_pairs=None):
+    del block_s, split_pairs
     return decode_attention_ref(q, k, v, kv_len)
 
 
@@ -86,7 +87,8 @@ ATTENTION_OP = register(EngineOp(
     tile_space=ATTENTION_TILE_SPACE,
     tile_defaults={"block_s": DEFAULT_BLOCK_S},
     # mesh split: KV heads are independent (each attends to its own
-    # cache slice), so head-sharding is exact with no exchange
+    # cache slice), so head-sharding is exact with no exchange; a head
+    # shard's kwargs carry the unsharded call's B * KH as split_pairs
     shard_kind="head",
 ))
 

@@ -9,8 +9,8 @@ flops a token against ~16 P bytes of parameters, gradients and optimizer
 state, compute-bound at any real batch, the mirror image of the decode
 step ``serve`` classifies.
 
-One device: ``--mesh`` other than ``1x1`` and ``--devices`` wait for
-sharding (ROADMAP.md Queue 1 item 13).
+One device: ``--mesh`` other than ``1x1`` and ``--devices`` wait for the
+measured mesh (ROADMAP.md Queue 1 item 13.3).
 """
 import argparse
 

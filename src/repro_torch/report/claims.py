@@ -43,13 +43,21 @@ and router decision held to Eq. 23/24, every arm inside the family's
 ``tile_space``, the arm sequence replayed byte-identically from the
 event log, the regret arithmetic and the router trajectory re-derived.
 
+Sweep points swept under a mesh (``shard_spec``) pass **shard_ceiling**
+and **shard_traffic** (:data:`SHARD_CLAIMS`): the Eq. 23/24 ceiling
+re-derived at the per-shard intensity, and the aggregate bytes held
+against the unsharded Q plus the declared halo.  Chaos sessions
+(``events`` from the elastic session) pass **elastic_integrity**
+(:data:`ELASTIC_CLAIMS`): the chaos checksum equals the fault-free
+replay's exactly, availability and p99 stay inside their bounds, and
+every failure and resize in the log was bit-exact.
+
 Two differences from the reference, both so that nothing passes
 silently: :func:`hw_for` raises on a hardware model it does not know,
-where the reference falls back to the TPU v5e; and records that need
-claims the port does not have yet raise ``NotImplementedError`` naming
-the ROADMAP item that ports them: the mesh fields ``shard_spec`` /
-``mesh_exec`` and sharded sessions (item 13) and chaos sessions carrying
-``events`` (the elastic claim, items 13-14).
+where the reference falls back to the TPU v5e; and a record of the
+measured mesh (``mesh_exec``, whose ``collective_cost`` / ``mesh_skew``
+claims the port does not have yet) raises ``NotImplementedError`` naming
+ROADMAP Queue 1 item 13.3.
 """
 from __future__ import annotations
 
@@ -64,9 +72,9 @@ from ..core.intensity import KernelTraits
 from ..obs.counters import roofline_sample
 from .records import BenchRecord, RecordSet, ServingRecord
 
-__all__ = ["CLAIMS", "ClaimResult", "MODEL_CLAIMS", "ONLINE_CLAIMS",
-           "SAMPLE_CLOCKS", "SERVING_CLAIMS", "TOLERANCE", "TRACE_CLAIMS",
-           "ceiling_bound",
+__all__ = ["CLAIMS", "ClaimResult", "ELASTIC_CLAIMS", "MODEL_CLAIMS",
+           "ONLINE_CLAIMS", "SAMPLE_CLOCKS", "SERVING_CLAIMS",
+           "SHARD_CLAIMS", "TOLERANCE", "TRACE_CLAIMS", "ceiling_bound",
            "check_record", "check_records", "check_serving_record",
            "hw_for", "violations"]
 
@@ -77,9 +85,18 @@ CLAIMS = ("ceiling", "routing", "accuracy", "boundedness")
 SERVING_CLAIMS = ("ceiling", "routing", "boundedness", "percentiles",
                   "goodput")
 
+#: Extra claims for sweep points that executed under a mesh (schema 5
+#: records with a ``shard_spec``), in report order.
+SHARD_CLAIMS = ("shard_ceiling", "shard_traffic")
+
 #: Extra claim for serving sessions that carry a model-scale verdict
 #: (lm records with a ``verdict`` payload).
 MODEL_CLAIMS = ("model_verdict",)
+
+#: Extra claim for chaos serving sessions (ElasticSession records with an
+#: ``events`` payload): failures and resizes moved latency, never
+#: results, and never past the availability/p99 floors.
+ELASTIC_CLAIMS = ("elastic_integrity",)
 
 #: Extra claim for online-tuned sessions (records with a ``tuning``
 #: payload): every bandit/router decision re-verified and replayed.
@@ -110,10 +127,8 @@ _EPS = 1e-9
 
 #: ROADMAP items that port the claims this module refuses to skip.
 _WAITING = {
-    "mesh": "the shard and mesh claims wait for ROADMAP Queue 1 item 13 "
-            "(sharding)",
-    "elastic": "the elastic_integrity claim of chaos sessions waits for "
-               "ROADMAP Queue 1 items 13-14 (sharding, runtime)",
+    "mesh": "the measured-mesh claims (collective_cost, mesh_skew) wait "
+            "for ROADMAP Queue 1 item 13.3",
 }
 
 
@@ -191,6 +206,66 @@ def _analytic_checks(rec, hw: HardwareSpec,
         f"I={rec.intensity:.4g} < B_vec={machine_balance(hw, 'vector'):.4g} "
         f"-> {advice.memory_bound}"))
     return results
+
+
+def _shard_checks(rec: BenchRecord,
+                  hw: HardwareSpec) -> List[ClaimResult]:
+    """The SHARD_CLAIMS for one mesh sweep point (see module docs).
+
+    Re-derives the Eq. 23/24 ceiling at the *per-shard* intensity and
+    bounds the aggregate traffic against the unsharded Q, so a record
+    cannot claim a mesh execution that either beats the per-device
+    ceiling on any shard or quietly moves fewer bytes than the
+    unsharded kernel — the two ways a sharded "speedup" could lie.
+    """
+    spec = dict(rec.shard_spec or {})
+    n = int(spec.get("num_shards", 0))
+    halo = int(spec.get("halo", -1))
+    kind = str(spec.get("kind", ""))
+    total = float(spec.get("total_bytes", 0.0))
+    agg = float(spec.get("agg_bytes", 0.0))
+    worst = float(spec.get("shard_bytes", 0.0))
+    i_shard = float(spec.get("shard_intensity", float("inf")))
+    b_vec = machine_balance(hw, "vector")
+    # rounding slack: byte totals are exact floats from the traits
+    # model, but allow 1e-6 relative for serialization round-trips
+    slack = 1e-6 * max(total, 1.0)
+
+    sane = (kind in ("data", "rowblock", "head")
+            and 1 <= n <= max(rec.mesh_devices, 1)
+            and halo >= 0)
+    i_ok = i_shard <= rec.intensity + _EPS
+    if rec.memory_bound:
+        bound = ceiling_bound(i_shard, hw)
+        ceil_ok = i_shard < b_vec and rec.mxu_ceiling <= bound + _EPS
+        detail = (f"kind={kind} shards={n}/{rec.mesh_devices} "
+                  f"I_shard={i_shard:.4g} < B_vec={b_vec:.4g}; "
+                  f"ceiling {rec.mxu_ceiling:.4g}x vs per-shard "
+                  f"Eq. 23/24 bound {bound:.4g}x")
+    else:
+        ceil_ok = rec.mxu_ceiling <= hw.alpha + _EPS
+        detail = (f"kind={kind} shards={n}/{rec.mesh_devices} "
+                  f"compute-bound: ceiling {rec.mxu_ceiling:.4g}x vs "
+                  f"alpha {hw.alpha:.4g}")
+    shard_ceiling = ClaimResult("shard_ceiling", rec,
+                                sane and i_ok and ceil_ok, detail)
+
+    traffic_ok = (agg >= total - slack
+                  and worst * n >= agg - slack
+                  # no shard moves more bytes than the unsharded
+                  # kernel (replication/halo can at most re-read the
+                  # whole input), which caps the aggregate at N x
+                  # total — a hand-edited 100x-traffic story fails here
+                  and worst <= total + slack
+                  and (halo > 0 or kind == "rowblock"
+                       or abs(agg - total) <= slack))
+    shard_traffic = ClaimResult(
+        "shard_traffic", rec, traffic_ok,
+        f"agg {agg:.4g} B vs total {total:.4g} B "
+        f"(overhead {agg / total - 1.0 if total else 0.0:+.2%}), "
+        f"worst shard {worst:.4g} B x {n}")
+    return [shard_ceiling, shard_traffic]
+
 
 
 def _trace_checks(rec: BenchRecord,
@@ -384,6 +459,117 @@ def _verdict_checks(rec: ServingRecord,
     return [ClaimResult("model_verdict", rec, not problems, detail)]
 
 
+def _elastic_checks(rec: ServingRecord,
+                    hw: HardwareSpec) -> List[ClaimResult]:
+    """The ELASTIC_CLAIMS check for one chaos session's events payload.
+
+    The integrity contract of ``repro_torch.serving.elastic``: an injected
+    shard failure or mesh resize may cost latency, never answers.
+    Verified from the record alone:
+
+    * the chaos session's fingerprint checksum equals the fault-free
+      replay's **exactly** (bit-exact re-dispatch and re-shard — the
+      same float64 or the claim is red);
+    * completions match the fault-free replay and the recorded
+      availability is both consistent with completed/offered and at or
+      above the recorded target;
+    * the chaos p99 stays within ``p99_bound x fault-free p99 +
+      p99_slack_ms`` (failure recovery is charged to the clock, so
+      degradation is expected — unbounded degradation is not);
+    * every log entry is sane: known kind, non-negative time, every
+      *applied* failure re-dispatched bit-exactly with non-negative
+      recovery latency, every resize between valid widths with
+      ``dp_rescale`` = to/from and a bit-exact re-shard
+      (``reshard_exact``), and the failure/resize counters match the
+      log.
+
+    The ceiling/routing/boundedness claims run on the same record
+    independently, so "the Eq. 23/24 story holds across events" is
+    checked by construction: the record's analytic fields come from
+    the same memoized Advice at every width.
+    """
+    del hw  # the analytic claims run separately on the same record
+    ev = dict(rec.events or {})
+    ff = dict(ev.get("fault_free", {}))
+    problems: List[str] = []
+
+    checksum = ev.get("checksum")
+    ff_checksum = ff.get("checksum")
+    if checksum is None or ff_checksum is None:
+        problems.append("missing checksum")
+    elif float(checksum) != float(ff_checksum):
+        problems.append(f"checksum {checksum!r} != fault-free "
+                        f"{ff_checksum!r}")
+
+    if int(ff.get("completed", -1)) != rec.completed or \
+            int(ff.get("offered", -1)) != rec.offered:
+        problems.append(
+            f"completions {rec.completed}/{rec.offered} != fault-free "
+            f"{ff.get('completed')}/{ff.get('offered')}")
+
+    avail = float(ev.get("availability", -1.0))
+    target = float(ev.get("availability_target", -1.0))
+    derived = (rec.completed / rec.offered if rec.offered > 0 else 1.0)
+    if not 0.0 < target <= 1.0:
+        problems.append(f"bad availability target {target!r}")
+    if abs(avail - derived) > 1e-6 + _EPS:
+        problems.append(f"availability {avail:.6g} != "
+                        f"completed/offered {derived:.6g}")
+    if avail < target - _EPS:
+        problems.append(f"availability {avail:.6g} < target {target:.6g}")
+
+    bound = float(ev.get("p99_bound", 0.0))
+    slack = float(ev.get("p99_slack_ms", 0.0))
+    ff_p99 = float(ff.get("p99_ms", 0.0))
+    limit = bound * ff_p99 + slack
+    if bound <= 0.0:
+        problems.append(f"bad p99 bound {bound!r}")
+    elif rec.p99_ms > limit + _EPS:
+        problems.append(f"p99 {rec.p99_ms:.4g} ms > bound "
+                        f"{bound:g} x {ff_p99:.4g} + {slack:g} ms")
+
+    applied_fails = applied_resizes = 0
+    for i, entry in enumerate(ev.get("log", [])):
+        kind = str(entry.get("kind", "?"))
+        at_s = float(entry.get("at_s", -1.0))
+        if kind not in ("fail", "resize") or at_s < 0.0:
+            problems.append(f"log[{i}]: bad entry kind={kind} at={at_s}")
+            continue
+        if entry.get("skipped"):
+            continue
+        if kind == "fail":
+            applied_fails += 1
+            if not entry.get("redispatch_exact"):
+                problems.append(f"log[{i}]: failure re-dispatch not "
+                                f"bit-exact")
+            if float(entry.get("recovery_ms", -1.0)) < 0.0:
+                problems.append(f"log[{i}]: negative recovery latency")
+        else:
+            applied_resizes += 1
+            frm, to = int(entry.get("from", 0)), int(entry.get("to", 0))
+            rescale = float(entry.get("dp_rescale", 0.0))
+            if frm < 1 or to < 1:
+                problems.append(f"log[{i}]: resize widths {frm}->{to}")
+            elif abs(rescale - to / frm) > _EPS:
+                problems.append(f"log[{i}]: dp_rescale {rescale:.4g} "
+                                f"!= {to}/{frm}")
+            if not entry.get("reshard_exact"):
+                problems.append(f"log[{i}]: re-shard not bit-exact")
+    if applied_fails != int(ev.get("failures", -1)) or \
+            applied_resizes != int(ev.get("resizes", -1)):
+        problems.append(
+            f"counters ({ev.get('failures')}, {ev.get('resizes')}) != "
+            f"log ({applied_fails}, {applied_resizes})")
+
+    detail = (f"{applied_fails} failures + {applied_resizes} resizes, "
+              f"availability {avail:.4g} >= {target:.4g}, checksum "
+              f"bit-exact vs fault-free replay"
+              + (f"; problems: {'; '.join(problems[:4])}" if problems
+                 else ""))
+    return [ClaimResult("elastic_integrity", rec, not problems, detail)]
+
+
+
 def _online_checks(rec: ServingRecord,
                    hw: HardwareSpec) -> List[ClaimResult]:
     """The ONLINE_CLAIMS check for one session's tuning payload.
@@ -557,10 +743,12 @@ def check_record(rec: BenchRecord,
     One :class:`ClaimResult` per entry in :data:`CLAIMS`, in order, plus
     :data:`TRACE_CLAIMS` where the record carries a ``trace`` block,
     re-deriving the advisor's decision from the recorded intensity so a
-    stale or hand-edited record cannot pass.  A mesh record
-    (``shard_spec`` or ``mesh_exec``) raises ``NotImplementedError``.
+    stale or hand-edited record cannot pass.  Mesh sweep points (schema 5
+    with a ``shard_spec``) additionally get one result per entry in
+    :data:`SHARD_CLAIMS`.  A measured-mesh record (``mesh_exec``) raises
+    ``NotImplementedError``.
     """
-    if rec.shard_spec or rec.mesh_exec:
+    if rec.mesh_exec:
         raise NotImplementedError(
             f"{rec.kernel}/{rec.engine}/{rec.size}: {_WAITING['mesh']}")
     ceiling, routing, boundedness = _analytic_checks(rec, hw)
@@ -570,6 +758,8 @@ def check_record(rec: BenchRecord,
         "accuracy", rec, rec.max_err <= tol,
         f"max_err {rec.max_err:.3g} vs {rec.dtype} tolerance {tol:g}")
     out = [ceiling, routing, accuracy, boundedness]
+    if rec.shard_spec:
+        out.extend(_shard_checks(rec, hw))
     if rec.trace:
         out.extend(_trace_checks(rec, hw))
     return tuple(out)
@@ -588,14 +778,14 @@ def check_serving_record(rec: ServingRecord,
     entry in :data:`MODEL_CLAIMS`, and records carrying the observability
     ``trace`` block (serving schema 5) pass :data:`TRACE_CLAIMS`, and
     records carrying an online-tuning ``tuning`` payload one per entry in
-    :data:`ONLINE_CLAIMS`.  A session with ``events`` (chaos) or more than
-    one shard raises ``NotImplementedError`` naming its ROADMAP item.
+    :data:`ONLINE_CLAIMS`, and chaos sessions (``events``) one per entry
+    in :data:`ELASTIC_CLAIMS`.  A session charged on the measured mesh
+    (``mesh_exec_mode`` ``"mesh"``) raises ``NotImplementedError``.
     """
-    what = f"{rec.kernel}/{rec.engine}/{rec.workload}/{rec.size}"
-    if rec.events:
-        raise NotImplementedError(f"{what}: {_WAITING['elastic']}")
-    if (rec.num_shards or 1) > 1:
-        raise NotImplementedError(f"{what}: {_WAITING['mesh']}")
+    if rec.mesh_exec_mode == "mesh":
+        raise NotImplementedError(
+            f"{rec.kernel}/{rec.engine}/{rec.workload}/{rec.size}: "
+            f"{_WAITING['mesh']}")
     # Eq. 17/23/24, §6 routing, Eq. 4: the same checks as per-call
     # sweep points, via the shared helper (a record claiming a bigger
     # matrix-engine win than the theory allows is a violation whether
@@ -629,6 +819,8 @@ def check_serving_record(rec: ServingRecord,
         f"({rec.completed}/{rec.offered} completed)"))
     if rec.verdict:
         results.extend(_verdict_checks(rec, hw))
+    if rec.events:
+        results.extend(_elastic_checks(rec, hw))
     if rec.trace:
         results.extend(_serving_trace_checks(rec))
     if rec.tuning:

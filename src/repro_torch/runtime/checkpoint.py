@@ -17,6 +17,13 @@ checkpoint is never visible.  ``AsyncCheckpointer`` writes on a thread.
 Restored tensors go to the template leaf's device and dtype (one device:
 the reference's re-sharding has no counterpart here).
 
+A bfloat16 leaf is stored as the reference stores it: raw 2-byte
+``<V2`` records, the descriptor ``ml_dtypes``' bfloat16 writes into the
+npz, so both packages write the same bytes for the same values.  Restore
+reads a 2-byte void record back as bfloat16 and casts it to the template
+leaf's dtype.  (The reference's own restore cannot read such a leaf: its
+``astype`` has no cast from void.)
+
 Restore without a ``step`` skips a corrupt step (truncated npz, mangled
 manifest, a missing leaf) with a warning and tries the next older
 complete one; a named ``step`` is strict.
@@ -46,6 +53,44 @@ __all__ = ["AsyncCheckpointer", "checkpoint_meta", "latest_step",
 _CORRUPT = (OSError, ValueError, KeyError, json.JSONDecodeError,
             zipfile.BadZipFile)
 
+#: The npy descriptor of a bfloat16 leaf: ``ml_dtypes``' bfloat16 saves
+#: as little-endian 2-byte void records.
+BF16_DESCR = "<V2"
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A host copy of one tensor leaf; bfloat16 as 2-byte void records."""
+    # a copy: the training loop updates its tensors in place while the
+    # writer thread saves
+    t = t.detach().to("cpu", copy=True)
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view("V2")
+    return t.numpy()
+
+
+def _is_bf16_record(arr: np.ndarray) -> bool:
+    return arr.dtype.kind == "V" and arr.dtype.itemsize == 2 \
+        and arr.dtype.names is None
+
+
+def _savez(path: Path, flat: Dict[str, np.ndarray]) -> None:
+    """``np.savez`` (uncompressed, one ``<key>.npy`` member per leaf),
+    writing bfloat16 leaves under :data:`BF16_DESCR`."""
+    from numpy.lib import format as npy
+    with zipfile.ZipFile(path, mode="w",
+                         compression=zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for key, val in flat.items():
+            val = np.asanyarray(val)
+            with zf.open(key + ".npy", "w", force_zip64=True) as fid:
+                if not _is_bf16_record(val):
+                    npy.write_array(fid, val)
+                    continue
+                npy.write_array_header_1_0(fid, {
+                    "descr": BF16_DESCR, "fortran_order": False,
+                    "shape": val.shape})
+                fid.write(np.ascontiguousarray(val).tobytes())
+
 
 def _is_namedtuple(x: Any) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
@@ -66,10 +111,8 @@ def _flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
     elif isinstance(tree, (tuple, list)):
         items = [(str(i), v) for i, v in enumerate(tree)]
     else:
-        # a copy: the training loop updates its tensors in place while
-        # the writer thread saves
-        leaf = (tree.detach().to("cpu", copy=True).numpy()
-                if isinstance(tree, torch.Tensor) else np.array(tree))
+        leaf = (_host(tree) if isinstance(tree, torch.Tensor)
+                else np.array(tree))
         return {prefix.rstrip("/"): leaf}
     flat: Dict[str, np.ndarray] = {}
     for name, sub in items:
@@ -103,7 +146,7 @@ def _write(ckpt_dir: Path, step: int, flat: Dict[str, np.ndarray],
     if tmp.exists():
         shutil.rmtree(tmp)
     tmp.mkdir()
-    np.savez(tmp / "arrays.npz", **flat)
+    _savez(tmp / "arrays.npz", flat)
     manifest = {"step": step, "treedef": structure, "keys": sorted(flat),
                 "extra": extra or {}}
     (tmp / "manifest.json").write_text(json.dumps(manifest, indent=1))
@@ -211,8 +254,12 @@ def _rebuild(template: Any, prefix: str, data) -> Any:
                               for i, v in enumerate(template))
     arr = data[prefix.rstrip("/")]
     if isinstance(template, torch.Tensor):
-        return torch.from_numpy(arr).to(device=template.device,
-                                        dtype=template.dtype)
+        if _is_bf16_record(arr):
+            t = torch.from_numpy(arr.view(np.int16).copy()).view(
+                torch.bfloat16)
+        else:
+            t = torch.from_numpy(arr)
+        return t.to(device=template.device, dtype=template.dtype)
     return arr.astype(np.asarray(template).dtype)
 
 

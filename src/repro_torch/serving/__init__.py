@@ -23,19 +23,26 @@ arrives as a request stream.  The layers:
   attainment, emitted as schema-4 records for ``repro_torch.report`` and
   the ``repro_torch.bench.compare`` p99/goodput gate.
 * :mod:`repro_torch.serving.router` -- the SLO-aware control plane
-  (:class:`SLORouter`) and the online-tuning executor
+  (:class:`SLORouter`: shard width + exploration gating from queue depth
+  and SLO headroom) and the online-tuning executor
   (:class:`OnlineKernelBatchExecutor`, whose tile bandit is
-  :mod:`repro_torch.tuning.online`), at width 1.
+  :mod:`repro_torch.tuning.online`).
 * :mod:`repro_torch.serving.session` -- the one-call session runner.
+* :mod:`repro_torch.serving.elastic` -- the elastic, fault-tolerant
+  session: mesh resizes under load (``Dispatcher.set_mesh`` +
+  ``runtime/elastic.mesh_transition_plan``), bit-exact re-dispatch of a
+  failed shard's ShardPlan ranges, checkpoint/restore through
+  ``runtime/checkpoint.AsyncCheckpointer``, and the seeded fault/resize
+  injector -- evidence for the ``elastic_integrity`` claim.
 
 Entry points: ``python -m repro_torch.bench serve`` (record-producing
-sweeps) and ``python -m repro_torch.launch.serve`` (LM serving).
-
-Not ported yet: ``elastic`` (the fault-tolerant session; items 13-14,
-which bring ``ShardPlan``, ``runtime/checkpoint`` and
-``runtime/elastic``), and the router's widths above 1 (item 13).
+sweeps; ``--mesh N`` to shard, ``--chaos`` for fault injection) and
+``python -m repro_torch.launch.serve`` (LM serving).
 """
 from .batcher import KernelBatchExecutor
+from .elastic import (ChaosEvent, ChaosInjector, ElasticKernelExecutor,
+                      ElasticSession, checkpoint_session,
+                      redispatch_failed_shard)
 from .loadgen import (WORKLOADS, BurstyLoadGen, ClosedLoopLoadGen, LoadGen,
                       PoissonLoadGen, TraceLoadGen, load_trace,
                       make_loadgen, save_trace)
@@ -50,12 +57,14 @@ from .session import SessionConfig, run_session
 from .slo import DEFAULT_SLO, SLO
 
 __all__ = [
-    "BatchExecution", "BatchPolicy", "BurstyLoadGen", "ClosedLoopLoadGen",
-    "ContinuousBatchingScheduler", "DEFAULT_SLO", "KernelBatchExecutor",
-    "LMDecodeExecutor", "LM_DECODE", "LoadGen", "OnlineKernelBatchExecutor",
-    "PoissonLoadGen", "Request", "RequestResult", "RouterDecision", "SLO",
-    "SLORouter", "ServingLog", "ServingSummary", "SessionConfig",
-    "TraceLoadGen", "WORKLOADS", "decode_traits", "format_summary",
-    "load_trace", "make_loadgen", "percentile", "run_session", "save_trace",
-    "serving_record", "summarize",
+    "BatchExecution", "BatchPolicy", "BurstyLoadGen", "ChaosEvent",
+    "ChaosInjector", "ClosedLoopLoadGen", "ContinuousBatchingScheduler",
+    "DEFAULT_SLO", "ElasticKernelExecutor", "ElasticSession",
+    "KernelBatchExecutor", "LMDecodeExecutor", "LM_DECODE", "LoadGen",
+    "OnlineKernelBatchExecutor", "PoissonLoadGen", "Request",
+    "RequestResult", "RouterDecision", "SLO", "SLORouter", "ServingLog",
+    "ServingSummary", "SessionConfig", "TraceLoadGen", "WORKLOADS",
+    "checkpoint_session", "decode_traits", "format_summary", "load_trace",
+    "make_loadgen", "percentile", "redispatch_failed_shard", "run_session",
+    "save_trace", "serving_record", "summarize",
 ]

@@ -28,11 +28,19 @@ The first launch of each shape runs untimed (the warm-up), so the first
 batch does not carry one-off costs.  Packing runs before the clock
 starts.
 
+Under a mesh (``num_shards > 1``) the packed launch splits shard-wise
+via :mod:`repro_torch.sharding`: the packed capacity rounds up to whole
+tiles *per shard*, each shard launches through the dispatcher (same
+memoized Advice, same tuned tiles), one after another on the executor's
+device, and the batch is charged the **shard-parallel** compute time --
+the slowest shard, which is what an N-device mesh would fold into the
+virtual clock.  The per-request fallback shards each request the same
+way.
+
 ``backend`` is the reference's ``interpret``: ``"cuda"`` (the default)
 launches the hand-written kernels on tensors on the card, ``"plain"``
-runs their plain PyTorch versions on the CPU.  The mesh split of the
-reference (``num_shards > 1``, ``real_mesh``) waits for ROADMAP Queue 1
-item 13 and raises.
+runs their plain PyTorch versions on the CPU.  The reference's measured
+mesh (``real_mesh``) waits for ROADMAP Queue 1 item 13.3 and raises.
 """
 from __future__ import annotations
 
@@ -45,16 +53,17 @@ import torch
 
 from ..core.dispatch import (BACKENDS, DEFAULT_DISPATCHER,
                              ELEMENTWISE_BLOCK_ROWS, ELEMENTWISE_LANES,
-                             normalize_engine)
+                             MEASURED_MESH_WAITS, normalize_engine)
 from ..kernels import registry
 from ..models.engine import resolve_device
+from ..sharding import ShardedExecutor
 from .requests import Request
 from .scheduler import BatchExecution
 
 __all__ = ["KernelBatchExecutor"]
 
-#: Where the mesh split of a batch waits.
-MESH_WAITS = "the mesh split waits for ROADMAP Queue 1 item 13 (sharding)"
+#: Where the measured mesh of a batch waits.
+MESH_WAITS = MEASURED_MESH_WAITS
 
 
 def _is_scalar(a) -> bool:
@@ -71,15 +80,15 @@ class KernelBatchExecutor:
     memoized Advice (§6 routing: memory-bound work lands on the vector
     engine), ``'vpu'``/``'mxu'`` force a variant so the benchmark can
     measure both sides of the paper's question under load.
+    ``num_shards > 1`` splits every launch via ``repro_torch.sharding``
+    and charges batches the shard-parallel (max) compute time.
     """
 
     def __init__(self, engine: str = "auto", *, max_batch: int = 8,
                  backend: str = "cuda", seed: int = 0,
                  num_shards: int = 1, real_mesh: bool = False):
-        if int(num_shards) > 1 or real_mesh:
-            raise NotImplementedError(
-                f"num_shards={num_shards}, real_mesh={real_mesh}: "
-                f"{MESH_WAITS}")
+        if real_mesh:
+            raise NotImplementedError(f"real_mesh=True: {MESH_WAITS}")
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; expected "
                              f"{BACKENDS}")
@@ -87,11 +96,17 @@ class KernelBatchExecutor:
         self.max_batch = max_batch
         self.backend = backend
         self.device = resolve_device("cuda" if backend == "cuda" else "cpu")
+        self.num_shards = max(1, int(num_shards))
+        self._shard_exec = (ShardedExecutor(self.num_shards, backend=backend)
+                            if self.num_shards > 1 else None)
         self._rng = np.random.default_rng(seed)
         # (kernel, size, dtype) -> canonical (args, kwargs): request
         # payloads are synthetic, so one input per shape is reused --
         # values never move a kernel on the roofline
         self._inputs: Dict[Tuple[str, int, str], Tuple[tuple, dict]] = {}
+        # shape key -> ShardPlan: the split is a pure function of the
+        # launch shape, so steady-state sharded serving replans nothing
+        self._plans: Dict[Tuple, object] = {}
         self._warmed: set = set()
 
     # -- inputs ------------------------------------------------------------
@@ -137,13 +152,15 @@ class KernelBatchExecutor:
         does.  The elementwise kernel's launch does not depend on this
         tile (one 16-byte chunk per thread, see ``elementwise_call``):
         the padding follows the reference, so that the packed shapes are
-        its shapes.
+        its shapes.  Under a mesh the unit is ``num_shards`` tiles, so the
+        packed array splits into equal per-shard ranges of whole tiles.
         """
         entry = DEFAULT_DISPATCHER.tuning.lookup(
-            kernel, engine, dtype, DEFAULT_DISPATCHER.hw.name)
+            kernel, engine, dtype, DEFAULT_DISPATCHER.hw.name,
+            num_shards=self.num_shards)
         cfg = dict(entry.params) if entry is not None else {}
         tile = (cfg.get("block_rows", ELEMENTWISE_BLOCK_ROWS)
-                * cfg.get("lanes", ELEMENTWISE_LANES))
+                * cfg.get("lanes", ELEMENTWISE_LANES)) * self.num_shards
         cap = max(total, 1)
         return -(-cap // tile) * tile  # ceil to a whole tile count
 
@@ -189,6 +206,29 @@ class KernelBatchExecutor:
         self._sync()
         return time.perf_counter() - t0
 
+    def _sharded_compute(self, op, args: tuple, kwargs: dict,
+                         engine: str, plan_key: Tuple,
+                         warm_key: Tuple) -> float:
+        """One shard-parallel launch: cached plan, warmed, timed.
+
+        The shared mesh path behind both the packed and the per-request
+        launches: the ShardPlan is a pure function of the launch shape
+        (cached under *plan_key*), the first launch of a shape warms
+        outside the timed region, and the batch is charged the slowest
+        shard (``parallel_s``; each shard's clock runs between two
+        synchronizations).
+        """
+        plan = self._plans.get(plan_key)
+        if plan is None:
+            plan = self._plans[plan_key] = \
+                self._shard_exec.plan(op, *args, **kwargs)
+        if warm_key not in self._warmed:
+            self._shard_exec.run(op, *args, engine=engine, plan=plan,
+                                 **kwargs)
+            self._warmed.add(warm_key)
+        return self._shard_exec.run(op, *args, engine=engine, plan=plan,
+                                    **kwargs).parallel_s
+
     def _pack(self, op, batch: Sequence[Request],
               engine: str) -> Tuple[List, int]:
         """(packed call arguments, capacity) for one formed batch."""
@@ -216,7 +256,8 @@ class KernelBatchExecutor:
 
     def packed_call(self, batch: Sequence[Request]
                     ) -> Tuple[torch.Tensor, List[int]]:
-        """One untimed packed launch of a formed elementwise batch.
+        """One untimed packed launch of a formed elementwise batch (split
+        across the shards under a mesh).
 
         Returns the capacity-long output and each request's length in
         batch order: request i's result is the slice starting at the sum
@@ -229,7 +270,10 @@ class KernelBatchExecutor:
             raise ValueError(f"kernel {op.name!r} does not pack")
         engine, _ = self._resolve_engine(op, args, kwargs)
         packed, _ = self._pack(op, batch, engine)
-        out = op(*packed, engine=engine, backend=self.backend)
+        if self._shard_exec is not None:
+            out = self._shard_exec.run(op, *packed, engine=engine).out
+        else:
+            out = op(*packed, engine=engine, backend=self.backend)
         return out, [r.size for r in batch]
 
     def _run_packed(self, op, batch: Sequence[Request],
@@ -237,7 +281,14 @@ class KernelBatchExecutor:
         """One fused launch over the concatenated + padded batch."""
         dtype = batch[0].dtype
         packed, cap = self._pack(op, batch, engine)
-        warm_key = (op.name, dtype, engine, cap)
+        warm_key = (op.name, dtype, engine, cap, self.num_shards)
+        if self._shard_exec is not None:
+            # shard-parallel packed launch: each shard is a dispatched
+            # call over its tile-aligned slice; the batch is charged the
+            # slowest shard
+            return self._sharded_compute(op, tuple(packed), {}, engine,
+                                         plan_key=(op.name, dtype, cap),
+                                         warm_key=warm_key)
         tile = self._tile_override(op, engine, dtype)
         if tile is not None:
             warm_key = warm_key + (tuple(sorted(tile.items())),)
@@ -251,7 +302,14 @@ class KernelBatchExecutor:
         total = 0.0
         for r in batch:
             args, kwargs = self._canonical(op.name, r.size, r.dtype)
-            warm_key = (op.name, r.dtype, engine, r.size)
+            warm_key = (op.name, r.dtype, engine, r.size, self.num_shards)
+            if self._shard_exec is not None:
+                # each request splits across the mesh; requests within the
+                # batch still run back to back, so their times add
+                total += self._sharded_compute(
+                    op, args, kwargs, engine,
+                    plan_key=(op.name, r.dtype, r.size), warm_key=warm_key)
+                continue
             total += self._timed(warm_key, lambda: op(
                 *args, engine=engine, backend=self.backend, **kwargs))
         return total
@@ -266,4 +324,5 @@ class KernelBatchExecutor:
             compute_s = self._run_packed(op, batch, engine)
         else:
             compute_s = self._run_sequential(op, batch, engine)
-        return BatchExecution(engine=engine, compute_s=compute_s)
+        return BatchExecution(engine=engine, compute_s=compute_s,
+                              shards=self.num_shards)

@@ -161,7 +161,7 @@ def serving_record(summary: ServingSummary, *, kernel: str, engine: str,
     model-scale classification the ``model_verdict`` claim checks);
     all three are None for kernel sessions.
 
-    Chaos sessions (the elastic session, ROADMAP Queue 1 items 13-14)
+    Chaos sessions (:class:`~repro_torch.serving.elastic.ElasticSession`)
     carry ``events``: the failure/resize log, availability,
     recovery-latency totals, and the chaos-vs-fault-free checksums the
     ``elastic_integrity`` claim re-verifies.  None for ordinary

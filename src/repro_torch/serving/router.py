@@ -8,8 +8,10 @@ module turns them into the two decisions a serving control plane owns:
 
 * **Shard width** (:class:`SLORouter`): grow the mesh split when the
   queue is deep and the head request's SLO headroom is thin, shrink it
-  back when the queue drains.  Eq. 2 intensity is invariant under the
-  data split, so the *engine* decision is identical at every width.
+  back when the queue drains.  Width changes re-plan through
+  ``Dispatcher.set_mesh`` so the memoized Advice carries the right
+  ShardSpecs -- and Eq. 2 intensity is invariant under the data split,
+  so the *engine* decision is identical at every width.
 * **Exploration** (:class:`OnlineKernelBatchExecutor` +
   :class:`repro_torch.tuning.online.OnlineTuner`): each packed launch may
   try a bandit-chosen tile arm instead of the cached winner, but only
@@ -24,19 +26,19 @@ routes width/exploration around it -- the ``online_ceiling`` claim
 re-verifies every recorded decision against the ceiling.
 
 :class:`SLORouter` is the reference's pure policy, ported whole: the
-claim replays it.  :class:`OnlineKernelBatchExecutor` runs at width 1; a
-router that may grow the width needs the sharded executor, which waits
-for ROADMAP Queue 1 item 13, and is refused when the executor is built.
+claim replays it.  Every decision is appended to the router's log (and
+emitted as a ``route`` trace instant on the virtual clock).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Dict, List, Optional
 
-from ..core.dispatch import normalize_engine
+from ..core.dispatch import DEFAULT_DISPATCHER, normalize_engine
 from ..obs.trace import TRACER
+from ..sharding import ShardedExecutor
 from ..tuning.online import ArmChoice, OnlineTuner
-from .batcher import MESH_WAITS, KernelBatchExecutor
+from .batcher import KernelBatchExecutor
 from .requests import Request
 
 __all__ = ["OnlineKernelBatchExecutor", "RouterDecision", "SLORouter"]
@@ -151,32 +153,31 @@ class SLORouter:
 class OnlineKernelBatchExecutor(KernelBatchExecutor):
     """A :class:`KernelBatchExecutor` whose tiles are bandit-tuned live.
 
-    Two deltas from the base executor: the scheduler's :meth:`on_dequeue`
-    signals feed an optional :class:`SLORouter` (the exploration gate),
-    and packable launches take their tile config from the
-    :class:`~repro_torch.tuning.online.OnlineTuner` instead of the static
-    TuningPolicy (one arm per batch -- the measured batch compute time is
-    the arm's observation).
+    Three deltas from the base executor: the scheduler's
+    :meth:`on_dequeue` signals feed an optional :class:`SLORouter` (width
+    + exploration gate); packable launches take their tile config from
+    the :class:`~repro_torch.tuning.online.OnlineTuner` instead of the
+    static TuningPolicy (one arm per batch -- the measured batch compute
+    time is the arm's observation); and width changes rebuild the shard
+    executor in place, dropping the plan/warm caches whose keys embed the
+    old capacity.
 
     Engine selection is inherited unchanged -- the bandit tunes tiles
     *within* the engine §6 Advice fixed, so no online choice can cross
-    the Eq. 23/24 ceiling.  The width stays 1: a router whose
-    ``max_width`` exceeds 1 raises ``NotImplementedError`` (the sharded
-    executor waits for ROADMAP Queue 1 item 13).
+    the Eq. 23/24 ceiling.
     """
 
     def __init__(self, engine: str = "auto", *, max_batch: int = 8,
                  backend: str = "cuda", seed: int = 0,
                  tuner: Optional[OnlineTuner] = None,
-                 router: Optional[SLORouter] = None):
-        if router is not None and router.max_width > 1:
-            raise NotImplementedError(
-                f"an SLO router of max_width {router.max_width}: "
-                f"{MESH_WAITS}")
+                 router: Optional[SLORouter] = None,
+                 dispatcher=None):
         super().__init__(engine, max_batch=max_batch, backend=backend,
                          seed=seed)
         self.tuner = tuner
         self.router = router
+        self.dispatcher = (dispatcher if dispatcher is not None
+                           else DEFAULT_DISPATCHER)
         self._explore = True
         self._pending: Optional[ArmChoice] = None
         self._tunable = False
@@ -189,7 +190,8 @@ class OnlineKernelBatchExecutor(KernelBatchExecutor):
         """The scheduler's pre-launch signal: route this batch.
 
         Resolves the batch's Advice engine (memoized -- a dict hit in
-        steady state) and asks the router for the exploration gate.
+        steady state), asks the router for width + exploration, and
+        applies a width change before the launch.
         """
         req = batch[0]
         advice = self.advice_for(req.kernel, req.size, req.dtype)
@@ -202,6 +204,25 @@ class OnlineKernelBatchExecutor(KernelBatchExecutor):
             clock_s=clock_s, engine=engine, queue_depth=queue_depth,
             oldest_wait_ms=oldest_wait_ms)
         self._explore = decision.explore
+        if decision.width != self.num_shards:
+            self._set_width(decision.width)
+
+    def _set_width(self, width: int) -> None:
+        """Retarget the mesh width in place (the router's resize).
+
+        Rebuilds the shard executor and drops the plan/warm caches --
+        their keys embed the old capacity -- then re-plans the
+        dispatcher's memoized Advice via ``set_mesh`` so ShardSpecs match
+        the new width.  Canonical inputs survive: payloads are
+        width-independent.
+        """
+        self.num_shards = max(1, int(width))
+        self._shard_exec = (ShardedExecutor(self.num_shards,
+                                            backend=self.backend)
+                            if self.num_shards > 1 else None)
+        self._plans.clear()
+        self._warmed.clear()
+        self.dispatcher.set_mesh(self.num_shards)
 
     # -- tile injection ----------------------------------------------------
 
@@ -211,10 +232,38 @@ class OnlineKernelBatchExecutor(KernelBatchExecutor):
                 or self._pending is not None):
             return None
         choice = self.tuner.select(op, engine, dtype,
+                                   num_shards=self.num_shards,
                                    explore=self._explore,
                                    size=self._batch_rows)
         self._pending = choice
         return dict(choice.params)
+
+    def _sharded_compute(self, op, args: tuple, kwargs: dict,
+                         engine: str, plan_key, warm_key) -> float:
+        """The base shard launch, with the bandit arm riding kwargs.
+
+        The ShardPlan is computed from the launch shape alone (tile params
+        never change the split); the arm's ``tile_config`` rides the
+        per-shard run kwargs, which the sharding layer forwards to each
+        shard's dispatched call unchanged.
+        """
+        tile = self._tile_override(op, engine, plan_key[1])
+        if tile is None:
+            return super()._sharded_compute(op, args, kwargs, engine,
+                                            plan_key, warm_key)
+        plan = self._plans.get(plan_key)
+        if plan is None:
+            plan = self._plans[plan_key] = \
+                self._shard_exec.plan(op, *args, **kwargs)
+        warm_key = warm_key + (tuple(sorted(tile.items())),)
+        run_kw = dict(kwargs)
+        run_kw["tile_config"] = dict(tile)
+        if warm_key not in self._warmed:
+            self._shard_exec.run(op, *args, engine=engine, plan=plan,
+                                 **run_kw)
+            self._warmed.add(warm_key)
+        return self._shard_exec.run(op, *args, engine=engine, plan=plan,
+                                    **run_kw).parallel_s
 
     # -- execution ---------------------------------------------------------
 

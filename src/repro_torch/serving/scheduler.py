@@ -19,8 +19,8 @@ within ``max_wait_s`` plus the residual of the batch in flight, once
 its queue's turn comes in oldest-first order).
 
 The admission (``_admit``) and batch-forming (``_ready_key``) policy
-methods are deliberately free of loop state, so an elastic session
-(ROADMAP Queue 1 items 13-14) can reuse them headlessly.  Pure Python,
+methods are deliberately free of loop state, so the elastic session
+(:mod:`repro_torch.serving.elastic`) reuses them headlessly.  Pure Python,
 as in the reference package; the virtual ``batch`` / ``queue`` spans
 and the ``admit`` instants go through :data:`repro_torch.obs.trace.TRACER`.
 """
@@ -92,7 +92,7 @@ class BatchExecution:
 
     ``compute_s`` is what the scheduler folds back into the virtual
     clock.  ``shards`` records how many ways the batch was split
-    (1 = unsharded; the mesh split waits for ROADMAP Queue 1 item 13).
+    (1 = unsharded).
     """
 
     engine: str        # 'vector' | 'matrix' — what actually ran

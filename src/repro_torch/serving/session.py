@@ -12,11 +12,14 @@ Sessions run on the card unless the config asks for the CPU
 :class:`~repro_torch.serving.router.OnlineKernelBatchExecutor`: a
 budgeted bandit re-tunes tiles from measured batch compute, warm-started
 from the default dispatcher's tuning cache, and the record gains a
-``tuning`` block.  What waits, and raises ``NotImplementedError`` naming
-its ROADMAP Queue 1 item: SLO routing (``slo_route``, whose router grows
-the mesh) and the mesh (``num_shards > 1`` / ``real_mesh``), item 13.
-The reference's ``checkpoint_session`` and ``redispatch_failed_shard``
-come with the elastic session (items 13-14).
+``tuning`` block; ``slo_route`` lets its SLO router grow and shrink the
+shard width.  ``num_shards > 1`` splits every launch (the virtual clock
+charges the slowest shard).  The measured mesh (``real_mesh``) raises
+``NotImplementedError`` naming ROADMAP Queue 1 item 13.3.  The fault
+tolerance surface is reachable from here: ``checkpoint_session``
+snapshots an elastic session and ``redispatch_failed_shard`` is the
+mid-batch recovery primitive (both from
+:mod:`repro_torch.serving.elastic`).
 """
 from __future__ import annotations
 
@@ -26,13 +29,17 @@ from typing import Dict, Optional, Tuple
 from ..core.dispatch import normalize_engine
 from ..obs.trace import capture as trace_capture
 from .batcher import MESH_WAITS, KernelBatchExecutor
+# re-exported so the fault-tolerance surface is reachable from the session
+# module, as in the reference
+from .elastic import checkpoint_session, redispatch_failed_shard
 from .loadgen import LoadGen, make_loadgen
 from .metrics import ServingSummary, serving_record, summarize
 from .scheduler import (BatchPolicy, ContinuousBatchingScheduler,
                         ServingLog, trace_payload)
 from .slo import DEFAULT_SLO, SLO
 
-__all__ = ["BACKEND_FOR_DEVICE", "SessionConfig", "run_session"]
+__all__ = ["BACKEND_FOR_DEVICE", "SessionConfig", "checkpoint_session",
+           "redispatch_failed_shard", "run_session"]
 
 #: The backend that runs where the session's tensors live.
 BACKEND_FOR_DEVICE = {"cuda": "cuda", "cpu": "plain"}
@@ -64,8 +71,9 @@ class SessionConfig:
     # compute times (repro_torch.tuning.online); the record gains a
     # `tuning` block
     online_tune: bool = False
-    # SLO-aware routing (repro_torch.serving.router.SLORouter); requires
-    # online_tune, and its mesh widths wait for ROADMAP item 13
+    # SLO-aware routing: shard width + exploration gating from queue
+    # depth and SLO headroom (repro_torch.serving.router.SLORouter);
+    # requires online_tune
     slo_route: bool = False
     tune_budget: int = 8         # bandit exploration pulls per key
     device: str = "cuda"
@@ -94,11 +102,14 @@ def run_session(cfg: SessionConfig, executor=None,
     if cfg.slo_route and not cfg.online_tune:
         raise ValueError("slo_route requires online_tune: the router's "
                          "exploration gate drives the online tuner")
-    if cfg.num_shards > 1 or cfg.real_mesh:
-        raise NotImplementedError(
-            f"num_shards={cfg.num_shards}, real_mesh={cfg.real_mesh}: "
-            f"{MESH_WAITS}")
+    if cfg.real_mesh:
+        raise NotImplementedError(f"real_mesh=True: {MESH_WAITS}")
+    restore_mesh = None
     if executor is None and cfg.online_tune:
+        if cfg.num_shards != 1:
+            raise ValueError(
+                "online_tune owns the mesh width (the router grows and "
+                "shrinks it); start from num_shards=1")
         from ..core.dispatch import DEFAULT_DISPATCHER
         from ..tuning.online import OnlineTuner
         from .router import OnlineKernelBatchExecutor, SLORouter
@@ -110,18 +121,26 @@ def run_session(cfg: SessionConfig, executor=None,
         executor = OnlineKernelBatchExecutor(
             engine=cfg.engine, max_batch=cfg.policy.max_batch,
             seed=cfg.seed, backend=cfg.backend, tuner=tuner, router=router)
+        # the router mutates the default dispatcher's mesh width; put it
+        # back so later sessions start from the configured state
+        restore_mesh = executor.dispatcher
     elif executor is None:
         executor = KernelBatchExecutor(engine=cfg.engine,
                                        max_batch=cfg.policy.max_batch,
-                                       seed=cfg.seed, backend=cfg.backend)
+                                       seed=cfg.seed, backend=cfg.backend,
+                                       num_shards=cfg.num_shards)
     if source is None:
         source = make_loadgen(cfg.workload, cfg.kernel,
                               rate_rps=cfg.rate_rps, size=cfg.size,
                               dtype=cfg.dtype, seed=cfg.seed,
                               trace_path=cfg.trace_path)
     scheduler = ContinuousBatchingScheduler(executor, cfg.policy)
-    with trace_capture() as view:
-        log = scheduler.run(source, cfg.duration_s)
+    try:
+        with trace_capture() as view:
+            log = scheduler.run(source, cfg.duration_s)
+    finally:
+        if restore_mesh is not None:
+            restore_mesh.set_mesh(1)
     trace = trace_payload(view.events, log)
     summary = summarize(log, cfg.slo)
     advice = executor.advice_for(cfg.kernel, cfg.size, cfg.dtype)
@@ -146,7 +165,8 @@ def run_session(cfg: SessionConfig, executor=None,
         mxu_ceiling=advice.max_speedup_matrix,
         max_batch=cfg.policy.max_batch,
         max_wait_ms=cfg.policy.max_wait_s * 1e3,
-        num_shards=cfg.num_shards, mesh_exec_mode=None,
+        num_shards=cfg.num_shards,
+        mesh_exec_mode="virtual" if cfg.num_shards > 1 else None,
         model=extras.get("model"), phases=extras.get("phases"),
         verdict=extras.get("verdict"), tuning=extras.get("tuning"),
         trace=trace)

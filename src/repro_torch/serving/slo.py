@@ -25,8 +25,7 @@ def availability(completed: int, offered: int) -> float:
     The elastic-serving availability metric: injected failures
     re-dispatch instead of dropping, so a healthy elastic session
     completes every admitted arrival and reports 1.0; anything below the
-    ``availability_target`` fails the ``elastic_integrity`` claim.  The
-    elastic session itself waits for ROADMAP Queue 1 items 13-14.
+    ``availability_target`` fails the ``elastic_integrity`` claim.
     """
     if offered <= 0:
         return 1.0

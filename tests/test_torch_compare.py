@@ -120,12 +120,28 @@ def test_edited_session_fails_the_same_claim(tmp_path, name, how, claim):
 
 
 @pytest.mark.parametrize("name,item", [
-    ("BENCH_serve_scale_mesh2.json", "items 13-14"),
+    ("BENCH_serve_scale.json", "item 13.3"),
 ])
 def test_serving_sets_needing_unported_claims_raise(tmp_path, name, item):
-    shutil.copy(RUNS / name, tmp_path)
+    """A session set on the measured mesh still needs item 13.3."""
+    payload = json.loads((RUNS / name).read_text())
+    for rec in payload["records"]:
+        rec["num_shards"], rec["mesh_exec_mode"] = 2, "mesh"
+    (tmp_path / name).write_text(json.dumps(payload))
     with pytest.raises(NotImplementedError, match=item):
         check_records(load_dir(str(tmp_path)))
+
+
+def test_chaos_set_matches_reference_verdicts(tmp_path):
+    """The reference's chaos session set (2-way mesh, events block)
+    passes the port's claims, elastic_integrity included, with the
+    reference's verdicts and details."""
+    shutil.copy(RUNS / "BENCH_serve_scale_mesh2.json", tmp_path)
+    got = check_records(load_dir(str(tmp_path)))
+    want = j_check_records(j_load_dir(str(tmp_path)))
+    assert _triples(got) == _triples(want)
+    assert "elastic_integrity" in {r.claim for r in got}
+    assert not violations(got)
 
 
 @pytest.mark.parametrize("name", ["scale", "axpy"])
@@ -222,12 +238,22 @@ def test_regret_gate_matches_reference(tmp_path, case, threshold):
 
 
 def test_sharded_session_without_events_raises(tmp_path):
+    """A sharded session charged on the measured mesh waits for item
+    13.3; the same session on the virtual clock verifies as the
+    reference verifies it."""
     payload = json.loads((RUNS / "BENCH_serve_scale.json").read_text())
     payload["records"][0]["num_shards"] = 2
+    payload["records"][0]["mesh_exec_mode"] = "mesh"
     (tmp_path / "BENCH_serve_scale.json").write_text(json.dumps(payload))
     (rs,) = load_dir(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="item 13.3"):
         check_serving_record(rs.records[0], hw_for(rs))
+    payload["records"][0]["mesh_exec_mode"] = "virtual"
+    (tmp_path / "BENCH_serve_scale.json").write_text(json.dumps(payload))
+    got = check_records(load_dir(str(tmp_path)))
+    want = j_check_records(j_load_dir(str(tmp_path)))
+    assert _triples(got) == _triples(want)
+    assert not violations(got)
 
 
 def test_serving_set_with_unknown_hw_model_raises(tmp_path):
@@ -484,8 +510,10 @@ def test_flash_decode_points_of_one_size_keep_their_own_keys(tmp_path,
 
 
 @pytest.mark.parametrize("name,item", [
-    ("BENCH_serve_scale_mesh2.json", "items 13-14"),
-    ("BENCH_scale_mesh2.json", "item 13"),
+    pytest.param("BENCH_scale_mesh2.json", "item 13.3",
+                 id="BENCH_scale_mesh2.json-item 13"),
+    pytest.param("BENCH_stencil_mesh2.json", "item 13.3",
+                 id="BENCH_stencil_mesh2.json-item 13.3"),
 ])
 def test_gates_not_ported_raise(tmp_path, name, item):
     base, cand = _dirs(tmp_path)
@@ -527,11 +555,19 @@ def test_serve_cli_lm_records_verify(tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--chaos", "fail@0.1:1"], "items 13-14"),
-    (["--online-tune", "--slo-route"], "item 13"), (["--slo-route"],
-                                                    "item 13"),
-    (["--online-tune", "--workload", "lm"], "kernel sessions only"),
-    (["--mesh", "2"], "item 13"), (["--real"], "item 13"),
+    pytest.param(["--online-tune", "--workload", "lm"],
+                 "kernel sessions only", id="argv3-kernel sessions only"),
+    pytest.param(["--real"], "item 13.3", id="argv5-item 13"),
+    pytest.param(["--slo-route"], "requires --online-tune",
+                 id="slo-route-alone"),
+    pytest.param(["--online-tune", "--mesh", "2"], "owns the mesh width",
+                 id="online-mesh"),
+    pytest.param(["--chaos", "fail@0.1:1", "--workload", "closed"],
+                 "open-loop", id="chaos-closed"),
+    pytest.param(["--chaos", "fail@0.1:1", "--workload", "lm"],
+                 "kernel sessions only", id="chaos-lm"),
+    pytest.param(["--chaos", "boom@0.1"], "bad --chaos spec",
+                 id="chaos-bad-spec"),
 ])
 def test_serve_cli_refuses_what_waits(argv, item):
     from repro_torch.bench import serve

@@ -1,7 +1,8 @@
 """Guards on the port's boundaries.
 
 * The port imports neither JAX nor the reference package ``repro``,
-  at run time (a fresh interpreter) or in its source (an AST scan of
+  at run time (a fresh interpreter; the training and the sharding
+  modules each on their own too) or in its source (an AST scan of
   ``src/repro_torch`` and ``chip_smoke.py``).
 * Its entry points do not fall back: ``backend="cuda"`` on CPU tensors
   raises, and so does the default ``device="cuda"`` where there is no
@@ -57,6 +58,34 @@ TRAINING = ("repro_torch.optim.adamw", "repro_torch.optim.compression",
             "repro_torch.runtime.checkpoint", "repro_torch.runtime.train_loop",
             "repro_torch.launch.cells", "repro_torch.launch.steps",
             "repro_torch.launch.train")
+
+
+#: The sharding slice's modules: the plan, the executor, the elastic
+#: session and the mesh transition it records.
+SHARDING = ("repro_torch.sharding", "repro_torch.sharding.plan",
+            "repro_torch.sharding.executor", "repro_torch.serving.elastic",
+            "repro_torch.runtime.elastic")
+
+
+def test_sharding_modules_load_no_jax_or_reference():
+    """The sharding and elastic modules, imported on their own in a fresh
+    interpreter, pull in neither JAX nor the reference; each is among the
+    sources the AST scan below reads."""
+    names = {str(p.relative_to(REPO / "src"))[:-3].replace("/", ".")
+             .removesuffix(".__init__") for p in _port_files()[:-1]}
+    assert set(SHARDING) <= names
+    code = ("import sys\n"
+            f"for m in {SHARDING!r}:\n"
+            "    __import__(m)\n"
+            "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    env = {"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin",
+           "JAX_PLATFORMS": "cpu"}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 def test_training_modules_load_no_jax_or_reference():

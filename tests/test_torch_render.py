@@ -1,10 +1,11 @@
 """The port's report renderer against the reference's ``repro.report.render``,
 and the tuning / serving / report slice end to end on the CPU.
 
-* Every committed non-mesh record set under ``runs/`` renders to the
-  committed ``docs/benchmarks/`` page byte for byte, and ``render_report``
-  over those sets equals the reference's.  A mesh set raises naming
-  ROADMAP item 13.
+* Every committed record set under ``runs/`` that is not measured on a
+  real mesh (the chaos session set included) renders to the committed
+  ``docs/benchmarks/`` page byte for byte, and ``render_report`` over
+  those sets equals the reference's.  A measured-mesh set raises naming
+  ROADMAP item 13.3; a virtual mesh sweep renders the sharded section.
 * ``write_report`` never defaults to the repository's own ``REPORT.md`` or
   ``docs/benchmarks/`` (it deletes orphan pages in its docs directory).
 * The slice: ``kernels --device cpu`` into one directory, an online-tuned
@@ -48,7 +49,9 @@ NON_MESH = ("BENCH_attention.json", "BENCH_axpy.json", "BENCH_scale.json",
             "BENCH_serve_scale.json", "BENCH_serve_scale_online.json",
             "BENCH_serve_triad.json")
 MESH = ("BENCH_scale_mesh2.json", "BENCH_scale_mesh4.json",
-        "BENCH_stencil_mesh2.json", "BENCH_serve_scale_mesh2.json")
+        "BENCH_stencil_mesh2.json")
+#: The reference's chaos session set: a 2-way virtual mesh with events.
+CHAOS = ("BENCH_serve_scale_mesh2.json",)
 
 
 def _render(rs):
@@ -58,10 +61,10 @@ def _render(rs):
 
 def test_every_committed_set_is_listed():
     names = {p.name for p in RUNS.glob("BENCH_*.json")}
-    assert names == set(NON_MESH) | set(MESH)
+    assert names == set(NON_MESH) | set(MESH) | set(CHAOS)
 
 
-@pytest.mark.parametrize("name", NON_MESH)
+@pytest.mark.parametrize("name", NON_MESH + CHAOS)
 def test_page_matches_the_committed_page(name):
     rs = load_file(str(RUNS / name))
     assert _render(rs) == (DOCS / page_name(rs)).read_text()
@@ -75,14 +78,23 @@ def test_report_matches_reference_over_the_non_mesh_sets(tmp_path):
     assert "## Online tuning" in got
 
 
+def test_report_matches_reference_with_the_chaos_set(tmp_path):
+    for name in NON_MESH + CHAOS:
+        shutil.copy(RUNS / name, tmp_path)
+    got = render_report(load_dir(str(tmp_path)))
+    assert got == j_render_report(j_load_dir(str(tmp_path)))
+    assert "## Serving under failure" in got
+    assert "| scale | vector | 2-way |" in got
+
+
 @pytest.mark.parametrize("name", MESH)
 def test_mesh_sets_raise(tmp_path, name):
     rs = load_file(str(RUNS / name))
     for render in (render_report, lambda rs: _render(rs[0])):
-        with pytest.raises(NotImplementedError, match="item 13"):
+        with pytest.raises(NotImplementedError, match="item 13.3"):
             render([rs])
     shutil.copy(RUNS / name, tmp_path)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="item 13.3"):
         write_report(str(tmp_path), str(tmp_path / "R.md"),
                      str(tmp_path / "docs"))
     assert not (tmp_path / "R.md").exists()

@@ -410,7 +410,8 @@ def test_packed_zero_d_scalar_rides_along():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    ({"num_shards": 2}, "item 13"), ({"real_mesh": True}, "item 13"),
+    pytest.param({"real_mesh": True}, "item 13.3",
+                 id="kwargs1-item 13"),
 ])
 def test_batcher_mesh_waits(kwargs, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -504,13 +505,12 @@ def test_session_end_to_end_verifies(tmp_path):
 
 
 @pytest.mark.parametrize("kwargs,exc,match", [
-    ({"online_tune": True, "num_shards": 2}, NotImplementedError,
-     "item 13"),
-    ({"online_tune": True, "slo_route": True}, NotImplementedError,
-     "item 13"),
-    ({"slo_route": True}, ValueError, "requires online_tune"),
-    ({"num_shards": 2}, NotImplementedError, "item 13"),
-    ({"real_mesh": True}, NotImplementedError, "item 13"),
+    pytest.param({"slo_route": True}, ValueError, "requires online_tune",
+                 id="kwargs2-ValueError-requires online_tune"),
+    pytest.param({"real_mesh": True}, NotImplementedError, "item 13.3",
+                 id="kwargs4-NotImplementedError-item 13"),
+    pytest.param({"online_tune": True, "num_shards": 2}, ValueError,
+                 "online_tune owns the mesh width", id="online-mesh"),
 ])
 def test_session_waiting_options_raise(kwargs, exc, match):
     cfg = P.SessionConfig(kernel="scale", device="cpu", backend="plain",
@@ -607,10 +607,6 @@ def test_slo_router_decides_as_the_reference(max_width, grow, shrink):
     assert router.payload() == jrouter.payload()
 
 
-def test_online_executor_refuses_widths_above_one():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        P.OnlineKernelBatchExecutor(backend="plain",
-                                    router=P.SLORouter(max_width=2))
 
 
 @pytest.mark.parametrize("kernel", ["scale", "triad", "axpy"])
