@@ -182,6 +182,20 @@ Phases, each fatal on failure:
      then python -m repro_torch.bench serve --mesh 4 and --online-tune
      --slo-route (an overload: router widths above 1) into
      build/runs_torch_serve/, verified and gated;
+ 11d. the measured mesh: one rank group of 4 (gloo processes, every one
+     on this card, halos through pinned host memory); each family's first
+     STREAM point (float32) through MeshExecutor at 4 ranks, with the
+     engine the dispatcher picks, its output bit for bit against the
+     unsharded kernel's, measured (mesh wall, exchange alone, the virtual
+     slowest shard, skew) into phase 11b's records of the point
+     (build/runs_torch_mesh/BENCH_<kernel>_mesh4.json, schema 6, the
+     overlap probe in the env), which pass collective_cost and mesh_skew
+     with 0 violations, the gate and the report's measured-collectives
+     section; the 2d5pt point at 3 ranks (an uneven, padded edge) bit for
+     bit; serve --mesh 4 --real on SCALE at phase 7's traffic;
+     launch.train --mesh 2x2 --devices 4 on reduced Mistral-NeMo-12B
+     against --mesh 1x1 (loss rtol 1e-5, parameters 5e-4), and the 2x2
+     checkpoint restored onto 1 x 2 ranks (reshard_restore) bit for bit;
  12. repro_torch.bench.compare with build/runs_torch as both baseline and
      candidate, which must pass (the regret gate joins the online pairs);
  13. repro_torch.report.write_report on build/runs_torch into
@@ -314,6 +328,12 @@ ELASTIC_STENCIL, ELASTIC_ATTENTION = 8192, 32768
 #: Phase 11c's SLO-routed session: an overload of small requests, so the
 #: queue outgrows the router's grow depth while headroom is thin.
 ROUTE_SIZE, ROUTE_RPS, ROUTE_DURATION_S = 2**20, 200000.0, 0.05
+#: Phase 11d: the measured mesh on MESH_RANKS ranks (one group started
+#: once), the 2d5pt stencil also at MESH_UNEVEN; each measured step's
+#: median over MESH_ITERS after 2 warm-ups; the trainer's data x model
+#: mesh against 1 x 1 on a reduced config, then the restore onto 1 x 2.
+MESH_RANKS, MESH_UNEVEN, MESH_ITERS = 4, 3, 10
+MESH_TRAIN_ARCH, MESH_TRAIN_STEPS = "mistral-nemo-12b", 4
 
 
 class SmokeFailure(RuntimeError):
@@ -842,6 +862,10 @@ def main() -> int:
     elastic_launches = _elastic_phase(torch, card, failures)
     torch.cuda.empty_cache()
 
+    # -- 11d. the measured mesh ---------------------------------------------
+    mesh_launches = _mesh_phase(torch, hw, card, failures)
+    torch.cuda.empty_cache()
+
     # -- 12. the compare gate -----------------------------------------------
     from repro_torch.bench import compare
     runs = str(ROOT / "build" / "runs_torch")
@@ -873,6 +897,7 @@ def main() -> int:
             "online_serving_launches": online_launches.get(r["name"], 0),
             "sharded_launches": sharded_launches.get(r["name"], 0),
             "elastic_launches": elastic_launches.get(r["name"], 0),
+            "mesh_launches": mesh_launches.get(r["name"], 0),
             "max_abs_err": r["err"],
             "ms": r["t"].median_us / 1e3,
             "plain_ms": r["plain"].median_us / 1e3,
@@ -2771,6 +2796,230 @@ def _elastic_phase(torch, card, failures):
         flush=True)
     gc_pauses.close()
     gc.unfreeze()
+    return launches
+
+
+def _mesh_phase(torch, hw, card, failures):
+    """Phase 11d (module docstring): the measured mesh on one rank group
+    of MESH_RANKS.  Returns the phase's launches per kernel, this
+    process's and the other ranks' summed."""
+    import numpy as np
+    from repro_torch.bench import bench_kernels, compare
+    from repro_torch.bench import serve as serve_cli
+    from repro_torch.bench.common import bench_env, write_json
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.kernels import _ext, registry
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.report import (MESH_CLAIMS, check_records, load_dir,
+                                    violations, write_report)
+    from repro_torch.runtime import checkpoint as ckpt
+    from repro_torch.runtime.elastic import reshard_restore, restore_on
+    from repro_torch.sharding import MeshExecutor, ranks, rules
+
+    t_phase = time.perf_counter()
+    sharded_dir = ROOT / "build" / "runs_torch"
+    out_dir = ROOT / "build" / "runs_torch_mesh"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    mesh_mod.host_device_count(MESH_RANKS)
+    t0 = time.perf_counter()
+    pool = ranks.pool()
+    start_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    _ext.reset_launches()
+    pool.launches(reset=True)
+    mex = MeshExecutor(MESH_RANKS)
+    probe = mex.overlap_probe()
+    print(json.dumps({"mesh_probe": dict(probe, card=card)}), flush=True)
+    env = dict(bench_env("cuda", hw.name), mesh_shape=[MESH_RANKS],
+               mesh_exec_mode="mesh", collective_overlap=probe)
+    engines = {}
+    for op in registry.all_ops():
+        path = sharded_dir / f"BENCH_{op.name}_mesh{SHARD_MESH}.json"
+        try:
+            payload = json.loads(path.read_text())
+        except (OSError, ValueError) as exc:
+            failures.append(f"mesh: phase 11b's records of {op.name}: {exc}")
+            continue
+        pt = next(bench_kernels.stream_points(
+            op, np.random.default_rng(bench_kernels.SEED), "cuda"))
+        args, kw = pt.args, pt.kwargs
+        shape = bench_kernels._shape(args)
+        recs = [r for r in payload["records"]
+                if (r["size"], r["dtype"], r["shape"]) ==
+                (pt.size, pt.dtype, shape)]
+        tag = f"mesh/{op.name}/{pt.dtype}/{shape}"
+        if len(recs) != 2:
+            failures.append(f"{tag}: {len(recs)} records of phase 11b, "
+                            f"expected one per engine")
+            continue
+        engine = engines[op.name] = mex.engine_for(op, *args, **kw)
+        unsharded = op.engines[engine](*args, backend="cuda", **kw)
+        want = op.reference(*args, **kw).float()
+        plan = mex.plan(op, *args, **kw)
+        t0 = time.perf_counter()
+        field, trace, out = bench_kernels.mesh_exec_field(
+            mex, op, plan, args, kw, want, warmup=2, iters=MESH_ITERS)
+        measure_s = time.perf_counter() - t0
+        equal = bool(torch.equal(out, unsharded))
+        if not equal:
+            failures.append(f"{tag}: the {MESH_RANKS}-rank output differs "
+                            f"from the unsharded kernel's")
+        for rec in recs:
+            rec["mesh_exec"] = field
+            rec["trace"]["mesh"] = trace
+        write_json(op.name, recs, str(out_dir), env=env, mesh=MESH_RANKS)
+        line = {"phase": "mesh", "kernel": op.name, "engine": engine,
+                "dtype": pt.dtype, "size": pt.size, "shape": shape,
+                "ranks": plan.spec.num_shards, "kind": plan.spec.kind,
+                "halo": plan.spec.halo,
+                "wire_bytes": recs[0]["shard_spec"]["wire_bytes"],
+                "equal_unsharded": equal, "mesh_exec": field,
+                "measure_s": measure_s, "card": card}
+        if op.name == "stencil":
+            u3 = MeshExecutor(MESH_UNEVEN).run(op, *args, **kw).out
+            line[f"equal_unsharded_at_{MESH_UNEVEN}"] = at = bool(
+                torch.equal(u3, unsharded))
+            if not at:
+                failures.append(f"{tag}: at {MESH_UNEVEN} ranks the output "
+                                f"differs from the unsharded kernel's")
+            del u3
+        print(json.dumps(line), flush=True)
+        del args, kw, pt, unsharded, want, out
+        torch.cuda.empty_cache()
+
+    by_claim = {}
+    try:
+        results = check_records(load_dir(str(out_dir)))
+    except (OSError, ValueError) as exc:
+        failures.append(f"mesh records: {exc}")
+        results = []
+    for r in results:
+        c = by_claim.setdefault(r.claim, {"checked": 0, "violations": 0})
+        c["checked"] += 1
+        c["violations"] += int(not r.passed)
+    for r in violations(results):
+        failures.append(f"mesh claim {r.claim} violated by "
+                        f"{r.record.kernel}/{r.record.engine}: {r.detail}")
+    for claim in MESH_CLAIMS:
+        if by_claim.get(claim, {}).get("checked", 0) == 0:
+            failures.append(f"mesh: no {claim} claim checked")
+    gate_rc = compare.main([str(out_dir), str(out_dir)])
+    write_report(str(out_dir), str(out_dir / "REPORT.md"),
+                 str(out_dir / "docs" / "benchmarks"))
+    rendered = "### Measured collectives" in \
+        (out_dir / "REPORT.md").read_text()
+    if gate_rc != 0 or not rendered:
+        failures.append(f"mesh: gate rc {gate_rc}, measured collectives "
+                        f"rendered {rendered}")
+    print(json.dumps({"mesh_claims": by_claim, "gate_rc": gate_rc,
+                      "collectives_rendered": rendered, "card": card}),
+          flush=True)
+
+    # serve --mesh 4 --real: every batch charged the measured mesh wall
+    serve_dir = ROOT / "build" / "runs_torch_mesh_serve"
+    shutil.rmtree(serve_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    rc = serve_cli.main([
+        "--kernels", "scale", "--size", str(SERVE_ELEMENTWISE),
+        "--rate", str(SERVE_ELEMENTWISE_RPS),
+        "--duration", str(SERVE_DURATION_S), "--mesh", str(MESH_RANKS),
+        "--real", "--out", str(serve_dir)])
+    serve_s = time.perf_counter() - t0
+    sessions = []
+    try:
+        rs_path = serve_dir / f"BENCH_serve_scale_mesh{MESH_RANKS}.json"
+        sessions = json.loads(rs_path.read_text())["records"]
+        served = check_records(load_dir(str(serve_dir)))
+    except (OSError, ValueError) as exc:
+        failures.append(f"mesh serve records: {exc}")
+        served = []
+    serve_gate = compare.main([str(serve_dir), str(serve_dir)])
+    if rc != 0 or serve_gate != 0 or violations(served) or not sessions \
+            or any(r["mesh_exec_mode"] != "mesh" or r["completed"] == 0
+                   for r in sessions):
+        failures.append(f"mesh serve: rc {rc}, gate rc {serve_gate}, "
+                        f"{len(violations(served))} violations, sessions "
+                        f"{[(r['mesh_exec_mode'], r['completed']) for r in sessions]}")
+    print(json.dumps({"mesh_serve": {
+        "rc": rc, "gate_rc": serve_gate, "claims": len(served),
+        "sessions": [{k: r[k] for k in
+                      ("engine", "num_shards", "mesh_exec_mode", "p50_ms",
+                       "p99_ms", "compute_p50_ms", "completed")}
+                     for r in sessions],
+        "wall_s": serve_s, "card": card}}), flush=True)
+
+    # the trainer: 2 x 2 ranks against 1 x 1 on one seed, then the 2 x 2
+    # checkpoint restored onto 1 x 2 ranks
+    cfg = reduced(get_arch(MESH_TRAIN_ARCH))
+    ck = {m: ROOT / "build" / f"mesh_train_{m}" for m in ("1x1", "2x2")}
+    for d in ck.values():
+        shutil.rmtree(d, ignore_errors=True)
+    common = ["--arch", MESH_TRAIN_ARCH, "--reduced", "--steps",
+              str(MESH_TRAIN_STEPS)]
+    times, metrics = {}, {}
+    for m, extra in (("1x1", []), ("2x2", ["--mesh", "2x2", "--devices",
+                                            str(MESH_RANKS)])):
+        t0 = time.perf_counter()
+        metrics[m] = train.main(common + extra + ["--ckpt-dir", str(ck[m])])
+        times[m] = time.perf_counter() - t0
+    loss1, loss2 = float(metrics["1x1"]["loss"]), float(metrics["2x2"]["loss"])
+    template = lm.init_params(cfg, seed=1, device="cuda")
+    p1 = ckpt.restore(ck["1x1"], (template, None),
+                      step=MESH_TRAIN_STEPS)[0]
+    p2 = ckpt.restore(ck["2x2"], (template, None),
+                      step=MESH_TRAIN_STEPS)[0]
+    param_gap = max(float((a - b).abs().max())
+                    for a, b in zip(p1.parameters(), p2.parameters()))
+    loss_ok = abs(loss2 - loss1) <= 1e-5 * abs(loss1)
+    if not loss_ok or not param_gap < 5e-4:
+        failures.append(f"mesh train: 2x2 loss {loss2} vs 1x1 {loss1}, "
+                        f"parameter gap {param_gap}")
+    print(json.dumps({"mesh_train": {
+        "arch": cfg.name, "steps": MESH_TRAIN_STEPS, "loss_1x1": loss1,
+        "loss_2x2": loss2, "losses_2x2": metrics["2x2"]["losses"],
+        "param_gap": param_gap, "wall_s": times, "card": card}}),
+        flush=True)
+    m12 = mesh_mod.make_test_mesh((1, 2))
+    (whole, _), step = reshard_restore(str(ck["2x2"]), (template, None),
+                                       m12)
+    parts = restore_on(m12, str(ck["2x2"]), cfg, train_state=True)
+    shardings = rules.to_shardings(m12, rules.param_pspecs(template, m12))
+    split = exact = 0
+    for name, t in whole.named_parameters():
+        sh = shardings[name]
+        rebuilt = torch.zeros_like(t)
+        for r, part in enumerate(parts):
+            rebuilt[sh.index(r, tuple(t.shape))] = part[name]
+        split += bool(sh.split_dims(t.ndim))
+        exact += bool(torch.equal(rebuilt, t)
+                      and torch.equal(t, dict(p2.named_parameters())[name]))
+    leaves = len(shardings)
+    if exact != leaves or step != MESH_TRAIN_STEPS or split == 0:
+        failures.append(f"mesh restore: {exact} of {leaves} leaves exact, "
+                        f"step {step}, {split} split")
+    print(json.dumps({"mesh_restore": {
+        "from": "2x2", "to": "1x2", "step": step, "leaves": leaves,
+        "split_leaves": split, "exact": exact, "card": card}}), flush=True)
+    del whole, parts, template, p1, p2
+
+    torch.cuda.synchronize()
+    launches = dict(_ext.LAUNCHES)
+    for name, n in pool.launches().items():
+        launches[name] = launches.get(name, 0) + n
+    for name, engine in engines.items():
+        if launches.get(f"{name}_{engine}", 0) == 0:
+            failures.append(f"{name}_{engine}: no launch in the mesh phase")
+    ranks.close_pool()
+    mesh_mod.host_device_count(1)
+    for d in ck.values():
+        shutil.rmtree(d, ignore_errors=True)
+    print(json.dumps({"mesh_phase": {
+        "pool_start_s": start_s, "engines": engines,
+        "launches": {k: v for k, v in sorted(launches.items()) if v},
+        "phase_s": time.perf_counter() - t_phase, "card": card}}),
+        flush=True)
     return launches
 
 

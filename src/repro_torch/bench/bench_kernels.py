@@ -48,9 +48,17 @@ wall ``shard_wall_us``, on the card each shard's time per call over 20
 queued calls between one CUDA-event pair, ``shard_event_us`` (the card's
 time where the calls queue, :func:`~repro_torch.core.timing.queued_event_us`),
 and ``equal_unsharded``, whether the combined output equals the
-unsharded call's bit for bit.  ``mesh_exec`` (the reference's
-measured mesh) is written as null: it waits for ROADMAP Queue 1 item
-13.3.
+unsharded call's bit for bit.
+
+``real=True`` (``--real``, with ``mesh = N >= 2``) also runs every point
+on N ranks at once (:class:`~repro_torch.sharding.executor.MeshExecutor`):
+one measured mesh execution per point, shared by its engine records, as
+the reference shares it; the ranks launch the engine the dispatcher picks
+under ``auto``.  Each record then carries the schema-6 ``mesh_exec``
+(``mesh_wall_us``, ``collective_us``, ``virtual_us``, ``skew`` and
+``mesh_max_err``, the mesh output against the oracle) and its trace
+block a ``mesh`` entry (the ``mesh_step`` spans), and :func:`rows`
+writes the overlap probe into each file's ``env.collective_overlap``.
 """
 from __future__ import annotations
 
@@ -72,11 +80,12 @@ from ..core.timing import device_busy_us, queued_event_us
 from ..kernels import registry
 from ..obs.counters import roofline_sample
 from ..obs.trace import capture, write_chrome_trace
-from ..sharding import ShardedExecutor, shard_call, traffic
+from ..sharding import MeshExecutor, ShardedExecutor, shard_call, traffic
 from .common import bench_env, time_fn, write_json
 
-__all__ = ["SEED", "Point", "bound_work", "default_hw", "records_for",
-           "rows", "stream_points", "sweep_points", "tracer_overhead"]
+__all__ = ["SEED", "Point", "bound_work", "default_hw", "mesh_exec_field",
+           "records_for", "rows", "stream_points", "sweep_points",
+           "tracer_overhead"]
 
 SEED = 0
 #: (warmup, timed) calls per measurement: on the card the CUDA-event
@@ -222,9 +231,31 @@ def _shape(args: tuple) -> List[int]:
     return [int(d) for d in max((a.shape for a in arrays), key=math.prod)]
 
 
+def mesh_exec_field(mex: MeshExecutor, op, plan, args: tuple, kw: dict,
+                    want: torch.Tensor, warmup: int = 2, iters: int = 5
+                    ) -> Tuple[dict, dict, torch.Tensor]:
+    """(``mesh_exec``, the trace block's ``mesh`` entry, the mesh output)
+    of one point: one mesh step whose output is held against the oracle
+    *want* (``mesh_max_err``), then :meth:`MeshExecutor.measure` with its
+    ``mesh_step`` spans captured."""
+    out = mex.run(op, *args, plan=plan, **kw).out
+    err = float((out.float() - want).abs().max())
+    with capture() as view:
+        field = mex.measure(op, *args, plan=plan, warmup=warmup,
+                            iters=iters, **kw)
+    field["mesh_max_err"] = err
+    steps = [e for e in view.events if e.name == "mesh_step"]
+    trace = {"spans": len(steps),
+             "span_median_us": round(statistics.median(
+                 e.dur_us for e in steps), 3),
+             "mesh_wall_us": field["mesh_wall_us"]}
+    return field, trace, out
+
+
 def records_for(op, sizes: Optional[Sequence[int]] = None, *,
                 hw: Optional[HardwareSpec] = None, device: str = "cuda",
                 stream: bool = False, tuned=None, mesh: int = 1,
+                real: bool = False,
                 check_widths: Sequence[int] = ()) -> List[dict]:
     """One record per (engine, size, dtype) for a registered kernel.
 
@@ -238,16 +269,20 @@ def records_for(op, sizes: Optional[Sequence[int]] = None, *,
     point ``mesh`` ways (module docstring); each width of
     ``check_widths`` also runs the point split that many ways, untimed, and
     ``shard_run["equal_unsharded_at"]`` records whether it equals the
-    unsharded output bit for bit.
+    unsharded output bit for bit.  ``real`` adds the measured mesh
+    (module docstring).
     """
     if device not in _COUNTS:
         raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
     hw = default_hw(device) if hw is None else hw
     dispatcher = Dispatcher(EngineAdvisor(hw), TuningPolicy(tuned),
-                            mesh_shards=mesh)
+                            mesh_shards=mesh,
+                            mesh_mode="mesh" if real else "virtual")
     backend = "cuda" if device == "cuda" else "plain"
     sharded = (ShardedExecutor(mesh, backend=backend, dispatcher=dispatcher)
                if mesh > 1 else None)
+    mex = (MeshExecutor(mesh, backend=backend, dispatcher=dispatcher)
+           if real and mesh > 1 else None)
     warmup, iters = _COUNTS[device]
     clock = "cuda_event" if device == "cuda" else "wall"
     rng = np.random.default_rng(SEED)
@@ -268,6 +303,10 @@ def records_for(op, sizes: Optional[Sequence[int]] = None, *,
         # on the call shape
         shard_field = (_shard_spec_field(op, plan, args, kw, hw)
                        if plan is not None else None)
+        mesh_field = mesh_trace = None
+        if mex is not None:
+            mesh_field, mesh_trace, _ = mesh_exec_field(
+                mex, op, plan, args, kw, want, warmup, iters)
         for engine in sorted(op.engines):
             # the correctness check and the timing both run the tile the
             # record reports (the tuned one, else the static default)
@@ -338,6 +377,8 @@ def records_for(op, sizes: Optional[Sequence[int]] = None, *,
                         e.dur_us for e in spans), 3),
                     "roofline": roofline_sample(
                         traits, hw, engine, pt.dtype, us).as_attrs(),
+                    **({"mesh": mesh_trace} if mesh_trace is not None
+                       else {}),
                 },
                 "max_err": err,
                 "intensity": traits.intensity,
@@ -353,7 +394,7 @@ def records_for(op, sizes: Optional[Sequence[int]] = None, *,
                 "mesh_shape": [mesh] if mesh > 1 else None,
                 "shard_spec": shard_field,
                 "shard_run": shard_run,
-                "mesh_exec": None,
+                "mesh_exec": mesh_field,
             })
         # free this point's inputs before the generator builds the next
         del args, kw, want, pt
@@ -412,7 +453,7 @@ def tracer_overhead(op, args: tuple, kw: dict, engine: str,
 def rows(names: Optional[Sequence[str]] = None, json_dir: Optional[str] = None,
          *, trace_out: Optional[str] = None, stream: bool = False,
          device: str = "cuda", tuned: Optional[str] = None,
-         mesh: int = 1) -> List[dict]:
+         mesh: int = 1, real: bool = False) -> List[dict]:
     """Sweep the registry; write ``BENCH_<kernel>.json`` per family
     (``BENCH_<kernel>_mesh<N>.json`` for ``mesh = N > 1``).
 
@@ -422,9 +463,13 @@ def rows(names: Optional[Sequence[str]] = None, json_dir: Optional[str] = None,
     events are written as Chrome-trace JSON; the per-record captures
     nest inside that outer one.  *tuned* names a tuned.json whose tiles
     the sweep launches with (loaded forgivingly: a bad file warns and the
-    static tiles run).
+    static tiles run).  ``real`` measures every point on ``mesh`` ranks
+    too, and runs the overlap probe once for every file's env.
     """
     hw = default_hw(device)
+    overlap = (MeshExecutor(mesh, backend="cuda" if device == "cuda"
+                            else "plain").overlap_probe()
+               if real and mesh > 1 else None)
     cache = None
     if tuned is not None:
         from ..tuning.cache import TuningCache
@@ -438,22 +483,24 @@ def rows(names: Optional[Sequence[str]] = None, json_dir: Optional[str] = None,
             if wanted is not None and op.name not in wanted:
                 continue
             recs = records_for(op, hw=hw, device=device, tuned=cache,
-                               mesh=mesh)
+                               mesh=mesh, real=real)
             if stream:
                 recs += records_for(op, hw=hw, device=device, stream=True,
-                                    tuned=cache, mesh=mesh)
+                                    tuned=cache, mesh=mesh, real=real)
             if json_dir:
                 env = bench_env(device, hw.name)
                 if mesh > 1:
                     env["mesh_shape"] = [mesh]
-                    env["mesh_exec_mode"] = "virtual"
+                    env["mesh_exec_mode"] = "mesh" if real else "virtual"
+                if overlap is not None:
+                    env["collective_overlap"] = overlap
                 write_json(op.name, recs, json_dir, env=env, mesh=mesh)
             out.extend(_csv_rows(recs, hw, device))
     if sweep_view is not None:
         write_chrome_trace(trace_out, sweep_view.events,
                            meta={"source": "repro_torch.bench.bench_kernels",
                                  "device": device, "hw_model": hw.name,
-                                 "mesh": mesh})
+                                 "mesh": mesh, "real": bool(real)})
     return out
 
 
@@ -479,6 +526,11 @@ def _csv_rows(recs: List[dict], hw: HardwareSpec,
                       f"parallel_us={run['parallel_us']};"
                       f"serial_us={run['serial_us']};"
                       f"equal_unsharded={run['equal_unsharded']}")
+            mex = r.get("mesh_exec")
+            if mex:
+                tiles += (f";mesh_wall_us={mex['mesh_wall_us']};"
+                          f"coll_us={mex['collective_us']};"
+                          f"skew={mex['skew']}")
         out.append({
             "name": name,
             "us_per_call": f"{r['us_per_call']:.3f}",

@@ -50,10 +50,11 @@ bench points and serving sessions to the width they ran at (``--mesh 1``
 baseline width); ``--kernels`` restricts both sides to a comma-separated
 subset.  Speed-ups and new points are reported but never fail the gate.
 
-Not ported yet, and raising ``NotImplementedError`` naming ROADMAP Queue
-1 item 13.3 when a record set carries what it gates: the measured-mesh
-gate (``mesh_wall_us`` / ``mesh_skew`` of ``mesh_exec`` points, and
-sessions charged on the measured mesh).
+A joined pair of points measured on ranks (both sides carrying
+``mesh_exec``) also gates its ``mesh_wall_us`` and its measured-over-
+virtual ``skew`` at the same threshold; a baseline-only ``mesh_exec`` is
+not blamed on a candidate swept without ``--real``.  Sessions charged on
+the measured mesh join on ``mesh_exec_mode`` like any other knob.
 
 On failure the log ends with a per-kernel summary table (compared
 points, missing points, perf/goodput regressions, config mismatches,
@@ -76,11 +77,6 @@ Key = Tuple[Any, ...]
 Record = Union[BenchRecord, ServingRecord]
 
 KINDS = ("all", "bench", "serving")
-
-#: What the port's gate does not cover yet, by the record block it needs.
-WAITING = {
-    "mesh": "the measured-mesh gate waits for ROADMAP Queue 1 item 13.3",
-}
 
 #: Serving-session load knobs that must agree on a joined pair.
 KNOBS = ("rate_rps", "duration_s", "slo_ms", "seed", "max_batch",
@@ -130,14 +126,6 @@ class GateResult:
                 for r in rows]
 
 
-def _refuse_waiting(rs: RecordSet, rec: Record) -> None:
-    """Raise for a record whose gate the port does not have yet."""
-    measured = (rec.mesh_exec_mode == "mesh" if rs.kind == "serving"
-                else bool(rec.mesh_exec))
-    if measured:
-        raise NotImplementedError(f"{rs.path}: {WAITING['mesh']}")
-
-
 def _index(recsets: Iterable[RecordSet], which: str,
            kernels: Optional[set] = None,
            mesh: Optional[int] = None) -> Dict[Key, Record]:
@@ -148,7 +136,6 @@ def _index(recsets: Iterable[RecordSet], which: str,
         if kernels is not None and rs.kernel not in kernels:
             continue
         for rec in rs.records:
-            _refuse_waiting(rs, rec)
             # filter on the requested mesh width, matching the join key:
             # a clamped sweep (fewer effective shards than the mesh asked
             # for) still belongs to the width it ran under; serving
@@ -248,6 +235,16 @@ def gate(baseline_dir: str, candidate_dir: str, threshold: float = 0.25,
                 continue
             _gate_metric(key, base[key].timed_us, cand[key].timed_us,
                          field, "us", threshold, "perf", failures)
+            b_mex, c_mex = base[key].mesh_exec, cand[key].mesh_exec
+            if b_mex and c_mex:
+                # both sides measured on ranks: the mesh wall and the skew
+                # gate like any other time
+                _gate_metric(key, float(b_mex["mesh_wall_us"]),
+                             float(c_mex["mesh_wall_us"]), "mesh_wall_us",
+                             "us", threshold, "perf", failures)
+                _gate_metric(key, float(b_mex.get("skew", 0.0)),
+                             float(c_mex.get("skew", 0.0)), "mesh_skew",
+                             "x", threshold, "perf", failures)
 
     if kind in ("all", "serving"):
         base = _index(base_sets, "serving", wanted, mesh)

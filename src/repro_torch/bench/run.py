@@ -32,10 +32,11 @@ cached tile, and each record carries ``tile_config`` (``params``,
 ``tuned_us``, ``default_us``, ``source``).  ``--mesh N`` sweeps every
 point split N ways, one shard after another on one device
 (``repro_torch.sharding``), into ``DIR/BENCH_<kernel>_mesh<N>.json``
-with ``shard_spec`` and ``shard_run`` per record.
-
-Not ported yet, and refused with a message naming the ROADMAP item:
-``--real`` (the measured mesh, item 13.3).
+with ``shard_spec`` and ``shard_run`` per record; ``--real`` (with
+``--mesh N``, N >= 2) also runs every point on N ranks at once and writes
+schema-6 records with ``mesh_exec`` and the overlap probe in
+``env.collective_overlap`` (on the card the ranks share it, see
+``repro_torch.sharding.ranks``).
 """
 from __future__ import annotations
 
@@ -52,11 +53,6 @@ THEORY = {
 }
 
 DEFAULT_OUT = "build/runs_torch"
-
-#: Reference flags the port has no counterpart for yet.
-WAITING_FLAGS = {
-    "--real": "ROADMAP Queue 1 item 13.3 (the measured mesh)",
-}
 
 
 def _take_flag(argv: List[str], flag: str, what: str) -> Optional[str]:
@@ -107,10 +103,6 @@ def main(argv: Optional[List[str]] = None) -> None:
     if argv and argv[0] == "tune":
         from . import tune
         raise SystemExit(tune.main(argv[1:]))
-    waiting = [w for w in WAITING_FLAGS if w in argv]
-    if waiting:
-        raise SystemExit(f"{waiting[0]} is not ported yet: it waits for "
-                         f"{WAITING_FLAGS[waiting[0]]}")
     out_given = "--out" in argv
     out_arg = _take_flag(argv, "--out", "a directory argument")
     out_dir = out_arg or DEFAULT_OUT
@@ -118,6 +110,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     trace_out = _take_flag(argv, "--trace", "an output path argument")
     device = _take_flag(argv, "--device", "'cuda' or 'cpu'") or "cuda"
     stream = _take_switch(argv, "--stream")
+    real = _take_switch(argv, "--real")
     mesh_arg = _take_flag(argv, "--mesh", "a shard count")
     try:
         mesh = 1 if mesh_arg is None else int(mesh_arg)
@@ -125,6 +118,11 @@ def main(argv: Optional[List[str]] = None) -> None:
         raise SystemExit(f"--mesh must be an integer, got {mesh_arg!r}")
     if mesh < 1:
         raise SystemExit(f"--mesh must be >= 1, got {mesh}")
+    if real:
+        if mesh < 2:
+            raise SystemExit("--real requires --mesh N with N >= 2")
+        from ..launch.mesh import host_device_count
+        host_device_count(mesh)
     if _take_switch(argv, "--verbose"):
         from ..obs.log import LOG
         LOG.configure(level="info")
@@ -134,7 +132,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         # the report is a pure function of the records: a sweep flag
         # silently ignored would lie about what was rendered
         for flag, given in (("--tuned", tuned), ("--trace", trace_out),
-                            ("--stream", stream),
+                            ("--stream", stream), ("--real", real),
                             ("--mesh", mesh_arg is not None)):
             if given:
                 raise SystemExit(f"{flag} only applies to kernel sweeps")
@@ -174,7 +172,8 @@ def main(argv: Optional[List[str]] = None) -> None:
             names = None if key == "kernels" else [key]
             emit(bench_kernels.rows(names, json_dir=out_dir,
                                     trace_out=trace_out, stream=stream,
-                                    device=device, tuned=tuned, mesh=mesh))
+                                    device=device, tuned=tuned, mesh=mesh,
+                                    real=real))
 
 
 if __name__ == "__main__":

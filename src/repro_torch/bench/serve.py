@@ -42,11 +42,14 @@ cache's faster-wins merge.
 ``--mesh N`` splits every launch N ways (``repro_torch.sharding``, one
 shard after another on one device) and charges each batch the slowest
 shard on the virtual clock; the sessions land in
-``BENCH_serve_<kernel>_mesh<N>.json``.  ``--slo-route`` (with
+``BENCH_serve_<kernel>_mesh<N>.json``.  ``--real`` runs the N shards on N
+ranks at once and charges each batch the measured mesh wall instead
+(``mesh_exec_mode`` ``"mesh"``; on the card the ranks share it, see
+``repro_torch.sharding.ranks``).  ``--slo-route`` (with
 ``--online-tune``) lets the
 :class:`~repro_torch.serving.router.SLORouter` pick the shard width and
 gate exploration from queue depth + SLO headroom; the online session owns
-the width, so it refuses ``--mesh``.
+the width, so it refuses ``--mesh`` and ``--real``.
 
 ``--chaos SPEC`` routes each kernel session through the elastic runtime
 (:class:`~repro_torch.serving.elastic.ElasticSession`): the seeded spec
@@ -58,8 +61,7 @@ gate's availability check verify.  Chaos needs replayable arrivals, so it
 refuses ``--workload closed`` and ``--workload lm``, and ``--online-tune``.
 
 Sessions run on the card; ``--device cpu`` runs the kernels' plain
-versions on the CPU (the CPU tests' form).  Refused, naming its ROADMAP
-Queue 1 item: ``--real`` (the measured mesh, item 13.3).
+versions on the CPU (the CPU tests' form).
 """
 from __future__ import annotations
 
@@ -84,12 +86,6 @@ DEFAULT_KERNELS = ("scale", "triad", "axpy")
 ENGINES = ("vector", "matrix")
 
 DEFAULT_OUT = "build/runs_torch"
-
-#: Reference flags the port refuses, with the ROADMAP Queue 1 item each
-#: waits for.
-WAITING = {
-    "real": "item 13.3 (the measured mesh)",
-}
 
 
 def _parse(argv: Optional[List[str]]) -> argparse.Namespace:
@@ -164,18 +160,11 @@ def _parse(argv: Optional[List[str]]) -> argparse.Namespace:
                         "'resize@T:WIDTH' tokens (virtual seconds); "
                         "records grow an events block the "
                         "elastic_integrity claim verifies")
-    # refused: waits for a ROADMAP item (WAITING)
-    p.add_argument("--real", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--real", action="store_true",
+                   help="with --mesh N (N >= 2): run each batch's shards "
+                        "on N ranks at once and charge the measured mesh "
+                        "wall")
     return p.parse_args(argv)
-
-
-def _refuse_waiting(args: argparse.Namespace) -> None:
-    given = {"real": args.real}
-    for name, on in given.items():
-        if on:
-            flag = "--" + name.replace("_", "-")
-            raise SystemExit(f"{flag} is not ported yet: it waits for "
-                             f"ROADMAP Queue 1 {WAITING[name]}")
 
 
 def _resolve_configs(spec: str) -> List[str]:
@@ -302,7 +291,8 @@ def _serve_kernels(args: argparse.Namespace, env: dict,
                 rate_rps=args.rate, duration_s=args.duration,
                 size=args.size, dtype=args.dtype, seed=args.seed,
                 policy=policy, slo=slo, trace_path=args.trace,
-                num_shards=args.mesh, device=args.device,
+                num_shards=args.mesh, real_mesh=args.real,
+                device=args.device,
                 backend=BACKEND_FOR_DEVICE[args.device])
             if injector is not None:
                 from ..serving import ElasticSession
@@ -389,7 +379,6 @@ def _persist_online(out_dir: str, entries) -> str:
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = _parse(argv)
-    _refuse_waiting(args)
     lm = args.workload == "lm"
     # per-workload defaults, the reference's: lm sessions take lighter
     # traffic and an SLO that measures attainment on a slow decode step
@@ -417,9 +406,10 @@ def main(argv: Optional[List[str]] = None) -> int:
                              "session, not --chaos (chaos replays a "
                              "fault-free twin; live re-tuning would fork "
                              "the legs)")
-        if args.mesh > 1:
+        if args.real or args.mesh > 1:
             raise SystemExit("--online-tune owns the mesh width (the "
-                             "router grows and shrinks it): drop --mesh")
+                             "router grows and shrinks it): drop "
+                             "--mesh/--real")
         if args.tune_budget < 1:
             raise SystemExit("--tune-budget must be >= 1")
     if lm and args.mesh > 1:
@@ -433,6 +423,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         if lm:
             raise SystemExit("--chaos is not supported for --workload lm "
                              "(kernel sessions only)")
+        if args.real:
+            raise SystemExit("--chaos requires the virtual clock: drop "
+                             "--real (a measured mesh wall is not "
+                             "bit-replayable against the fault-free leg)")
         if args.workload == "closed":
             raise SystemExit("--chaos requires an open-loop workload "
                              "(poisson/bursty/trace): closed-loop arrivals "
@@ -443,6 +437,11 @@ def main(argv: Optional[List[str]] = None) -> int:
             injector = ChaosInjector(args.chaos)
         except ValueError as err:
             raise SystemExit(f"bad --chaos spec: {err}")
+    if args.real:
+        if args.mesh < 2:
+            raise SystemExit("--real requires --mesh N with N >= 2")
+        from ..launch.mesh import host_device_count
+        host_device_count(args.mesh)
     if args.tuned:
         DEFAULT_DISPATCHER.load_tuned(args.tuned)
     import torch
@@ -455,7 +454,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     env = bench_env(args.device, DEFAULT_DISPATCHER.hw.name)
     if args.mesh > 1:
         env["mesh_shape"] = [args.mesh]
-        env["mesh_exec_mode"] = "virtual"
+        env["mesh_exec_mode"] = "mesh" if args.real else "virtual"
 
     def sweep():
         if lm:

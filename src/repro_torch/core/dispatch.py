@@ -12,9 +12,9 @@ framework into kernel launches.
   * ``Dispatcher.set_mesh`` -- the shard width Advice is planned for:
     above 1, every memoized Advice carries the ``ShardSpec`` of
     ``repro_torch.sharding.plan`` and tile lookups read the per-shard
-    entries.  The shards run one after another on one device
-    (``"virtual"`` mode, ``repro_torch.sharding.ShardedExecutor``); the
-    measured mesh (``"mesh"``) waits for ROADMAP Queue 1 item 13.3.
+    entries.  The mode labels how the shards run: one after another on
+    one device (``"virtual"``, ``repro_torch.sharding.ShardedExecutor``)
+    or side by side on N ranks (``"mesh"``, ``MeshExecutor``).
   * ``elementwise_call`` -- the shared wrapper for same-shape
     elementwise kernels (SCALE, STREAM Triad, AXPY): one hand-written
     CUDA kernel per engine serves all three families.
@@ -46,8 +46,7 @@ from .advisor import DEFAULT_ADVISOR, Advice, EngineAdvisor
 from .intensity import KernelTraits
 
 __all__ = [
-    "BACKENDS", "DEFAULT_DISPATCHER", "Dispatcher", "MEASURED_MESH_WAITS",
-    "MESH_MODES", "TUNED_CACHE_ENV",
+    "BACKENDS", "DEFAULT_DISPATCHER", "Dispatcher", "MESH_MODES", "TUNED_CACHE_ENV",
     "TuningPolicy", "check_backend", "default_cache_key", "dtype_name",
     "elementwise_call", "normalize_engine", "ELEMENTWISE_BLOCK_ROWS",
     "ELEMENTWISE_LANES",
@@ -204,19 +203,14 @@ class TuningPolicy:
 
 
 #: How sharded calls execute: ``"virtual"`` (serial launches on one
-#: device, modelled N-way clock) or the reference's measured ``"mesh"``.
+#: device, modelled N-way clock) or ``"mesh"`` (N ranks, measured).
 MESH_MODES = ("virtual", "mesh")
-
-#: Where the measured mesh waits.
-MEASURED_MESH_WAITS = "the measured mesh waits for ROADMAP Queue 1 item 13.3"
 
 
 def _check_mesh_mode(mode: str) -> str:
     if mode not in MESH_MODES:
         raise ValueError(
             f"mesh mode must be one of {MESH_MODES}, got {mode!r}")
-    if mode == "mesh":
-        raise NotImplementedError(f"mesh mode 'mesh': {MEASURED_MESH_WAITS}")
     return mode
 
 
@@ -251,8 +245,7 @@ class Dispatcher:
 
     @property
     def mesh_mode(self) -> str:
-        """How sharded calls execute: ``"virtual"`` (the only mode the
-        port runs; see :data:`MESH_MODES`)."""
+        """How sharded calls execute (:data:`MESH_MODES`)."""
         return self._mesh_mode
 
     def set_mesh(self, num_shards: int, mode: str = "virtual") -> None:
@@ -264,9 +257,9 @@ class Dispatcher:
         per-shard statement, which Eq. 2's intensity invariance under
         data-parallel splitting keeps identical to the per-device one.
         ``mode`` stamps how those shards execute: ``"virtual"`` (serial
-        launches on one device, modelled N-way clock); ``"mesh"`` raises
-        ``NotImplementedError`` naming ROADMAP Queue 1 item 13.3.  The
-        Advice cache embeds both, so changing either drops it.
+        launches on one device, modelled N-way clock) or ``"mesh"`` (N
+        ranks, measured); it labels the advice and does not change it.
+        The Advice cache embeds both, so changing either drops it.
         """
         num_shards = int(num_shards)
         if num_shards < 1:

@@ -25,7 +25,7 @@ import torch
 from ..obs.trace import TRACER
 
 __all__ = ["Timing", "busy_us", "device_busy_us", "queued_event_us",
-           "time_fn"]
+           "time_fn", "timing_of"]
 
 
 class Timing(NamedTuple):
@@ -109,10 +109,17 @@ def time_fn(fn: Callable, *args, warmup: int = 2, iters: int = 5,
         for i, ((t0, _, _), us) in enumerate(zip(runs, samples)):
             TRACER.emit(label, layer=layer, start_s=t0, dur_s=us * 1e-6,
                         iter=i, **span_attrs)
+    return timing_of(samples)
+
+
+def timing_of(samples_us) -> Timing:
+    """The median / IQR statistics of per-iteration samples (microseconds,
+    in the order taken)."""
+    samples = [float(s) for s in samples_us]
     times = sorted(samples)
     return Timing(median_us=_quantile(times, 0.5),
                   iqr_us=_quantile(times, 0.75) - _quantile(times, 0.25),
-                  iters=iters, samples_us=tuple(samples))
+                  iters=len(samples), samples_us=tuple(samples))
 
 
 def busy_us(spans) -> float:

@@ -10,7 +10,8 @@
    plus percentile and goodput consistency and, for lm sessions, the
    model-scale verdict, for online-tuned sessions the ``online_ceiling``
    replay, for chaos sessions ``elastic_integrity``; for mesh sweep
-   points the shard claims; and for both the obs trace's reconciliation
+   points the shard claims, and for points measured on ranks the mesh
+   claims; and for both the obs trace's reconciliation
    with the record,
 3. :mod:`repro_torch.report.render` renders the verified records as
    ``REPORT.md`` and per-kernel pages (``python -m repro_torch.bench
@@ -20,7 +21,8 @@
 records; ``chip_smoke.py`` writes them on the card and verifies every
 one; ``python -m repro_torch.bench.compare`` gates two record sets.
 """
-from .claims import (CLAIMS, ELASTIC_CLAIMS, MODEL_CLAIMS, ONLINE_CLAIMS,
+from .claims import (CLAIMS, ELASTIC_CLAIMS, MESH_CLAIMS, MODEL_CLAIMS,
+                     ONLINE_CLAIMS,
                      SAMPLE_CLOCKS, SERVING_CLAIMS, SHARD_CLAIMS, TOLERANCE,
                      TRACE_CLAIMS, ClaimResult, ceiling_bound, check_record,
                      check_records, check_serving_record, hw_for,
@@ -31,7 +33,8 @@ from .render import (render_kernel_page, render_report, render_serving_page,
                      write_report)
 
 __all__ = [
-    "CLAIMS", "ELASTIC_CLAIMS", "MODEL_CLAIMS", "ONLINE_CLAIMS",
+    "CLAIMS", "ELASTIC_CLAIMS", "MESH_CLAIMS", "MODEL_CLAIMS",
+    "ONLINE_CLAIMS",
     "SAMPLE_CLOCKS", "SERVING_CLAIMS", "SHARD_CLAIMS", "TOLERANCE",
     "TRACE_CLAIMS", "BenchRecord",
     "ClaimResult", "RecordSet", "ServingRecord", "ceiling_bound",

@@ -52,12 +52,23 @@ against the unsharded Q plus the declared halo.  Chaos sessions
 replay's exactly, availability and p99 stay inside their bounds, and
 every failure and resize in the log was bit-exact.
 
-Two differences from the reference, both so that nothing passes
+Sweep points measured on ranks (schema 6, ``mesh_exec``) pass the **mesh
+claims** (:data:`MESH_CLAIMS`), which tie the three measured times to
+each other and to the plan's wire accounting:
+
+* **collective_cost** -- the times are sane (mesh wall > 0, virtual > 0,
+  collective >= 0, ranks = the plan's shards), a plan that wires no
+  bytes measures no collective, and one with halo rows on two or more
+  ranks measures a nonzero one, at most 8x the wall and at an implied
+  wire rate of at most 1 TB/s (:data:`_MAX_WIRE_BW`);
+* **mesh_skew** -- the recorded skew equals wall / virtual, lies in
+  [1/200, 200] (:data:`_SKEW_BAND`), and the mesh output matched the
+  oracle within the dtype's tolerance (``mesh_max_err``).
+
+Its ``mesh_step`` spans reconcile against ``mesh_wall_us`` in the
+trace claim.  One difference from the reference, so that nothing passes
 silently: :func:`hw_for` raises on a hardware model it does not know,
-where the reference falls back to the TPU v5e; and a record of the
-measured mesh (``mesh_exec``, whose ``collective_cost`` / ``mesh_skew``
-claims the port does not have yet) raises ``NotImplementedError`` naming
-ROADMAP Queue 1 item 13.3.
+where the reference falls back to the TPU v5e.
 """
 from __future__ import annotations
 
@@ -72,8 +83,8 @@ from ..core.intensity import KernelTraits
 from ..obs.counters import roofline_sample
 from .records import BenchRecord, RecordSet, ServingRecord
 
-__all__ = ["CLAIMS", "ClaimResult", "ELASTIC_CLAIMS", "MODEL_CLAIMS",
-           "ONLINE_CLAIMS", "SAMPLE_CLOCKS", "SERVING_CLAIMS",
+__all__ = ["CLAIMS", "ClaimResult", "ELASTIC_CLAIMS", "MESH_CLAIMS",
+           "MODEL_CLAIMS", "ONLINE_CLAIMS", "SAMPLE_CLOCKS", "SERVING_CLAIMS",
            "SHARD_CLAIMS", "TOLERANCE", "TRACE_CLAIMS", "ceiling_bound",
            "check_record", "check_records", "check_serving_record",
            "hw_for", "violations"]
@@ -88,6 +99,10 @@ SERVING_CLAIMS = ("ceiling", "routing", "boundedness", "percentiles",
 #: Extra claims for sweep points that executed under a mesh (schema 5
 #: records with a ``shard_spec``), in report order.
 SHARD_CLAIMS = ("shard_ceiling", "shard_traffic")
+
+#: Extra claims for sweep points measured on ranks (schema 6 records with
+#: ``mesh_exec``), in report order.
+MESH_CLAIMS = ("collective_cost", "mesh_skew")
 
 #: Extra claim for serving sessions that carry a model-scale verdict
 #: (lm records with a ``verdict`` payload).
@@ -118,19 +133,22 @@ SAMPLE_CLOCKS = ("wall", "cuda_event")
 #: coarser step (0.05) plus the finer one.
 _TRACE_US_SLACK = 0.051
 
+#: Ceiling on the wire rate a measured collective may imply (wire bytes
+#: over collective seconds): above any host link, so only a record that
+#: makes its collective free trips it.
+_MAX_WIRE_BW = 1e12
+
+#: Band for the measured-over-virtual skew: ranks that share one host (or
+#: one card) legitimately cost many times the modelled slowest shard; a
+#: skew outside [1/200, 200] means one of the two clocks broke.
+_SKEW_BAND = 200.0
+
 #: Max abs error allowed between an engine variant and its oracle.
 #: bfloat16 has an 8-bit mantissa, so elementwise results on O(10)
 #: magnitudes legitimately differ by ~2^-4.
 TOLERANCE: Dict[str, float] = {"float32": 1e-4, "bfloat16": 0.125}
 
 _EPS = 1e-9
-
-#: ROADMAP items that port the claims this module refuses to skip.
-_WAITING = {
-    "mesh": "the measured-mesh claims (collective_cost, mesh_skew) wait "
-            "for ROADMAP Queue 1 item 13.3",
-}
-
 
 @dataclasses.dataclass(frozen=True)
 class ClaimResult:
@@ -267,6 +285,53 @@ def _shard_checks(rec: BenchRecord,
     return [shard_ceiling, shard_traffic]
 
 
+def _mesh_checks(rec: BenchRecord,
+                 hw: HardwareSpec) -> List[ClaimResult]:
+    """The MESH_CLAIMS for one point measured on ranks (module docs):
+    its times against each other and the plan's wire bytes, and the wall
+    only counts if the mesh output reproduced the oracle."""
+    mex = dict(rec.mesh_exec or {})
+    spec = dict(rec.shard_spec or {})
+    devices = int(mex.get("devices", 0))
+    wall = float(mex.get("mesh_wall_us", 0.0))
+    coll = float(mex.get("collective_us", -1.0))
+    virt = float(mex.get("virtual_us", 0.0))
+    skew = float(mex.get("skew", 0.0))
+    wire = float(spec.get("wire_bytes", 0.0))
+    n = int(spec.get("num_shards", 0))
+
+    sane = (wall > 0.0 and virt > 0.0 and coll >= 0.0
+            and 1 <= devices and devices == n)
+    if wire <= 0.0:
+        wire_ok = coll == 0.0
+        wire_detail = "plan wires 0 B -> collective must measure 0"
+    else:
+        # halo bytes crossed between ranks: a nonzero time, not beyond
+        # 8x the whole step, at a physically possible wire rate
+        bw = wire / (coll * 1e-6) if coll > 0 else float("inf")
+        wire_ok = (devices < 2) or (0.0 < coll <= 8.0 * wall
+                                    and bw <= _MAX_WIRE_BW)
+        wire_detail = (f"wire {wire:.4g} B in {coll:.4g} us -> "
+                       f"{bw / 1e9:.4g} GB/s")
+    collective_cost = ClaimResult(
+        "collective_cost", rec, sane and wire_ok,
+        f"devices={devices}/{n} wall={wall:.4g} us "
+        f"coll={coll:.4g} us virt={virt:.4g} us; {wire_detail}")
+
+    tol = TOLERANCE.get(rec.dtype, TOLERANCE["float32"])
+    mesh_err = float(mex.get("mesh_max_err", float("inf")))
+    skew_expect = wall / virt if virt > 0 else 0.0
+    skew_ok = (virt > 0
+               and abs(skew - skew_expect) <= 0.01 * max(skew_expect, 1.0)
+               and 1.0 / _SKEW_BAND <= skew <= _SKEW_BAND
+               and mesh_err <= tol)
+    mesh_skew = ClaimResult(
+        "mesh_skew", rec, skew_ok,
+        f"skew {skew:.4g} (= wall {wall:.4g} / virtual {virt:.4g}) in "
+        f"[1/{_SKEW_BAND:g}, {_SKEW_BAND:g}]; mesh_max_err "
+        f"{mesh_err:.3g} vs {rec.dtype} tolerance {tol:g}")
+    return [collective_cost, mesh_skew]
+
 
 def _trace_checks(rec: BenchRecord,
                   hw: HardwareSpec) -> List[ClaimResult]:
@@ -325,7 +390,23 @@ def _trace_checks(rec: BenchRecord,
                 if abs(got - want) > 1e-4 + 1e-6 * abs(want):
                     problems.append(f"roofline {field} {got:.6g} != "
                                     f"re-derived {want:.6g}")
-    if tr.get("mesh"):
+    mesh = dict(tr.get("mesh") or {})
+    if rec.mesh_exec:
+        wall = float(dict(rec.mesh_exec).get("mesh_wall_us", 0.0))
+        if not mesh:
+            problems.append("measured-mesh record without mesh trace")
+        else:
+            if int(mesh.get("spans", 0)) < 1:
+                problems.append("no mesh_step spans")
+            if abs(float(mesh.get("mesh_wall_us", -1.0)) - wall) > 1e-6:
+                problems.append(
+                    f"mesh trace wall {mesh.get('mesh_wall_us')!r} != "
+                    f"mesh_exec {wall:.4g} us")
+            m_med = float(mesh.get("span_median_us", -1.0))
+            if abs(m_med - wall) > _TRACE_US_SLACK:
+                problems.append(f"mesh span median {m_med:.4g} us != "
+                                f"mesh_wall_us {wall:.4g} us")
+    elif mesh:
         problems.append("mesh trace block on a non-mesh record")
 
     detail = (f"{spans} spans, median {med:.4g} us vs {what} "
@@ -745,12 +826,9 @@ def check_record(rec: BenchRecord,
     re-deriving the advisor's decision from the recorded intensity so a
     stale or hand-edited record cannot pass.  Mesh sweep points (schema 5
     with a ``shard_spec``) additionally get one result per entry in
-    :data:`SHARD_CLAIMS`.  A measured-mesh record (``mesh_exec``) raises
-    ``NotImplementedError``.
+    :data:`SHARD_CLAIMS`, and points measured on ranks (``mesh_exec``)
+    one per entry in :data:`MESH_CLAIMS`.
     """
-    if rec.mesh_exec:
-        raise NotImplementedError(
-            f"{rec.kernel}/{rec.engine}/{rec.size}: {_WAITING['mesh']}")
     ceiling, routing, boundedness = _analytic_checks(rec, hw)
 
     tol = TOLERANCE.get(rec.dtype, TOLERANCE["float32"])
@@ -760,6 +838,8 @@ def check_record(rec: BenchRecord,
     out = [ceiling, routing, accuracy, boundedness]
     if rec.shard_spec:
         out.extend(_shard_checks(rec, hw))
+    if rec.mesh_exec:
+        out.extend(_mesh_checks(rec, hw))
     if rec.trace:
         out.extend(_trace_checks(rec, hw))
     return tuple(out)
@@ -779,13 +859,8 @@ def check_serving_record(rec: ServingRecord,
     ``trace`` block (serving schema 5) pass :data:`TRACE_CLAIMS`, and
     records carrying an online-tuning ``tuning`` payload one per entry in
     :data:`ONLINE_CLAIMS`, and chaos sessions (``events``) one per entry
-    in :data:`ELASTIC_CLAIMS`.  A session charged on the measured mesh
-    (``mesh_exec_mode`` ``"mesh"``) raises ``NotImplementedError``.
+    in :data:`ELASTIC_CLAIMS`.
     """
-    if rec.mesh_exec_mode == "mesh":
-        raise NotImplementedError(
-            f"{rec.kernel}/{rec.engine}/{rec.workload}/{rec.size}: "
-            f"{_WAITING['mesh']}")
     # Eq. 17/23/24, §6 routing, Eq. 4: the same checks as per-call
     # sweep points, via the shared helper (a record claiming a bigger
     # matrix-engine win than the theory allows is a violation whether

@@ -35,11 +35,10 @@ and its methodology (:data:`PORT_VOICE`).
 
 Mesh sweep sets (``-mesh<N>``) render the **sharded execution** section
 and mesh kernel pages (split kind, halo, traffic overhead, per-shard
-floor, shard claims); chaos sessions render **serving under failure**.
-Sets measured on a real mesh (``mesh_exec`` points, sessions charged on
-the measured mesh: the reference's measured-collectives section) raise
-``NotImplementedError``: they wait for ROADMAP Queue 1 item 13.3, as
-their claims do.
+floor, shard claims); points measured on ranks (``mesh_exec``, from
+``--real``) add the **measured collectives** block and their pages the
+mesh wall, collective and skew columns; chaos sessions render **serving
+under failure**.
 """
 from __future__ import annotations
 
@@ -56,12 +55,6 @@ from .records import BenchRecord, RecordSet, ServingRecord
 __all__ = ["PORT_VOICE", "REFERENCE_VOICE", "Voice", "page_name",
            "render_kernel_page", "render_report", "render_serving_page",
            "write_report"]
-
-#: Where the measured-mesh section waits.
-MESH_WAITS = ("the measured-collectives section (mesh_exec points, "
-              "sessions on the measured mesh) waits for ROADMAP Queue 1 "
-              "item 13.3")
-
 
 @dataclasses.dataclass(frozen=True)
 class Voice:
@@ -171,14 +164,6 @@ def _voice(recsets: Sequence[RecordSet]) -> Voice:
             else REFERENCE_VOICE)
 
 
-def _refuse_mesh(recsets: Sequence[RecordSet]) -> None:
-    """Raise for a set measured on a real mesh (item 13.3)."""
-    for rs in recsets:
-        if any(rec.mesh_exec_mode == "mesh" if rs.kind == "serving"
-               else rec.mesh_exec for rec in rs.records):
-            raise NotImplementedError(f"{rs.path}: {MESH_WAITS}")
-
-
 def _shard_floor(spec: Dict):
     """The per-shard memory floor a shard_spec records: the reference's
     ``pred_shard_us_v5e`` or the port's ``pred_shard_us``."""
@@ -274,7 +259,6 @@ def render_report(recsets: Sequence[RecordSet]) -> str:
     mismatches, *accuracy* counts oracle-tolerance failures, and
     *boundedness* counts Eq. 4 classification mismatches.
     """
-    _refuse_mesh(recsets)
     voice = _voice(recsets)
     bench = [rs for rs in recsets
              if rs.kind == "bench" and rs.mesh_devices == 1]
@@ -465,6 +449,84 @@ def _sharded_section(sharded: Sequence[RecordSet],
         add(f"**{fails} shard-claim violation(s) across {points} mesh "
             "points — see per-kernel mesh pages.**")
     add("")
+    lines.extend(_collectives_section(sharded, voice))
+    return lines
+
+
+def _collectives_section(sharded: Sequence[RecordSet],
+                         voice: Voice) -> List[str]:
+    """The REPORT.md measured-collectives block (schema-6 ``--real``).
+
+    One row per mesh point measured on ranks: the measured wall of the
+    whole step, the exchange alone (0 us whenever the plan's
+    ``wire_bytes`` is 0), the virtual slowest-shard clock for the same
+    point, and their skew; the overlap probe, where the sweep ran it,
+    closes the section.
+    """
+    rows = [(rs, rec) for rs in sharded for rec in rs.records
+            if rec.mesh_exec]
+    if not rows:
+        return []
+    lines: List[str] = []
+    add = lines.append
+    add("### Measured collectives")
+    add("")
+    if voice is REFERENCE_VOICE:
+        add("Schema-6 points from `python -m benchmarks.run sweep --mesh N "
+            "--real`: the same shard plan lowered to one `shard_map` "
+            "program over N real XLA host devices, halo rows crossing the "
+            "mesh via `ppermute` rings. *coll µs* times the ring alone (a "
+            "twin program that runs only the exchange), so a zero-wire "
+            "plan must — and does — measure 0. *skew* is measured wall "
+            "over the virtual max-over-shards clock: the host devices "
+            "share one socket's bandwidth, so walls land well above the "
+            "virtual model — the mesh run is a correctness + collective "
+            "measurement, not a throughput claim (§4.1: what matters is "
+            "that the exchange can hide behind compute).")
+    else:
+        add(f"Schema-6 points from `{voice.sweep} --mesh N --real`: the "
+            "same shard plan run on N ranks at once (gloo processes, "
+            "every one on the same card), halo rows staged through "
+            "pinned host memory between neighbours. *coll µs* times the "
+            "exchange alone, so a zero-wire plan measures 0. *skew* is "
+            "the measured wall over the virtual slowest-shard clock: the "
+            "ranks are time-sliced on one card, so walls land near the "
+            "sum of the shards plus the exchange — a correctness + "
+            "collective measurement, not a throughput claim.")
+    add("")
+    add("| kernel | mesh | engine | size | dtype | wire bytes | "
+        "coll µs | mesh wall µs | virtual µs | skew | mesh max err |")
+    add("|---|---|---|---|---|---|---|---|---|---|---|")
+    for rs, rec in rows:
+        me = dict(rec.mesh_exec)
+        spec = dict(rec.shard_spec or {})
+        add("| " + " | ".join([
+            rec.kernel, f"{me.get('devices', rec.mesh_devices)}-way",
+            rec.engine, str(rec.size), rec.dtype,
+            _fmt(spec.get("wire_bytes")),
+            _fmt(me.get("collective_us")),
+            _fmt(me.get("mesh_wall_us")),
+            _fmt(me.get("virtual_us")),
+            f"{_fmt(me.get('skew'))}x",
+            _fmt(me.get("mesh_max_err"), 3),
+        ]) + " |")
+    add("")
+    probes = {}
+    for rs in sharded:
+        probe = rs.env.get("collective_overlap")
+        if isinstance(probe, dict):
+            key = (probe.get("devices"), str(probe.get("shape")))
+            probes[key] = probe
+    for _, probe in sorted(probes.items(), key=lambda kv: str(kv[0])):
+        add(f"Overlap probe ({probe.get('devices')} devices, shape "
+            f"{probe.get('shape')}): ring all-gather matmul "
+            f"{_fmt(probe.get('ring_us'))} µs vs serialized "
+            f"{_fmt(probe.get('serialized_us'))} µs "
+            f"(gain {_fmt(probe.get('overlap_gain'))}x), row-parallel "
+            f"{_fmt(probe.get('rowparallel_us'))} µs — the resurrected "
+            "`collective_matmul` variants validated against the "
+            "unsharded product on the live mesh.")
+        add("")
     return lines
 
 
@@ -885,7 +947,6 @@ def _engine_pairs(serving: Sequence[RecordSet]):
 
 def render_serving_page(rs: RecordSet) -> str:
     """Render one ``docs/benchmarks/<kernel>-serving.md`` session page."""
-    _refuse_mesh([rs])
     voice = _voice([rs])
     lines: List[str] = []
     add = lines.append
@@ -1060,12 +1121,13 @@ def render_kernel_page(rs: RecordSet) -> str:
     Mesh sweeps (schema-5 sets with a ``mesh_shape`` environment) get the
     same table plus the shard columns: split kind/halo, the
     aggregate-vs-unsharded traffic overhead, and the per-shard memory
-    floor the shard claims were checked against.
+    floor the shard claims were checked against; points measured on
+    ranks (``mesh_exec``) add the mesh wall, collective and skew columns.
     """
-    _refuse_mesh([rs])
     voice = _voice([rs])
     hw = hw_for(rs)
     mesh = rs.mesh_devices
+    real = any(rec.mesh_exec for rec in rs.records)
     lines: List[str] = []
     add = lines.append
     add(f"# `{rs.kernel}` — benchmark evidence" if mesh == 1 else
@@ -1077,20 +1139,41 @@ def render_kernel_page(rs: RecordSet) -> str:
         f"α = {_fmt(hw.alpha)}). Regenerate with `{voice.regen}`.")
     if mesh > 1:
         add("")
+        where = ("data-axis mesh" if voice is REFERENCE_VOICE
+                 else "split")
         add(f"Every point executed shard by shard under a {mesh}-way "
-            f"split (`{voice.pkg}.sharding`); `max err` certifies the "
+            f"{where} (`{voice.pkg}.sharding`); `max err` certifies the "
             "*sharded* result against the oracle, so halo exchange and "
             "head/row splits are correctness-gated evidence. Produce new "
             f"points with `{voice.sweep} --mesh {mesh}`.")
+        if real:
+            add("")
+            if voice is REFERENCE_VOICE:
+                add("Points carry schema-6 `mesh_exec` evidence (`--real`): "
+                    f"the plan ran as one `shard_map` program over {mesh} "
+                    "real host devices. *mesh wall µs* is the measured "
+                    "program wall, *coll µs* isolates the `ppermute` halo "
+                    "ring (0 when the plan moves no wire bytes), and "
+                    "*skew* divides the measured wall by the virtual "
+                    "max-over-shards clock.")
+            else:
+                add("Points carry schema-6 `mesh_exec` evidence (`--real`): "
+                    f"the plan ran on {mesh} ranks at once. *mesh wall µs* "
+                    "is the measured step wall, *coll µs* the halo "
+                    "exchange alone (0 when the plan moves no wire bytes), "
+                    "and *skew* divides the measured wall by the virtual "
+                    "slowest-shard clock.")
     add("")
     shard_cols = ("| kind | halo | agg/total | shard floor µs "
                   if mesh > 1 else "")
+    real_cols = ("| mesh wall µs | coll µs | skew " if real else "")
     add(f"| engine | size | dtype | {voice.time_label} | IQR µs | iters | "
         f"{voice.pred_label} | I (Eq. 2) | memory-bound | auto | MXU "
         "ceiling | Eq. 23/24 bound | max err | tile config | tuned Δ "
-        f"{shard_cols}| claims |")
+        f"{shard_cols}{real_cols}| claims |")
     add("|---|---|---|---|---|---|---|---|---|---|---|---|---|---|---|"
-        + ("---|" * 4 if mesh > 1 else "") + "---|")
+        + ("---|" * 4 if mesh > 1 else "")
+        + ("---|" * 3 if real else "") + "---|")
     checked = _check_set(rs)
     for rec, crs in checked:
         failed = [c.claim for c in crs if not c.passed]
@@ -1113,6 +1196,14 @@ def render_kernel_page(rs: RecordSet) -> str:
                 str(spec.get("kind", "—")), str(spec.get("halo", "—")),
                 f"{_fmt(agg / total)}x" if total else "—",
                 _fmt(_shard_floor(spec)),
+            ]
+        if real:
+            me = dict(rec.mesh_exec or {})
+            cells += [
+                _fmt(me.get("mesh_wall_us")),
+                _fmt(me.get("collective_us")),
+                (f"{_fmt(me.get('skew'))}x"
+                 if me.get("skew") is not None else "—"),
             ]
         add("| " + " | ".join(cells + [verdict]) + " |")
     add("")
@@ -1146,7 +1237,6 @@ def write_report(runs_dir: str = "build/runs_torch",
     from .records import load_dir
 
     recsets = load_dir(runs_dir)
-    _refuse_mesh(recsets)
     written = []
     parent = os.path.dirname(report_path)
     if parent:

@@ -39,8 +39,12 @@ way.
 
 ``backend`` is the reference's ``interpret``: ``"cuda"`` (the default)
 launches the hand-written kernels on tensors on the card, ``"plain"``
-runs their plain PyTorch versions on the CPU.  The reference's measured
-mesh (``real_mesh``) waits for ROADMAP Queue 1 item 13.3 and raises.
+runs their plain PyTorch versions on the CPU.  ``real_mesh=True`` runs
+each sharded launch on ``num_shards`` ranks at once instead
+(:class:`~repro_torch.sharding.executor.MeshExecutor`, after
+``repro_torch.launch.mesh.host_device_count``): the batch is charged the
+**measured** mesh wall (exchange and all) rather than the modelled
+slowest shard.
 """
 from __future__ import annotations
 
@@ -53,17 +57,14 @@ import torch
 
 from ..core.dispatch import (BACKENDS, DEFAULT_DISPATCHER,
                              ELEMENTWISE_BLOCK_ROWS, ELEMENTWISE_LANES,
-                             MEASURED_MESH_WAITS, normalize_engine)
+                             normalize_engine)
 from ..kernels import registry
 from ..models.engine import resolve_device
-from ..sharding import ShardedExecutor
+from ..sharding import MeshExecutor, ShardedExecutor
 from .requests import Request
 from .scheduler import BatchExecution
 
 __all__ = ["KernelBatchExecutor"]
-
-#: Where the measured mesh of a batch waits.
-MESH_WAITS = MEASURED_MESH_WAITS
 
 
 def _is_scalar(a) -> bool:
@@ -81,14 +82,14 @@ class KernelBatchExecutor:
     engine), ``'vpu'``/``'mxu'`` force a variant so the benchmark can
     measure both sides of the paper's question under load.
     ``num_shards > 1`` splits every launch via ``repro_torch.sharding``
-    and charges batches the shard-parallel (max) compute time.
+    and charges batches the shard-parallel (max) compute time;
+    ``real_mesh=True`` runs the split on ranks and charges the measured
+    mesh wall.
     """
 
     def __init__(self, engine: str = "auto", *, max_batch: int = 8,
                  backend: str = "cuda", seed: int = 0,
                  num_shards: int = 1, real_mesh: bool = False):
-        if real_mesh:
-            raise NotImplementedError(f"real_mesh=True: {MESH_WAITS}")
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; expected "
                              f"{BACKENDS}")
@@ -97,8 +98,15 @@ class KernelBatchExecutor:
         self.backend = backend
         self.device = resolve_device("cuda" if backend == "cuda" else "cpu")
         self.num_shards = max(1, int(num_shards))
-        self._shard_exec = (ShardedExecutor(self.num_shards, backend=backend)
-                            if self.num_shards > 1 else None)
+        self.real_mesh = bool(real_mesh) and self.num_shards > 1
+        if self.real_mesh:
+            # the virtual executor's plan() / run(...).parallel_s surface,
+            # so the packed and per-request paths below are the same
+            self._shard_exec = MeshExecutor(self.num_shards, backend=backend)
+        else:
+            self._shard_exec = (ShardedExecutor(self.num_shards,
+                                                backend=backend)
+                                if self.num_shards > 1 else None)
         self._rng = np.random.default_rng(seed)
         # (kernel, size, dtype) -> canonical (args, kwargs): request
         # payloads are synthetic, so one input per shape is reused --

@@ -14,8 +14,9 @@ budgeted bandit re-tunes tiles from measured batch compute, warm-started
 from the default dispatcher's tuning cache, and the record gains a
 ``tuning`` block; ``slo_route`` lets its SLO router grow and shrink the
 shard width.  ``num_shards > 1`` splits every launch (the virtual clock
-charges the slowest shard).  The measured mesh (``real_mesh``) raises
-``NotImplementedError`` naming ROADMAP Queue 1 item 13.3.  The fault
+charges the slowest shard); with ``real_mesh`` the split runs on
+``num_shards`` ranks and each batch is charged the measured mesh wall
+(the record's ``mesh_exec_mode`` is ``"mesh"``).  The fault
 tolerance surface is reachable from here: ``checkpoint_session``
 snapshots an elastic session and ``redispatch_failed_shard`` is the
 mid-batch recovery primitive (both from
@@ -28,7 +29,7 @@ from typing import Dict, Optional, Tuple
 
 from ..core.dispatch import normalize_engine
 from ..obs.trace import capture as trace_capture
-from .batcher import MESH_WAITS, KernelBatchExecutor
+from .batcher import KernelBatchExecutor
 # re-exported so the fault-tolerance surface is reachable from the session
 # module, as in the reference
 from .elastic import checkpoint_session, redispatch_failed_shard
@@ -102,11 +103,9 @@ def run_session(cfg: SessionConfig, executor=None,
     if cfg.slo_route and not cfg.online_tune:
         raise ValueError("slo_route requires online_tune: the router's "
                          "exploration gate drives the online tuner")
-    if cfg.real_mesh:
-        raise NotImplementedError(f"real_mesh=True: {MESH_WAITS}")
     restore_mesh = None
     if executor is None and cfg.online_tune:
-        if cfg.num_shards != 1:
+        if cfg.num_shards != 1 or cfg.real_mesh:
             raise ValueError(
                 "online_tune owns the mesh width (the router grows and "
                 "shrinks it); start from num_shards=1")
@@ -128,7 +127,8 @@ def run_session(cfg: SessionConfig, executor=None,
         executor = KernelBatchExecutor(engine=cfg.engine,
                                        max_batch=cfg.policy.max_batch,
                                        seed=cfg.seed, backend=cfg.backend,
-                                       num_shards=cfg.num_shards)
+                                       num_shards=cfg.num_shards,
+                                       real_mesh=cfg.real_mesh)
     if source is None:
         source = make_loadgen(cfg.workload, cfg.kernel,
                               rate_rps=cfg.rate_rps, size=cfg.size,
@@ -166,7 +166,8 @@ def run_session(cfg: SessionConfig, executor=None,
         max_batch=cfg.policy.max_batch,
         max_wait_ms=cfg.policy.max_wait_s * 1e3,
         num_shards=cfg.num_shards,
-        mesh_exec_mode="virtual" if cfg.num_shards > 1 else None,
+        mesh_exec_mode=(("mesh" if cfg.real_mesh else "virtual")
+                        if cfg.num_shards > 1 else None),
         model=extras.get("model"), phases=extras.get("phases"),
         verdict=extras.get("verdict"), tuning=extras.get("tuning"),
         trace=trace)

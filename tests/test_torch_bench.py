@@ -211,10 +211,11 @@ def test_tracer_overhead_reports_both_sides():
 
 
 @pytest.mark.parametrize("argv,item", [
-    pytest.param(["scale", "--real"], "item 13.3", id="argv4-item 13"),
+    pytest.param(["scale", "--real"], "requires --mesh N",
+                 id="argv4-item 13"),
     pytest.param(["tune", "--device", "cpu"], "refused at persist",
                  id="argv5-refused at persist"),
-    pytest.param(["serve", "--real"], "item 13.3", id="serve-real"),
+    pytest.param(["serve", "--real"], "requires --mesh N", id="serve-real"),
 ])
 def test_cli_refuses_what_is_not_ported(argv, item):
     with pytest.raises(SystemExit, match=item):

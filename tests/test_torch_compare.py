@@ -3,14 +3,14 @@ reference's ``repro.report`` and ``benchmarks/compare.py``.
 
 * On the committed serving record sets the port's ``check_records``
   gives the reference's ``(claim, passed, detail)`` list, record for
-  record, the online-tuned sets' ``online_ceiling`` included; sets that
-  need claims the port does not have yet (chaos / mesh) raise
-  ``NotImplementedError`` naming their ROADMAP item.
+  record, the online-tuned sets' ``online_ceiling`` included, and so do
+  sessions charged on the measured mesh.
 * The online regret gate gives the reference's failure lists on joined
   online pairs.
 * On the baseline / candidate directories the reference's own tests
   build, ``repro_torch.bench.compare`` gives the reference's pass / fail
-  and failure list, message for message.
+  and failure list, message for message, the measured-mesh gate on the
+  reference's ``--real`` sweeps included.
 * A port record is gated on the kernel's ``us_per_call``, not the
   oracle's ``ref_us_per_call``.
 """
@@ -119,17 +119,22 @@ def test_edited_session_fails_the_same_claim(tmp_path, name, how, claim):
         {payload["records"][1]["engine"]}
 
 
-@pytest.mark.parametrize("name,item", [
-    ("BENCH_serve_scale.json", "item 13.3"),
+@pytest.mark.parametrize("name,mode", [
+    pytest.param("BENCH_serve_scale.json", "mesh",
+                 id="BENCH_serve_scale.json-item 13.3"),
 ])
-def test_serving_sets_needing_unported_claims_raise(tmp_path, name, item):
-    """A session set on the measured mesh still needs item 13.3."""
+def test_serving_sets_needing_unported_claims_raise(tmp_path, name, mode):
+    """A session set charged on the measured mesh verifies as the
+    reference verifies it, and passes the gate against itself."""
     payload = json.loads((RUNS / name).read_text())
     for rec in payload["records"]:
-        rec["num_shards"], rec["mesh_exec_mode"] = 2, "mesh"
+        rec["num_shards"], rec["mesh_exec_mode"] = 2, mode
     (tmp_path / name).write_text(json.dumps(payload))
-    with pytest.raises(NotImplementedError, match=item):
-        check_records(load_dir(str(tmp_path)))
+    got = check_records(load_dir(str(tmp_path)))
+    assert _triples(got) == _triples(j_check_records(j_load_dir(
+        str(tmp_path))))
+    assert not violations(got)
+    assert p_compare.compare(str(tmp_path), str(tmp_path)) == []
 
 
 def test_chaos_set_matches_reference_verdicts(tmp_path):
@@ -238,22 +243,21 @@ def test_regret_gate_matches_reference(tmp_path, case, threshold):
 
 
 def test_sharded_session_without_events_raises(tmp_path):
-    """A sharded session charged on the measured mesh waits for item
-    13.3; the same session on the virtual clock verifies as the
-    reference verifies it."""
+    """A sharded session charged on the measured mesh, and the same
+    session on the virtual clock, each verify as the reference verifies
+    them."""
     payload = json.loads((RUNS / "BENCH_serve_scale.json").read_text())
     payload["records"][0]["num_shards"] = 2
-    payload["records"][0]["mesh_exec_mode"] = "mesh"
-    (tmp_path / "BENCH_serve_scale.json").write_text(json.dumps(payload))
-    (rs,) = load_dir(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 13.3"):
-        check_serving_record(rs.records[0], hw_for(rs))
-    payload["records"][0]["mesh_exec_mode"] = "virtual"
-    (tmp_path / "BENCH_serve_scale.json").write_text(json.dumps(payload))
-    got = check_records(load_dir(str(tmp_path)))
-    want = j_check_records(j_load_dir(str(tmp_path)))
-    assert _triples(got) == _triples(want)
-    assert not violations(got)
+    for mode in ("mesh", "virtual"):
+        payload["records"][0]["mesh_exec_mode"] = mode
+        (tmp_path / "BENCH_serve_scale.json").write_text(
+            json.dumps(payload))
+        (rs,) = load_dir(str(tmp_path))
+        assert check_serving_record(rs.records[0], hw_for(rs))
+        got = check_records(load_dir(str(tmp_path)))
+        want = j_check_records(j_load_dir(str(tmp_path)))
+        assert _triples(got) == _triples(want)
+        assert not violations(got)
 
 
 def test_serving_set_with_unknown_hw_model_raises(tmp_path):
@@ -509,18 +513,30 @@ def test_flash_decode_points_of_one_size_keep_their_own_keys(tmp_path,
                for m in msgs)
 
 
-@pytest.mark.parametrize("name,item", [
-    pytest.param("BENCH_scale_mesh2.json", "item 13.3",
+@pytest.mark.parametrize("name", [
+    pytest.param("BENCH_scale_mesh2.json",
                  id="BENCH_scale_mesh2.json-item 13"),
-    pytest.param("BENCH_stencil_mesh2.json", "item 13.3",
+    pytest.param("BENCH_stencil_mesh2.json",
                  id="BENCH_stencil_mesh2.json-item 13.3"),
 ])
-def test_gates_not_ported_raise(tmp_path, name, item):
+def test_gates_not_ported_raise(tmp_path, name):
+    """The measured-mesh gate on the reference's ``--real`` sweeps: a set
+    passes against itself, and a candidate whose mesh wall or skew
+    regressed fails with the reference's messages."""
     base, cand = _dirs(tmp_path)
     shutil.copy(RUNS / name, base)
     shutil.copy(RUNS / name, cand)
-    with pytest.raises(NotImplementedError, match=item):
-        p_compare.compare(str(base), str(cand))
+    assert p_compare.compare(str(base), str(cand)) == []
+    assert j_compare.compare(str(base), str(cand)) == []
+    payload = json.loads((RUNS / name).read_text())
+    mex = payload["records"][0]["mesh_exec"]
+    mex["mesh_wall_us"] *= 2
+    mex["skew"] *= 2
+    (cand / name).write_text(json.dumps(payload))
+    msgs = p_compare.compare(str(base), str(cand))
+    assert msgs == j_compare.compare(str(base), str(cand))
+    assert any("mesh_wall_us" in m for m in msgs)
+    assert any("mesh_skew" in m for m in msgs)
 
 
 def test_serve_cli_records_pass_the_gate(tmp_path):
@@ -557,7 +573,7 @@ def test_serve_cli_lm_records_verify(tmp_path):
 @pytest.mark.parametrize("argv,item", [
     pytest.param(["--online-tune", "--workload", "lm"],
                  "kernel sessions only", id="argv3-kernel sessions only"),
-    pytest.param(["--real"], "item 13.3", id="argv5-item 13"),
+    pytest.param(["--real"], "requires --mesh N", id="argv5-item 13"),
     pytest.param(["--slo-route"], "requires --online-tune",
                  id="slo-route-alone"),
     pytest.param(["--online-tune", "--mesh", "2"], "owns the mesh width",

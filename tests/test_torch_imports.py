@@ -60,10 +60,14 @@ TRAINING = ("repro_torch.optim.adamw", "repro_torch.optim.compression",
             "repro_torch.launch.train")
 
 
-#: The sharding slice's modules: the plan, the executor, the elastic
-#: session and the mesh transition it records.
+#: The sharding slice's modules: the plan, the executors, the ranks, the
+#: rules, the collective matmuls, the meshes, the elastic session and the
+#: mesh transition it records.
 SHARDING = ("repro_torch.sharding", "repro_torch.sharding.plan",
-            "repro_torch.sharding.executor", "repro_torch.serving.elastic",
+            "repro_torch.sharding.executor", "repro_torch.sharding.ranks",
+            "repro_torch.sharding.rules",
+            "repro_torch.sharding.collective_matmul",
+            "repro_torch.launch.mesh", "repro_torch.serving.elastic",
             "repro_torch.runtime.elastic")
 
 

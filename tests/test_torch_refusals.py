@@ -1,15 +1,16 @@
-"""What the port still refuses names ROADMAP Queue 1 item 13.3 or 14, and
-nothing that is ported refuses.
+"""What the port still refuses names ROADMAP Queue 1 item 14, and nothing
+that is ported refuses.
 
-* Every refusal table (``_WAITING`` of the claims, ``WAITING`` of the
-  compare gate and of ``serve``, ``WAITING_FLAGS`` of the sweep CLI, the
-  batcher's and the renderer's ``MESH_WAITS``, the dispatcher's
-  ``MEASURED_MESH_WAITS``) names item 13.3 or an item of 14 and no other.
-* No source file of the port cites item 13 (or items 13-14) for what this
-  slice ported: every citation of item 13 is of 13.3.
+* No module that held a refusal table (the claims', the compare gate's,
+  ``serve``'s, the sweep CLI's, the batcher's, the renderer's, the
+  dispatcher's) holds one now, and none names a ROADMAP item but 14.
+* No source file of the port cites item 13: the measured mesh (13.3)
+  was its last part.
 * ``serve --mesh 4``, ``serve --online-tune --slo-route`` (router widths
-  above 1 under an overload) and ``serve --chaos SPEC`` run on the CPU and
-  write records that pass every claim and the compare gate.
+  above 1 under an overload), ``serve --chaos SPEC`` and ``serve --mesh 2
+  --real`` run on the CPU and write records that pass every claim and the
+  compare gate; ``kernels --mesh 2 --real`` writes schema-6 records with
+  ``mesh_exec`` that pass the mesh claims.
 """
 import json
 import pathlib
@@ -32,24 +33,25 @@ PORT = REPO / "src" / "repro_torch"
 #: A ROADMAP Queue 1 item citation: "item 13.3", "items 13-14", ...
 CITATION = re.compile(r"items? (\d+(?:\.\d+)?(?:-\d+(?:\.\d+)?)?)")
 
+#: The names the refusal tables had.
+TABLES = ("WAITING", "_WAITING", "WAITING_FLAGS", "MESH_WAITS",
+          "MEASURED_MESH_WAITS")
+
 
 def _cited(text: str):
     return CITATION.findall(text)
 
 
-@pytest.mark.parametrize("table", [
-    claims._WAITING, compare.WAITING, serve.WAITING, bench_run.WAITING_FLAGS,
-    {"batcher": batcher.MESH_WAITS}, {"render": render.MESH_WAITS},
-    {"dispatch": dispatch.MEASURED_MESH_WAITS},
+@pytest.mark.parametrize("module", [
+    claims, compare, serve, bench_run, batcher, render, dispatch,
 ], ids=["claims", "compare", "serve", "run", "batcher", "render",
         "dispatch"])
-def test_refusal_tables_name_only_13_3_or_14(table):
-    assert table
-    for text in table.values():
-        items = _cited(text)
-        assert items, text
-        assert all(i == "13.3" or i.split(".")[0] == "14" for i in items), \
-            text
+def test_refusal_tables_name_only_13_3_or_14(module):
+    assert not [t for t in TABLES if hasattr(module, t)], module.__name__
+    text = pathlib.Path(module.__file__).read_text()
+    assert all(i.split(".")[0] == "14" for i in _cited(text)), \
+        (module.__name__, _cited(text))
+    assert "NotImplementedError" not in text, module.__name__
 
 
 def test_no_source_cites_item_13_for_what_is_ported():
@@ -57,7 +59,7 @@ def test_no_source_cites_item_13_for_what_is_ported():
     for path in sorted(PORT.rglob("*.py")):
         text = path.read_text()
         for item in _cited(text):
-            if item.startswith("13") and item != "13.3":
+            if item.startswith("13"):
                 bad.append(f"{path.relative_to(REPO)}: item {item}")
     assert not bad, bad
 
@@ -110,3 +112,36 @@ def test_serve_chaos_runs_on_the_cpu(tmp_path):
         assert rec.events["spec"] == "fail@0.05:1,resize@0.1:4"
         assert rec.events["checksum"] == rec.events["fault_free"]["checksum"]
     assert "elastic_integrity" in {r.claim for r in check_records([rs])}
+
+
+@pytest.fixture
+def two_ranks():
+    from repro_torch.launch import mesh
+    from repro_torch.sharding import ranks
+    before = mesh.host_ranks()
+    mesh.host_device_count(2)
+    yield
+    ranks.close_pool()
+    mesh.host_device_count(before)
+
+
+def test_serve_real_runs_on_the_cpu(tmp_path, two_ranks):
+    assert serve.main(["--device", "cpu", "--size", "4096", "--duration",
+                       "0.1", "--rate", "200", "--kernels", "scale",
+                       "--mesh", "2", "--real", "--out", str(tmp_path)]) == 0
+    (rs,) = _records_pass(tmp_path)
+    assert rs.env["mesh_exec_mode"] == "mesh"
+    assert all(r.num_shards == 2 and r.mesh_exec_mode == "mesh"
+               and r.completed > 0 for r in rs.records)
+
+
+def test_kernels_real_runs_on_the_cpu(tmp_path, two_ranks):
+    bench_run.main(["scale", "--device", "cpu", "--mesh", "2", "--real",
+                    "--out", str(tmp_path)])
+    (rs,) = _records_pass(tmp_path)
+    probe = rs.env["collective_overlap"]
+    assert probe["devices"] == 2 and probe["ring_us"] > 0
+    assert all(r.mesh_exec["devices"] == 2 and r.mesh_exec["skew"] > 0
+               for r in rs.records)
+    assert {"collective_cost", "mesh_skew"} <= {
+        r.claim for r in check_records([rs])}

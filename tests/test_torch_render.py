@@ -4,8 +4,9 @@ and the tuning / serving / report slice end to end on the CPU.
 * Every committed record set under ``runs/`` that is not measured on a
   real mesh (the chaos session set included) renders to the committed
   ``docs/benchmarks/`` page byte for byte, and ``render_report`` over
-  those sets equals the reference's.  A measured-mesh set raises naming
-  ROADMAP item 13.3; a virtual mesh sweep renders the sharded section.
+  those sets equals the reference's.  A measured-mesh set renders its
+  page and the measured-collectives section as the reference does; a
+  virtual mesh sweep renders the sharded section.
 * ``write_report`` never defaults to the repository's own ``REPORT.md`` or
   ``docs/benchmarks/`` (it deletes orphan pages in its docs directory).
 * The slice: ``kernels --device cpu`` into one directory, an online-tuned
@@ -89,15 +90,19 @@ def test_report_matches_reference_with_the_chaos_set(tmp_path):
 
 @pytest.mark.parametrize("name", MESH)
 def test_mesh_sets_raise(tmp_path, name):
+    """A measured-mesh set renders its committed page byte for byte, and
+    the report (measured collectives and the overlap probe) as the
+    reference renders it; ``write_report`` writes both."""
     rs = load_file(str(RUNS / name))
-    for render in (render_report, lambda rs: _render(rs[0])):
-        with pytest.raises(NotImplementedError, match="item 13.3"):
-            render([rs])
+    assert _render(rs) == (DOCS / page_name(rs)).read_text()
     shutil.copy(RUNS / name, tmp_path)
-    with pytest.raises(NotImplementedError, match="item 13.3"):
-        write_report(str(tmp_path), str(tmp_path / "R.md"),
-                     str(tmp_path / "docs"))
-    assert not (tmp_path / "R.md").exists()
+    got = render_report(load_dir(str(tmp_path)))
+    assert got == j_render_report(j_load_dir(str(tmp_path)))
+    assert "### Measured collectives" in got and "Overlap probe" in got
+    write_report(str(tmp_path), str(tmp_path / "R.md"),
+                 str(tmp_path / "docs"))
+    assert (tmp_path / "R.md").read_text() == got
+    assert (tmp_path / "docs" / page_name(rs)).exists()
 
 
 def test_write_report_defaults_stay_under_build():

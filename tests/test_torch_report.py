@@ -5,9 +5,9 @@
   ``(claim, passed, detail)`` list, record for record.
 * A hand-edited record fails the same claim in both packages.
 * Where the reference passes silently the port refuses: an unknown
-  ``hw_model`` raises, and record sets needing claims the port does not
-  have yet (the measured mesh's ``mesh_exec``) raise
-  ``NotImplementedError`` naming ROADMAP item 13.3.
+  ``hw_model`` raises.  The reference's measured-mesh sweeps
+  (``mesh_exec``) get its verdicts, ``collective_cost`` and ``mesh_skew``
+  included.
 * The shard claims (``shard_ceiling``, ``shard_traffic``) give the
   reference's verdicts on the same schema-5 records, hand-edited ones
   included, and the sharded section renders.
@@ -136,17 +136,36 @@ def test_known_hw_models_resolve(tmp_path, hw_model):
     assert hw_for(rs).name == hw_model
 
 
-@pytest.mark.parametrize("name,item", [
-    pytest.param("BENCH_scale_mesh2.json", "item 13.3",
+@pytest.mark.parametrize("name", [
+    pytest.param("BENCH_scale_mesh2.json",
                  id="BENCH_scale_mesh2.json-item 13"),
-    pytest.param("BENCH_stencil_mesh2.json", "item 13.3",
+    pytest.param("BENCH_stencil_mesh2.json",
                  id="BENCH_stencil_mesh2.json-item 13"),
 ])
-def test_sets_needing_unported_claims_raise(tmp_path, name, item):
+def test_sets_needing_unported_claims_raise(tmp_path, name):
+    """The reference's ``--real`` sweeps: the port's verdicts are the
+    reference's, the mesh claims included, and a record whose collective
+    was made free or whose skew left the band fails them."""
     shutil.copy(RUNS / name, tmp_path)
-    sets = load_dir(str(tmp_path))
-    with pytest.raises(NotImplementedError, match=item):
-        check_records(sets)
+    got = check_records(load_dir(str(tmp_path)))
+    assert [(r.claim, r.passed, r.detail) for r in got] == \
+        [(r.claim, r.passed, r.detail)
+         for r in j_check_records(j_load_dir(str(tmp_path)))]
+    assert {"collective_cost", "mesh_skew"} <= {r.claim for r in got}
+    assert not violations(got)
+    payload = json.loads((RUNS / name).read_text())
+    mex = payload["records"][0]["mesh_exec"]
+    if mex["collective_us"] > 0:
+        mex["collective_us"] = 0.0
+        claim = "collective_cost"
+    else:
+        mex["skew"] = 1e4
+        claim = "mesh_skew"
+    (tmp_path / name).write_text(json.dumps(payload))
+    bad = violations(check_records(load_dir(str(tmp_path))))
+    assert claim in {r.claim for r in bad}
+    assert {r.claim for r in bad} == {r.claim for r in j_check_records(
+        j_load_dir(str(tmp_path))) if not r.passed}
 
 
 def test_reference_files_load_with_pred_us(tmp_path):

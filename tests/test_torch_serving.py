@@ -410,12 +410,23 @@ def test_packed_zero_d_scalar_rides_along():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    pytest.param({"real_mesh": True}, "item 13.3",
+    pytest.param({"real_mesh": True, "num_shards": 2}, "host_device_count",
                  id="kwargs1-item 13"),
 ])
-def test_batcher_mesh_waits(kwargs, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_batcher_mesh_waits(kwargs, match, monkeypatch):
+    """A measured-mesh batcher needs its ranks allowed first: without,
+    it raises naming ``host_device_count``; with, it runs its launches
+    through the MeshExecutor (no rank starts until a batch runs)."""
+    from repro_torch.launch import mesh
+    from repro_torch.sharding import MeshExecutor
+    monkeypatch.setattr(mesh, "_HOST_RANKS", 1)
+    with pytest.raises(RuntimeError, match=match):
         P.KernelBatchExecutor(backend="plain", **kwargs)
+    monkeypatch.setattr(mesh, "_HOST_RANKS", kwargs["num_shards"])
+    ex = P.KernelBatchExecutor(backend="plain", **kwargs)
+    assert ex.real_mesh and isinstance(ex._shard_exec, MeshExecutor)
+    assert not P.KernelBatchExecutor(backend="plain",
+                                     real_mesh=True).real_mesh
 
 
 def test_card_default_raises_without_a_card():
@@ -507,7 +518,8 @@ def test_session_end_to_end_verifies(tmp_path):
 @pytest.mark.parametrize("kwargs,exc,match", [
     pytest.param({"slo_route": True}, ValueError, "requires online_tune",
                  id="kwargs2-ValueError-requires online_tune"),
-    pytest.param({"real_mesh": True}, NotImplementedError, "item 13.3",
+    pytest.param({"real_mesh": True, "online_tune": True}, ValueError,
+                 "online_tune owns the mesh width",
                  id="kwargs4-NotImplementedError-item 13"),
     pytest.param({"online_tune": True, "num_shards": 2}, ValueError,
                  "online_tune owns the mesh width", id="online-mesh"),

@@ -15,8 +15,8 @@ reference's ``repro.sharding``.
   the card's split-S schedule matches; ``shard_call`` hands the kernels
   contiguous, aligned tensors.
 * **Dispatch, tuning, claims, report, sweep and serving**: ``set_mesh``
-  attaches the reference's ShardSpec to Advice ("mesh" mode refuses,
-  naming item 13.3), per-shard tuning entries never inherit the
+  attaches the reference's ShardSpec to Advice (the "mesh" mode labels
+  it), per-shard tuning entries never inherit the
   full-width tile, the shard claims give the reference's verdicts on its
   schema-5 records, the sharded section renders, ``kernels --mesh 3
   --device cpu`` writes records that pass every claim and the gate, and a
@@ -343,13 +343,16 @@ def test_dispatcher_mesh_mode_stamped_on_advice():
     op, args, kw = _inputs("scale", 4096)
     assert d.mesh_mode == "virtual"
     assert d.advise(op, *args, **kw).exec_mode == "virtual"
-    with pytest.raises(NotImplementedError, match="item 13.3"):
-        d.set_mesh(2, "mesh")
-    with pytest.raises(NotImplementedError, match="item 13.3"):
-        Dispatcher(mesh_shards=2, mesh_mode="mesh")
+    d.set_mesh(2, "mesh")
+    advice = d.advise(op, *args, **kw)
+    assert advice.exec_mode == "mesh" and advice.shard_spec is not None
+    assert Dispatcher(mesh_shards=2, mesh_mode="mesh").mesh_mode == "mesh"
     with pytest.raises(ValueError, match="mesh mode"):
         d.set_mesh(2, "warp")
-    assert d.mesh_mode == "virtual" and d.mesh_shards == 2
+    assert d.mesh_mode == "mesh" and d.mesh_shards == 2
+    # the mode is part of the memo: switching back re-advises
+    d.set_mesh(2, "virtual")
+    assert d.advise(op, *args, **kw).exec_mode == "virtual"
 
 
 def test_executor_shards_are_not_replanned_as_sub_splits():

@@ -522,7 +522,7 @@ def test_straggler_watchdog():
     assert wd.ewma < 0.2
 
 
-def test_launch_train_runs_on_the_cpu(tmp_path):
+def test_launch_train_runs_on_the_cpu(tmp_path, capsys):
     out = io.StringIO()
     with redirect_stdout(out):
         p_train.main(["--arch", "deepseek-7b", "--reduced", "--steps", "2",
@@ -530,10 +530,15 @@ def test_launch_train_runs_on_the_cpu(tmp_path):
                       "--ckpt-dir", str(tmp_path)])
     assert "done: loss=" in out.getvalue()
     assert p_ckpt.latest_step(tmp_path) == 2
-    for argv in (["--mesh", "2x1"], ["--devices", "8"]):
-        with pytest.raises(NotImplementedError, match="item 13"):
+    # a mesh names its ranks: --mesh and --devices must agree
+    for argv, msg in ((["--mesh", "2x1"], "needs --devices 2"),
+                      (["--devices", "8"], "not --devices 8"),
+                      (["--mesh", "3x1", "--devices", "3"],
+                       "does not split")):
+        with pytest.raises(SystemExit):
             p_train.main(["--arch", "deepseek-7b", "--reduced",
                           "--device", "cpu", *argv])
+        assert msg in capsys.readouterr().err
 
 
 # --------------------------------------------------------------------------
