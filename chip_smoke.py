@@ -212,7 +212,19 @@ Phases, each fatal on failure:
      float32 peak; the restart drill at reduced DeepSeek-7B under
      deterministic algorithms, bit for bit; python -m
      repro_torch.launch.train as a subprocess;
- 15. one JSON line of per-kernel numbers, then the result line.
+ 15. the examples and the dry run: examples_torch/'s quickstart,
+     kernel_showdown (K1-K3 on both engines against their oracles, every
+     max_err under 1e-4), serve_lm on each flash-decode engine (K4) and
+     train_lm (the tiny preset, a crash at step 4 and the resume from
+     step 3's checkpoint) through their main(argv) on the card, every
+     kernel of K1-K4 launched on both engines; then the dry run in a
+     subprocess on the CPU (meta tensors over a fake 16 x 16 mesh, H100
+     terms; after the card's phases, so it perturbs none of their host
+     times):
+     Mistral-NeMo-12B's train_4k, prefill_32k and decode_32k and
+     DeepSeek-V2-Lite-16B's decode_32k at full size, each row ok, then
+     launch.report's three sections of build/runs_torch_dryrun/dryrun.json;
+ 16. one JSON line of per-kernel numbers, then the result line.
 
 Exits non-zero, printing no result, without a card or without the
 repository's sources beside this file.
@@ -253,6 +265,14 @@ EDGE_GROUPS = ((4, 128), (16, 128), (12, 128), (9, 128), (1, 112),
 #: dense-attention path: the reference's own model tier
 #: (tests/test_model_engine.py), elementwise |a - b| <= atol + rtol |b|.
 STEP_RTOL, STEP_ATOL = 1e-3, 1e-4
+
+#: Phase 15's dry-run rows: (architecture, cell) at 16 x 16, full size.
+DRYRUN_ROWS = (("mistral-nemo-12b", "train_4k"),
+               ("mistral-nemo-12b", "prefill_32k"),
+               ("mistral-nemo-12b", "decode_32k"),
+               ("deepseek-v2-lite-16b", "decode_32k"))
+#: Its own directory, apart from the BENCH records of build/runs_torch.
+DRYRUN_OUT = ROOT / "build" / "runs_torch_dryrun" / "dryrun.json"
 
 #: (kernel family, engine) -> the TPU kernel it replaces (the function that
 #: reaches pl.pallas_call) and the CUDA source.
@@ -882,7 +902,12 @@ def main() -> int:
     # -- 14. training ---------------------------------------------------------
     _train_phase(torch, hw, card, failures)
 
-    # -- 15. the per-kernel line ---------------------------------------------
+    # -- 15. the examples, then the dry run ----------------------------------
+    example_launches = _examples_phase(torch, card, failures)
+    torch.cuda.empty_cache()
+    _dryrun_phase(card, failures)
+
+    # -- 16. the per-kernel line ---------------------------------------------
     kernels = []
     for r in rows:
         entry = {
@@ -898,6 +923,7 @@ def main() -> int:
             "sharded_launches": sharded_launches.get(r["name"], 0),
             "elastic_launches": elastic_launches.get(r["name"], 0),
             "mesh_launches": mesh_launches.get(r["name"], 0),
+            "example_launches": example_launches.get(r["name"], 0),
             "max_abs_err": r["err"],
             "ms": r["t"].median_us / 1e3,
             "plain_ms": r["plain"].median_us / 1e3,
@@ -930,6 +956,123 @@ def main() -> int:
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _load_example(name):
+    import importlib.util
+    path = ROOT / "examples_torch" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"examples_torch_{name}",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _examples_phase(torch, card, failures):
+    """Phase 15, first half (module docstring): the four examples'
+    ``main(argv)`` on the card.  Returns their launches per kernel."""
+    from repro_torch.kernels import _ext
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    _ext.reset_launches()
+    errs = {}
+    out = {}
+    try:
+        for name in ("quickstart", "kernel_showdown"):
+            errs.update({f"{name}:{k}": v for k, v in
+                         _load_example(name).main([]).items()})
+        serve = _load_example("serve_lm")
+        for engine in ("vector", "matrix"):
+            summary = serve.main(["--engine", engine, "--duration", "1"])
+            out[f"serve_lm_{engine}"] = {
+                k: getattr(summary, k)
+                for k in ("offered", "completed", "p50_ms", "p99_ms")}
+        train = _load_example("train_lm")
+        ckpts = ROOT / "build" / "examples_train"
+        shutil.rmtree(ckpts, ignore_errors=True)
+        argv = ["--steps", "6", "--seq", "128", "--ckpt-every", "3",
+                "--ckpt-dir", str(ckpts)]
+        try:
+            train.main(argv + ["--fail-at", "4"])
+            crashed = False
+        except RuntimeError as exc:
+            if "injected failure" not in str(exc):
+                raise
+            crashed = True
+        _, _, metrics = train.main(argv)
+        loss = float(metrics["loss"])
+        out["train_lm"] = {"crashed_at_4": crashed, "final_loss": loss}
+        if not (crashed and loss == loss and abs(loss) < 1e4):
+            failures.append(f"examples: train_lm crashed {crashed}, final "
+                            f"loss {loss}")
+    except Exception as exc:  # a failed example fails the phase, loudly
+        import traceback
+        traceback.print_exc()
+        failures.append(f"examples: {type(exc).__name__}: {exc}")
+    torch.cuda.synchronize()
+    launches = dict(_ext.LAUNCHES)
+    _launch_check("examples", launches,
+                  ("scale", "triad", "axpy", "spmv", "stencil", "attention"),
+                  failures)
+    bad = {k: v for k, v in errs.items() if not v <= F32_TOL}
+    if bad:
+        failures.append(f"examples: max_err above {F32_TOL}: {bad}")
+    print(json.dumps({"phase": "examples", "max_err": errs, **out,
+                      "launches": launches,
+                      "phase_s": time.perf_counter() - t_phase,
+                      "card": card}), flush=True)
+    return launches
+
+
+def _dryrun_phase(card, failures):
+    """Phase 15, second half: the dry run of ``DRYRUN_ROWS`` in a
+    subprocess (CPU only: CUDA_VISIBLE_DEVICES is empty, and the fake
+    process group it starts stays out of this process), then its rows and
+    ``launch.report``'s sections."""
+    import os
+    import subprocess
+    from repro_torch.launch import report
+    DRYRUN_OUT.parent.mkdir(parents=True, exist_ok=True)
+    DRYRUN_OUT.unlink(missing_ok=True)
+    code = ("from repro_torch.launch import dryrun\n"
+            f"for arch, cell in {DRYRUN_ROWS!r}:\n"
+            "    dryrun.main(['--arch', arch, '--cell', cell, '--out', "
+            f"{str(DRYRUN_OUT)!r}])\n")
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+            text=True, timeout=600,
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src"),
+                 "CUDA_VISIBLE_DEVICES": ""})
+        rc, log = proc.returncode, (proc.stdout + proc.stderr).splitlines()
+    except subprocess.TimeoutExpired:
+        rc, log = "killed at its 600 s limit", []
+    DRYRUN_OUT.with_suffix(".log").write_text("\n".join(log))
+    rows = json.loads(DRYRUN_OUT.read_text()) if DRYRUN_OUT.exists() else []
+    for r in rows:
+        line = {"phase": "dryrun", "arch": r["arch"], "cell": r["cell"],
+                "mesh": r["mesh"], "on": "meta tensors, CPU"}
+        if "bytes_per_device" in r:
+            line.update(gib_per_dev=r["bytes_per_device"]["total_gb"],
+                        dominant=r["dominant"], t_bound_s=r["t_bound_s"],
+                        trace_s=r["lower_compile_s"],
+                        coll_bytes_by_kind=r["collectives"]["bytes_by_kind"])
+        else:
+            line["not_ok"] = r.get("error") or r.get("skipped")
+            failures.append(f"dryrun {r['arch']}/{r['cell']}: "
+                            f"{line['not_ok']}")
+        print(json.dumps(line), flush=True)
+    if rc != 0 or len(rows) != len(DRYRUN_ROWS):
+        failures.append(f"dryrun: rc {rc}, {len(rows)} rows; log tail "
+                        f"{log[-5:]}")
+    rows.sort(key=lambda r: (r.get("arch", ""), r.get("cell", "")))
+    print(report.dryrun_table(rows))
+    print(report.roofline_table(rows))
+    print(json.dumps({"phase": "dryrun_summary",
+                      "summary": report.summary(rows), "rc": rc,
+                      "wall_s": time.perf_counter() - t0, "card": card}),
+          flush=True)
 
 
 def _serving_phase(torch, card, failures, stream_ms):

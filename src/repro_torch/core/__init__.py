@@ -9,8 +9,13 @@ Layers:
   advisor    -- engine dispatch policy (paper §6 as code)
   dispatch   -- memoized advisor routing + the shared elementwise wrapper
   timing     -- CUDA-event kernel timing
+  analysis   -- a step's roofline terms from its traced cost and the
+                collectives it records (the dry run's)
+  trace_cost -- FLOP / byte accounting of a step traced on meta tensors
 """
 from .advisor import DEFAULT_ADVISOR, Advice, EngineAdvisor
+from .analysis import (CollectiveStats, RooflineReport, analyze,
+                       collective_stats)
 from .balance import is_memory_bound, machine_balance, time_compute, time_memory
 from .bounds import (best_case_speedup, break_even_alpha,
                      speedup_bound_intensity, speedup_overlapped,
@@ -18,8 +23,9 @@ from .bounds import (best_case_speedup, break_even_alpha,
                      workload_upper_bound)
 from .dispatch import (DEFAULT_DISPATCHER, Dispatcher, elementwise_call,
                        normalize_engine)
-from .hw import (A100_80G, GH200, H100_NVL, H100_PCIE, H100_SXM, PLATFORMS,
-                 TPU_V5E, HardwareSpec, get_platform, spec_for_device_name)
+from .hw import (A100_80G, DENSE_PEAKS, GH200, H100_NVL, H100_PCIE, H100_SXM,
+                 PLATFORMS, TPU_V5E, HardwareSpec, dense_peak, get_platform,
+                 spec_for_device_name)
 from .intensity import (KernelTraits, axpy, gemv, paper_table, scale,
                         spmv_bell, spmv_csr, stencil, stencil_matmul,
                         temporal_depth_to_compute_bound, triad)

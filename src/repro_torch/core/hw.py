@@ -125,6 +125,32 @@ TPU_V5E = HardwareSpec(
     },
 )
 
+#: Dense matmul peaks per dtype (FLOP/s, without sparsity), from each
+#: part's NVIDIA datasheet: bfloat16 / float16 on the tensor cores,
+#: float32 on the CUDA cores (outside the tensor cores: the port's float32
+#: steps are IEEE, no TF32).  TPU-v5e's is the reference's: its matrix
+#: engine is the bfloat16 MXU.  The FP64 engines above, which the advisor
+#: and Eq. 23 use, are the datasheets' FP64 figures.
+DENSE_PEAKS: Dict[str, Dict[str, float]] = {
+    "A100-80GB": {"bfloat16": 312e12, "float16": 312e12, "float32": 19.5e12},
+    "GH200": {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12},
+    "H100-SXM5": {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12},
+    "H100-PCIe": {"bfloat16": 756e12, "float16": 756e12, "float32": 51e12},
+    "H100-NVL": {"bfloat16": 835e12, "float16": 835e12, "float32": 60e12},
+    "TPU-v5e": {"bfloat16": TPU_V5E.matrix.peak_flops},
+}
+
+
+def dense_peak(hw: HardwareSpec, dtype: str = "bfloat16") -> float:
+    """The dense matmul peak of ``hw`` at ``dtype`` ("bfloat16",
+    "float32", ...), from ``DENSE_PEAKS``; a KeyError for a part or dtype
+    it has no figure for."""
+    try:
+        return DENSE_PEAKS[hw.name][dtype]
+    except KeyError:
+        raise KeyError(f"no dense {dtype} peak for {hw.name!r}") from None
+
+
 PLATFORMS: Dict[str, HardwareSpec] = {
     "a100": A100_80G,
     "gh200": GH200,

@@ -7,6 +7,7 @@ dtypes, no storage), mirroring the data pipeline's real batches.
 """
 from __future__ import annotations
 
+import weakref
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -73,7 +74,7 @@ def abstract_state(cfg: ModelConfig, opt: Optional[AdamW] = None
 def make_value_and_grad(cfg: ModelConfig, *, dtype=torch.bfloat16,
                         remat_policy: Optional[str] = None,
                         loss_chunks: int = 0, remat: bool = True,
-                        cast_params: bool = False):
+                        cast_params: bool = False, act_spec=None):
     """(params, batch) -> ((loss, metrics), grads): the reference's
     ``jax.value_and_grad`` of its train step's loss.  ``grads`` is an
     ``LM`` of ``params``' shape (zeros where a weight gets none).
@@ -81,10 +82,11 @@ def make_value_and_grad(cfg: ModelConfig, *, dtype=torch.bfloat16,
     ``cast_params`` casts every float32 weight, the norms too, to
     ``dtype`` before the layer loop, as the reference's flag does (its
     ZeRO-3 gathers then move the narrow weights); the gradients flow back
-    through the cast to the float32 parameters.
+    through the cast to the float32 parameters.  ``act_spec`` is
+    ``lm.forward``'s.
     """
     kw = dict(dtype=dtype, remat_policy=remat_policy,
-              loss_chunks=loss_chunks, remat=remat)
+              loss_chunks=loss_chunks, remat=remat, act_spec=act_spec)
 
     def value_and_grad(params: lm.LM, batch: Dict):
         params.requires_grad_(True)
@@ -105,18 +107,21 @@ def make_train_step(cfg: ModelConfig, opt: AdamW, *, dtype=torch.bfloat16,
                     remat_policy: Optional[str] = None,
                     grad_compress: Optional[str] = None,
                     loss_chunks: int = 0, cast_params: bool = False,
-                    remat: bool = True):
+                    remat: bool = True, act_spec=None):
     """(params, opt_state, batch) -> (params, opt_state, metrics).
 
     The parameters and the state are updated in place (``AdamW.update``).
     ``grad_compress`` ("bf16" | "int8") round-trips the gradients first;
-    the other options are ``make_value_and_grad``'s.  The reference's
-    ``unroll`` and ``act_spec`` (a scan's unrolling, a sharding
-    constraint) have no counterpart on one device.
+    the other options are ``make_value_and_grad``'s.  ``act_spec`` is a
+    function applied to the residual stream after every layer: the dry
+    run's DTensor redistribution, where the reference pins a
+    PartitionSpec.  The reference's ``unroll`` (a scan's unrolling) has
+    no counterpart in a Python layer loop.
     """
     value_and_grad = make_value_and_grad(
         cfg, dtype=dtype, remat_policy=remat_policy,
-        loss_chunks=loss_chunks, remat=remat, cast_params=cast_params)
+        loss_chunks=loss_chunks, remat=remat, cast_params=cast_params,
+        act_spec=act_spec)
 
     def train_step(params, opt_state: AdamWState, batch):
         (_, metrics), grads = value_and_grad(params, batch)
@@ -128,20 +133,58 @@ def make_train_step(cfg: ModelConfig, opt: AdamW, *, dtype=torch.bfloat16,
     return train_step
 
 
+def _cast_once(dtype):
+    """params -> ``lm.cast_params(params, dtype)``, each parameter tree
+    cast on its first call and the cast reused after (a float32 ``dtype``
+    casts nothing)."""
+    memo: "weakref.WeakKeyDictionary[lm.LM, lm.LM]" = \
+        weakref.WeakKeyDictionary()
+
+    def cast(params: lm.LM) -> lm.LM:
+        if dtype == torch.float32:
+            return params
+        if params not in memo:
+            memo[params] = lm.cast_params(params, dtype)
+        return memo[params]
+    return cast
+
+
 def make_prefill_step(cfg: ModelConfig, *, dtype=torch.bfloat16):
-    """(params, batch) -> (last-position logits, caches)."""
+    """(params, batch) -> (last-position logits, caches).
+
+    Float32 parameters are cast to ``dtype`` with ``lm.cast_params`` on
+    the step's first call with them, and the cast is reused by every later
+    call (the reference casts at each use: the same rounding, without
+    streaming the float32 weights each step).  A tree updated in place
+    after its first call keeps its first cast: build a new step for it.
+    """
+    cast = _cast_once(dtype)
+
     @torch.no_grad()
     def prefill_step(params, batch):
-        return lm.prefill(params, cfg, batch, dtype=dtype)
+        return lm.prefill(cast(params), cfg, batch, dtype=dtype)
     return prefill_step
 
 
 def make_decode_step(cfg: ModelConfig, *, dtype=torch.bfloat16):
     """(params, tokens, caches, index) -> (logits, caches), the caches
-    updated in place."""
+    updated in place.
+
+    ``index`` is a Python int, or a 0-d tensor that holds a value (not on
+    the meta device: ``decode_input_specs``' index only gives its type;
+    the dry run passes ``cell.seq - 1``).  The parameters are cast as in
+    ``make_prefill_step``: once, on the first call with them.
+    """
+    cast = _cast_once(dtype)
+
     @torch.no_grad()
     def serve_step(params, tokens, caches, index):
-        return lm.decode_step(params, cfg, tokens, caches, int(index),
+        if isinstance(index, torch.Tensor):
+            if index.is_meta:
+                raise ValueError("a decode step's index must hold a value: "
+                                 "pass a Python int, not a meta tensor")
+            index = int(index)
+        return lm.decode_step(cast(params), cfg, tokens, caches, index,
                               dtype=dtype)
     return serve_step
 

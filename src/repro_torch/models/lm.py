@@ -512,24 +512,31 @@ def _super_block(p: LM, layers, x, cfg: ModelConfig, positions,
 
 
 def _forward_ssm(p: LM, cfg: ModelConfig, x, positions, want_cache: bool,
-                 remat):
+                 remat, pin):
     """The SSM and hybrid layer stacks of ``forward``: (x, caches).
 
     The hybrid's states stack as the reference's nested scan does:
     ``(n_super, attn_every, ...)`` under ``"ssm"``, the shared block's KV
     caches ``(n_super, ...)`` under ``"attn"``, the tail's under
     ``"tail"``.  ``remat`` wraps each rematerialized body (an SSM layer, a
-    hybrid's super-block and tail layer) as the reference's scans do.
+    hybrid's super-block and tail layer) as the reference's scans do;
+    ``pin`` is applied after each SSM layer and each super-block, where
+    the reference pins its ``act_spec``.
     """
     caches = {}
     if cfg.family == "ssm":
-        x, caches["ssm"] = _ssm_stack(p.layers, x, cfg, want_cache,
-                                      remat(_ssm_block))
+        block = remat(_ssm_block)
+
+        def pinned(*args, **kw):
+            h, st = block(*args, **kw)
+            return pin(h), st
+        x, caches["ssm"] = _ssm_stack(p.layers, x, cfg, want_cache, pinned)
         return x, caches
     states, kvs = [], []
     super_block = remat(_super_block)
     for layers in p.layers:
         x, st, kv = super_block(p, layers, x, cfg, positions, want_cache)
+        x = pin(x)
         if want_cache:
             states.append(st)
             kvs.append(kv)
@@ -548,7 +555,7 @@ def _forward_ssm(p: LM, cfg: ModelConfig, x, positions, want_cache: bool,
 def forward(p: LM, cfg: ModelConfig, batch: Dict, *,
             dtype=torch.bfloat16, want_cache: bool = False,
             remat: bool = True, remat_policy: Optional[str] = None,
-            return_hidden: bool = False):
+            act_spec=None, return_hidden: bool = False):
     """Full-sequence pass.  Returns (logits, caches|None, aux).
 
     ``caches`` is ``{"attn": {"k": (L, B, S, KH, Dh), "v": ...}}``, the
@@ -560,12 +567,16 @@ def forward(p: LM, cfg: ModelConfig, batch: Dict, *,
     ``return_hidden`` skips the LM head.  ``remat`` recomputes each layer
     in the backward pass (``remat_policy="dots"`` keeps the matmuls'
     outputs), where autograd records; the encoder's layers always are, as
-    the reference's.  The reference's ``unroll`` and ``act_spec`` (a
-    scan's unrolling, a sharding constraint) have no counterpart in a
-    Python layer loop on one device.
+    the reference's.  ``act_spec`` is a function applied to the residual
+    stream after the embedding and after every layer (the leading dense
+    layers excepted), where the reference pins its ``act_spec``
+    PartitionSpec: the dry run passes a DTensor redistribution.  The
+    reference's ``unroll`` (a scan's unrolling) has no counterpart in a
+    Python layer loop.
     """
     check_family(cfg)
-    x = _embed_inputs(p, cfg, batch, dtype)
+    pin = act_spec or (lambda h: h)
+    x = pin(_embed_inputs(p, cfg, batch, dtype))
     b, s, _ = x.shape
     positions = _positions(cfg, batch, b, s, x.device)
     aux = {"aux_loss": torch.zeros((), device=x.device),
@@ -577,7 +588,8 @@ def forward(p: LM, cfg: ModelConfig, batch: Dict, *,
     def wrap(fn):
         return _remat(fn, remat, remat_policy)
     if cfg.family in ("ssm", "hybrid"):
-        x, caches = _forward_ssm(p, cfg, x, positions, want_cache, wrap)
+        x, caches = _forward_ssm(p, cfg, x, positions, want_cache, wrap,
+                                 pin)
     else:
         caches = {}
         block = wrap(_dense_block)
@@ -587,6 +599,8 @@ def forward(p: LM, cfg: ModelConfig, batch: Dict, *,
                 x, kv, layer_aux = block(
                     layer, x, cfg, positions=positions, cache=None,
                     cache_index=None, enc_out=enc_out, enc_pos=enc_pos)
+                if name == "layers":
+                    x = pin(x)
                 aux = {k: v + layer_aux.get(k, 0.0) for k, v in aux.items()}
                 if want_cache:
                     kvs.append(kv)
@@ -636,7 +650,7 @@ def _chunk_nll(hidden, labels, mask, head):
 
 def loss_fn(p: LM, cfg: ModelConfig, batch: Dict, *, dtype=torch.bfloat16,
             remat_policy: Optional[str] = None, loss_chunks: int = 0,
-            remat: bool = True):
+            remat: bool = True, act_spec=None):
     """Teacher-forced loss: (loss, metrics).
 
     The mean NLL of ``batch["labels"]`` over the positions ``loss_mask``
@@ -646,7 +660,7 @@ def loss_fn(p: LM, cfg: ModelConfig, batch: Dict, *, dtype=torch.bfloat16,
     gradients reach ``p``'s own parameters.  ``loss_chunks`` > 0 runs
     the LM head and softmax over that many sequence chunks, each
     recomputed in the backward pass, so the (B, S, V) logits never exist
-    at once.
+    at once.  ``act_spec`` is ``forward``'s.
     """
     if dtype != torch.float32:
         p = cast_view(p, dtype)
@@ -655,7 +669,7 @@ def loss_fn(p: LM, cfg: ModelConfig, batch: Dict, *, dtype=torch.bfloat16,
     if loss_chunks:
         hidden, _, aux = forward(p, cfg, batch, dtype=dtype, remat=remat,
                                  remat_policy=remat_policy,
-                                 return_hidden=True)
+                                 act_spec=act_spec, return_hidden=True)
         b, s, _ = hidden.shape
         if s % loss_chunks:
             raise ValueError(f"loss_chunks {loss_chunks} must divide the "
@@ -676,7 +690,8 @@ def loss_fn(p: LM, cfg: ModelConfig, batch: Dict, *, dtype=torch.bfloat16,
         nll_mean = tot / torch.clamp_min(cnt, 1.0)
     else:
         logits, _, aux = forward(p, cfg, batch, dtype=dtype, remat=remat,
-                                 remat_policy=remat_policy)
+                                 remat_policy=remat_policy,
+                                 act_spec=act_spec)
         nll = _nll(logits, labels)
         mask = torch.ones_like(nll) if mask is None else mask.float()
         nll_mean = (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)

@@ -18,7 +18,7 @@ later lever (ROADMAP.md Queue 1 item 10).
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -26,7 +26,8 @@ import torch.nn.functional as F
 from .config import ModelConfig
 from .layers import dense_init
 
-__all__ = ["init_moe", "moe_ffn", "top_k"]
+__all__ = ["Routed", "combine", "dispatch", "expert_ffn", "init_moe",
+           "moe_ffn", "top_k"]
 
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig, device="cuda"
@@ -66,15 +67,25 @@ def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
-def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig, group_size: int = 2048
-            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """x: (B,S,D) -> (B,S,D), aux metrics {aux_loss, z_loss}.
+class Routed(NamedTuple):
+    """A batch routed to its experts (``dispatch``): the tokens ``xt``
+    (G, Sg, D), the experts' buffers ``xe`` (G, E, C, D), each (token,
+    slot)'s buffer row ``flat`` (G, Sg, k) and gate ``gates`` (0 where
+    dropped), and what the aux losses read."""
 
-    ``p`` holds ``router`` (D, E), ``w_gate`` / ``w_up`` (E, D, F),
-    ``w_down`` (E, F, D) and, with shared experts, a ``shared`` group of
-    dense SwiGLU weights; all in x's dtype but the router's logits, which
-    are taken in float32 after the product, as the reference takes them.
-    """
+    xt: torch.Tensor
+    xe: torch.Tensor
+    flat: torch.Tensor
+    gates: torch.Tensor
+    probs: torch.Tensor
+    onehot: torch.Tensor
+    logits: torch.Tensor
+
+
+def dispatch(p, x: torch.Tensor, cfg: ModelConfig, group_size: int = 2048
+             ) -> Routed:
+    """Route x (B,S,D) with ``p.router`` and scatter each kept (token,
+    slot) into its expert's buffer."""
     dtype = x.dtype
     b, s, d = x.shape
     t = b * s
@@ -111,26 +122,51 @@ def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig, group_size: int = 2048
     xe[torch.where(keep, flat, n).reshape(-1)] = \
         xt[:, :, None, :].expand(g, sg, k, d).reshape(-1, d)
     xe = xe[:n].reshape(g, e, cap, d)
+    return Routed(xt, xe, flat, gate_vals, probs, onehot, logits)
 
+
+def expert_ffn(p, xe: torch.Tensor) -> torch.Tensor:
+    """Each expert's SwiGLU over its buffers: xe (G, E, C, D) with
+    ``p.w_gate`` / ``w_up`` (E, D, F) and ``w_down`` (E, F, D)."""
     gt = torch.einsum("gecd,edf->gecf", xe, p.w_gate)
     u = torch.einsum("gecd,edf->gecf", xe, p.w_up)
     h = F.silu(gt) * u
-    y = torch.einsum("gecf,efd->gecd", h, p.w_down)                 # (G,E,C,D)
+    return torch.einsum("gecf,efd->gecd", h, p.w_down)
 
+
+def combine(p, r: Routed, y: torch.Tensor, cfg: ModelConfig,
+            shape) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The experts' outputs y (G, E, C, D) back to the tokens, the shared
+    experts added: (output of ``shape``, aux metrics)."""
+    g, sg, d = r.xt.shape
+    e = cfg.n_experts
     # combine: each token's kept slots' outputs, weighed by their gates
     # (a dropped slot reads a clamped position and weighs it by 0)
-    picked = y.reshape(n, d)[flat]                                  # (G,Sg,k,D)
-    out = (picked * gate_vals.to(dtype)[..., None]).sum(2)
-    xt = xt.reshape(t, d)
-    out = out.reshape(t, d)
+    picked = y.reshape(-1, d)[r.flat]                               # (G,Sg,k,D)
+    out = (picked * r.gates.to(y.dtype)[..., None]).sum(2)
+    xt = r.xt.reshape(g * sg, d)
+    out = out.reshape(g * sg, d)
 
     if "shared" in p:
         sp = p.shared
         out = out + (F.silu(xt @ sp.w_gate) * (xt @ sp.w_up)) @ sp.w_down
 
     # aux losses (Switch-style load balance + router z-loss)
-    me = probs.mean(dim=(0, 1))                                     # (E,)
-    ce = onehot.float().sum(dim=2).mean(dim=(0, 1))                 # (E,)
+    me = r.probs.mean(dim=(0, 1))                                   # (E,)
+    ce = r.onehot.float().sum(dim=2).mean(dim=(0, 1))               # (E,)
     aux = (me * ce).sum() * e * cfg.router_aux_weight
-    z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2) * 1e-3
-    return out.reshape(b, s, d), {"aux_loss": aux, "z_loss": z}
+    z = torch.mean(torch.logsumexp(r.logits, dim=-1) ** 2) * 1e-3
+    return out.reshape(shape), {"aux_loss": aux, "z_loss": z}
+
+
+def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig, group_size: int = 2048
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x: (B,S,D) -> (B,S,D), aux metrics {aux_loss, z_loss}.
+
+    ``p`` holds ``router`` (D, E), ``w_gate`` / ``w_up`` (E, D, F),
+    ``w_down`` (E, F, D) and, with shared experts, a ``shared`` group of
+    dense SwiGLU weights; all in x's dtype but the router's logits, which
+    are taken in float32 after the product, as the reference takes them.
+    """
+    r = dispatch(p, x, cfg, group_size)
+    return combine(p, r, expert_ffn(p, r.xe), cfg, x.shape)
