@@ -270,7 +270,8 @@ STEP_RTOL, STEP_ATOL = 1e-3, 1e-4
 DRYRUN_ROWS = (("mistral-nemo-12b", "train_4k"),
                ("mistral-nemo-12b", "prefill_32k"),
                ("mistral-nemo-12b", "decode_32k"),
-               ("deepseek-v2-lite-16b", "decode_32k"))
+               ("deepseek-v2-lite-16b", "decode_32k"),
+               ("qwen1.5-32b", "decode_32k"))
 #: Its own directory, apart from the BENCH records of build/runs_torch.
 DRYRUN_OUT = ROOT / "build" / "runs_torch_dryrun" / "dryrun.json"
 
@@ -1057,7 +1058,9 @@ def _dryrun_phase(card, failures):
             line.update(gib_per_dev=r["bytes_per_device"]["total_gb"],
                         dominant=r["dominant"], t_bound_s=r["t_bound_s"],
                         trace_s=r["lower_compile_s"],
-                        coll_bytes_by_kind=r["collectives"]["bytes_by_kind"])
+                        coll_bytes_by_kind=r["collectives"]["bytes_by_kind"],
+                        coll_bf16_bytes_by_kind=r["collectives"][
+                            "bf16_bytes_by_kind"])
         else:
             line["not_ok"] = r.get("error") or r.get("skipped")
             failures.append(f"dryrun {r['arch']}/{r['cell']}: "
@@ -1830,8 +1833,9 @@ def _restart_drill(torch, failures, card):
                              ckpt_dir=str(root / "a"), async_ckpt=False)
         straight = run(lc, init_state=init_state, step_fn=step_fn,
                        batch_fn=pipe.batch, log=lambda *_: None)
-        lc2 = dataclasses.replace(lc, ckpt_dir=str(root / "b"),
-                                  async_ckpt=True)
+        # both legs write synchronously, as the reference's drill does: an
+        # asynchronous step-6 save races the crash at step 7
+        lc2 = dataclasses.replace(lc, ckpt_dir=str(root / "b"))
         try:
             run(lc2, init_state=init_state, step_fn=step_fn,
                 batch_fn=pipe.batch,

@@ -14,11 +14,17 @@ every aten op:
     the reference's primitives it stands for; reductions one flop per
     input element;
   * memory-shaped ops (gather, scatter, index, cat, pad, sort, flip, the
-    copy into a slice that is the reference's ``dynamic_update_slice``):
-    their operand and output bytes.  A view (slice, permute, transpose,
-    reshape) costs no bytes.  The reference counts the jaxpr's
-    ``transpose``; here a permuted view moves no byte until a ``clone``
-    copies it, and that copy is counted.
+    copy into a slice that is the reference's ``dynamic_update_slice``,
+    counted as it is, with the whole buffer in and out): their operand
+    and output bytes.  A view (slice, permute, transpose, reshape) costs
+    no bytes; a permuted view moves its bytes when a ``clone`` copies it
+    (a ``reshape`` or ``contiguous`` of it), and that copy is counted.
+    The reference's jaxpr also has the ``transpose``s JAX's lowering
+    issues (an einsum's output order, ``dot_general``'s backward); the
+    port's program does not move those bytes and does not count them.
+    The copy into one layer's slot of a stacked tensor costs nothing (the
+    reference's layer scan returns its outputs stacked, with no
+    primitive); a matmul's operand broadcast over a batch is read once.
 
 Backward passes and ``torch.utils.checkpoint``'s recompute run under the
 mode, which stays active through autograd: a recomputed forward is
@@ -41,6 +47,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import weakref
 from typing import Any, Dict, Iterator, List
 
 import torch
@@ -49,8 +56,8 @@ from torch.utils._python_dispatch import (TorchDispatchMode,
                                           _get_current_dispatch_mode_stack)
 from torch.utils._pytree import tree_flatten
 
-__all__ = ["Cost", "CostMode", "folding", "op_cost", "program_cost",
-           "repeated", "tensors_of"]
+__all__ = ["Cost", "CostMode", "counted", "folding", "op_cost",
+           "program_cost", "repeated", "tensors_of"]
 
 ELEMENTWISE_1 = {
     "add", "sub", "rsub", "mul", "div", "maximum", "minimum", "neg", "abs",
@@ -86,6 +93,15 @@ DOTS = {"mm", "bmm", "addmm", "baddbmm", "mv", "dot"}
 
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
+
+
+def _stored_bytes(t: torch.Tensor) -> int:
+    """The bytes ``t`` reads: an expanded (stride 0) dim counts once, as
+    a matmul that broadcasts a weight over a batch reads it once."""
+    n = t.element_size()
+    for size, stride in zip(t.shape, t.stride()):
+        n *= size if stride else 1
+    return n
 
 
 def tensors_of(obj: Any) -> List[torch.Tensor]:
@@ -133,8 +149,9 @@ def _dot_flops(name: str, args) -> float:
     return 2.0 * batch * m * b.shape[-1] * k
 
 
-def op_cost(func, args, out) -> Cost:
-    """The cost of one aten op call: ``func`` on ``args`` gave ``out``."""
+def op_cost(func, args, out, buffer: int = 0) -> Cost:
+    """The cost of one aten op call: ``func`` on ``args`` gave ``out``.
+    ``buffer``: for a copy into a slice, the bytes of the tensor sliced."""
     name = func.overloadpacket.__name__
     if name.endswith("_") and not name.endswith("__"):
         name = name[:-1]                       # in place: add_ -> add
@@ -144,7 +161,8 @@ def op_cost(func, args, out) -> Cost:
     if name in DOTS:
         ins = [t for t in tree_flatten(args)[0] if isinstance(t, torch.Tensor)]
         flops = _dot_flops(name, args)
-        byts = sum(_nbytes(t) for t in ins) + sum(_nbytes(t) for t in outs)
+        byts = (sum(_stored_bytes(t) for t in ins)
+                + sum(_nbytes(t) for t in outs))
         extra = (sum(t.numel() for t in outs)
                  if name in ("addmm", "baddbmm") else 0.0)
         return Cost(flops=flops + extra, dot_flops=flops, bytes=byts)
@@ -159,8 +177,15 @@ def op_cost(func, args, out) -> Cost:
         return Cost(flops=per * float(ins[0].numel() if ins else 0))
     if name in MEMORY_OPS:
         ins = [t for t in tree_flatten(args)[0] if isinstance(t, torch.Tensor)]
-        if name == "copy":                     # a write into a view: src + dst
+        if name == "copy":
+            # a write into a slice of a buffer is the reference's
+            # ``dynamic_update_slice``: the buffer in, the update, the
+            # buffer out; a whole copy is its source and destination
+            if buffer:
+                return Cost(bytes=float(2 * buffer + _nbytes(ins[1])))
             ins = ins[1:]
+        if not outs and ins:                   # in place, nothing returned
+            outs = ins[:1]
         return Cost(bytes=float(sum(_nbytes(t) for t in ins)
                                 + sum(_nbytes(t) for t in outs)))
     return Cost()
@@ -168,7 +193,13 @@ def op_cost(func, args, out) -> Cost:
 
 class CostMode(TorchDispatchMode):
     """Counts ``op_cost`` of every op run under it into ``cost``, each
-    ``scale`` times (``repeated``)."""
+    ``scale`` times (``repeated``).  It remembers which tensor each slice
+    was taken from, so that a copy into the slice counts that tensor as
+    the reference's ``dynamic_update_slice`` counts its operand; a copy
+    into one layer's slot of a stacked tensor (a ``select``) is the
+    port's in-place form of what the reference's layer scan returns
+    stacked, and costs nothing, as the scan's outputs cost nothing
+    there."""
 
     #: a mode that counts folded loops (``repeated``) through ``scale``
     folds = True
@@ -177,11 +208,29 @@ class CostMode(TorchDispatchMode):
         super().__init__()
         self.cost = Cost()
         self.scale = 1.0
+        self._sliced: Dict[int, tuple] = {}
+
+    def _sliced_from(self, t: torch.Tensor) -> int:
+        ref, nbytes = self._sliced.get(id(t), (None, 0))
+        return nbytes if ref is not None and ref() is t else 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
-        self.cost += op_cost(func, args, out).scaled(self.scale)
+        name = func.overloadpacket.__name__
+        buffer = 0
+        if name in ("slice", "select") and isinstance(out, torch.Tensor):
+            self._sliced[id(out)] = (weakref.ref(out), -1 if name == "select"
+                                     else _nbytes(args[0]))
+        elif name in ("copy_", "copy") and isinstance(args[0], torch.Tensor):
+            buffer = self._sliced_from(args[0])
+            if buffer < 0:
+                return out
+        self.add(op_cost(func, args, out, buffer))
         return out
+
+    def add(self, c: Cost) -> None:
+        """Count ``c``, ``scale`` times."""
+        self.cost += c.scaled(self.scale)
 
 
 def _folding_modes() -> List[Any]:
@@ -213,7 +262,13 @@ def program_cost(fn, *args, **kwargs) -> Dict[str, float]:
     FLOPs and bytes: the reference's keys ``flops``, ``dot_flops``,
     ``bytes`` (the ops' plus ``io_bytes``) and ``io_bytes`` (every input
     and output tensor once)."""
-    with CostMode() as mode:
+    return counted(CostMode(), fn, *args, **kwargs)
+
+
+def counted(mode: CostMode, fn, *args, **kwargs) -> Dict[str, float]:
+    """``program_cost`` counted by ``mode`` (a ``CostMode``, or a subclass
+    that attributes what it counts)."""
+    with mode:
         out = fn(*args, **kwargs)
     io = (sum(_nbytes(t) for t in tensors_of((args, kwargs)))
           + sum(_nbytes(t) for t in tensors_of(out)))

@@ -17,8 +17,7 @@ is compiled and nothing is allocated; per cell:
   are DTensors whose local tensors are on meta, placed by
   ``sharding/rules.py``'s specs after ``fit_spec``: an axis of a spec
   entry is ``Shard(dim)`` on that mesh dim, None is ``Replicate()``.
-  KV heads that do not divide the model axis are duplicated up to it
-  (``tp_config``).  The step runs once; DTensor propagates the shardings
+  The step runs once; DTensor propagates the shardings
   op by op and issues the collectives a real mesh would run.  The ``sp``
   / ``fsdp`` layouts pin their ``act_spec`` onto the residual stream
   after every layer as a redistribution, and a partial sum added to the
@@ -28,8 +27,15 @@ is compiled and nothing is allocated; per cell:
   reference's specs give (``traced_model``): attention's core
   head-parallel on each device's shard, the loss vocab-parallel, a MoE
   layer expert-parallel, an embedding lookup as DTensor's masked
-  embedding.  A move of a split from one dim to another counts as the
-  all-to-all a card runs, not the whole gather a CPU mesh makes of it.
+  embedding.  Where the query or KV heads do not divide the model axis
+  (Qwen1.5-32B's 40 heads, Mistral-NeMo-12B's 8 KV heads over 16), a
+  train or prefill step pads them up to it (``tp_config``); a decode step
+  gathers q / k / v over it before the reshape into heads, runs every
+  head on each device's batch shard, and attends the cache, which
+  ``fit_spec`` then splits by sequence over the model axis,
+  split-sequence (``_gathered_heads``).  A move of a split from one dim
+  to another counts as the all-to-all a card runs, not the whole gather
+  a CPU mesh makes of it.
 * **What the trace records.**  A dispatch mode under DTensor sees the
   local ops: each functional collective with its local result bytes
   (``core.analysis.collective_stats``), and the live local bytes.
@@ -38,12 +44,17 @@ is compiled and nothing is allocated; per cell:
   there too, as the reference counts a donated one), ``temp`` (the peak
   of live intermediates) and their sum ``total_gb``.  ``temp`` is an
   upper estimate: eager autograd holds what it saves, with none of the
-  buffer reuse and fusion of XLA's buffer assignment.  A serving step's
-  weights are cast to bfloat16 once, before it, as a server holds them.
+  buffer reuse and fusion of XLA's buffer assignment.  A serving step
+  traces the reference's float32 weights (bfloat16 ones under
+  ``--params-dtype bf16`` at decode, as the reference's), cast to the
+  step's dtype inside the trace.  ``collectives`` also holds
+  ``bf16_bytes_by_kind``, the bytes of its bfloat16 collectives: XLA's
+  CPU backend reduces those in float32 (its ``all-reduce-promotion``
+  pass), so a reference row compiled on the CPU counts them twice.
 * **Ops DTensor does not shard.**  Where DTensor has no sharding rule
-  for an op or its placements (a reshape that splits a split dim
-  unevenly, such as 40 heads over a model axis of 16), the row is an
-  error row naming the op, as the reference records a failed compile.
+  for an op or its placements (``unfold``; a view that merges two split
+  dims), the row is an error row naming the op, as the reference records
+  a failed compile.
   Nothing is rerun on other placements and nothing falls back to an
   unsharded trace.
 * **No depth extrapolation.**  The reference compiles two shallow
@@ -124,6 +135,25 @@ def _fake_world(size: int) -> None:
         dist.destroy_process_group()
     dist.init_process_group("fake", store=FakeStore(), rank=0,
                             world_size=size)
+    _forget_meshes()
+
+
+def _forget_meshes() -> None:
+    """Clear DTensor's sharding-propagation caches (the Python ones and the
+    C++ dispatch fast path's).  They key an op by its specs, whose meshes
+    compare equal across worlds (shape and names, not groups): a hit would
+    hand back a mesh of a destroyed world, whose groups no longer
+    resolve."""
+    from torch.distributed.tensor import DTensor
+    prop = DTensor._op_dispatcher.sharding_propagator
+    for name in ("propagate_op_sharding", "_propagate_tensor_meta_cached"):
+        clear = getattr(getattr(prop, name, None), "cache_clear", None)
+        if clear is not None:
+            clear()
+    clear = getattr(torch._C, "_clear_DTensor_sharding_propagator_cache",
+                    None)
+    if clear is not None:
+        clear()
 
 
 def device_mesh(shape, axis_names):
@@ -211,7 +241,8 @@ def _make_recorder():
     class Recorder(TorchDispatchMode):
         """Under DTensor: the local ops.  Records functional collectives
         ``(op, local result bytes)``, each ``scale`` times (a folded
-        chunk loop, ``trace_cost.repeated``).  ``track`` keeps the live
+        chunk loop, ``trace_cost.repeated``), the bfloat16 ones also in
+        ``bf16_events``.  ``track`` keeps the live
         bytes that the ops above DTensor allocate, and their peak."""
 
         folds = True
@@ -219,6 +250,7 @@ def _make_recorder():
         def __init__(self):
             super().__init__()
             self.events: List[Tuple[str, int]] = []
+            self.bf16_events: List[Tuple[str, int]] = []
             self.live = 0
             self.peak = 0
             self.scale = 1.0
@@ -246,10 +278,12 @@ def _make_recorder():
             elif not func.namespace.startswith("_c10d_functional"):
                 return out
             if name in EVENT_KINDS:
-                nbytes = sum(t.numel() * t.element_size()
-                             for t in tree_flatten(out)[0]
-                             if isinstance(t, torch.Tensor))
+                ts = [t for t in tree_flatten(out)[0]
+                      if isinstance(t, torch.Tensor)]
+                nbytes = sum(t.numel() * t.element_size() for t in ts)
                 self.events += [(name, nbytes)] * int(self.scale)
+                if ts and all(t.dtype == torch.bfloat16 for t in ts):
+                    self.bf16_events += [(name, nbytes)] * int(self.scale)
             return out
 
     return Recorder()
@@ -383,19 +417,65 @@ def _make_lookups():
 # --------------------------------------------------------------------------
 
 def tp_config(cfg: ModelConfig, width: int) -> ModelConfig:
-    """``cfg`` as its attention is laid out over a model axis of
-    ``width``: KV heads that do not divide it are duplicated up to it,
-    each held by ``width / n_kv_heads`` devices beside the query heads
-    that read it, as tensor parallelism wider than the KV heads lays them
-    out.  A DTensor placement can split a dim only evenly, and the
-    reference's column split of ``wk`` (half a KV head per device for
-    Mistral-NeMo-12B's 8 over 16) leaves no head to reshape into.  Other
-    configs are returned as they are."""
-    kh = cfg.n_kv_heads
-    if (cfg.use_mla or kh % width == 0 or width % kh
-            or cfg.n_heads % width):
+    """``cfg`` as a train or prefill step lays its attention out over a
+    model axis of ``width``: query and KV heads that do not divide it are
+    padded up to the next multiple of it that keeps the query heads a
+    multiple of the KV heads (Mistral-NeMo-12B's 8 KV heads over 16 become
+    16, each held by two devices beside the query heads that read it;
+    Qwen1.5-32B's 40 become 48, three a device).  Every device then runs
+    its own heads and the model axis carries only Megatron's reductions,
+    which is nearer the reference's rows than gathering q / k / v over
+    the axis for these long sequences.  A decode step keeps ``cfg``
+    (``_gathered_heads``).  Values are never computed here, so padded
+    heads only cost what they hold; other configs return as they are."""
+    if cfg.use_mla or not _uneven_heads(cfg, width):
         return cfg
-    return dataclasses.replace(cfg, n_kv_heads=width)
+    kh = -(-cfg.n_kv_heads // width) * width if cfg.n_kv_heads > width \
+        else width
+    h = -(-cfg.n_heads // kh) * kh
+    return dataclasses.replace(cfg, n_heads=h, n_kv_heads=kh)
+
+
+def _gathered_heads(project):
+    """``attention._project_qkv`` where the heads do not divide the model
+    axis (a decode step of Qwen1.5-32B's 40 over 16 or Mistral-NeMo-12B's
+    8 KV heads over 16; ``tp_config`` pads a train or prefill step's): the
+    column-split products as the reference's specs split them, then q / k
+    / v gathered over the model axis before the reshape into heads, which
+    DTensor cannot split unevenly.  Attention then runs every head on
+    each device's batch shard against a cache that ``fit_spec`` splits by
+    sequence over the model axis (``_split_sequence_decode``), as the
+    reference places it, and ``wo``'s row split takes each device's
+    columns of the output back."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    def run(p, x, kv_x, cfg):
+        mesh = getattr(x, "device_mesh", None)
+        if (not isinstance(x, DTensor) or "model" not in mesh.mesh_dim_names
+                or not _uneven_heads(cfg, mesh.size(
+                    mesh.mesh_dim_names.index("model")))):
+            return project(p, x, kv_x, cfg)
+        ax = mesh.mesh_dim_names.index("model")
+
+        def whole(t):
+            return t.redistribute(mesh, [Replicate() if i == ax else pl
+                                         for i, pl in enumerate(t.placements)])
+        q, k, v = x @ p.wq, kv_x @ p.wk, kv_x @ p.wv
+        if "bq" in p:
+            q, k, v = q + p.bq, k + p.bk, v + p.bv
+        b, sq = x.shape[:2]
+        skv = kv_x.shape[1]
+        return (whole(q).reshape(b, sq, cfg.n_heads, cfg.head_dim),
+                whole(k).reshape(b, skv, cfg.n_kv_heads, cfg.head_dim),
+                whole(v).reshape(b, skv, cfg.n_kv_heads, cfg.head_dim))
+    return run
+
+
+def _uneven_heads(cfg: ModelConfig, width: int) -> bool:
+    """Whether ``cfg``'s query or KV heads do not divide a model axis of
+    ``width`` (MLA splits its own heads)."""
+    return not cfg.use_mla and bool(cfg.n_heads % width
+                                    or cfg.n_kv_heads % width)
 
 
 def _vocab_parallel_nll(nll):
@@ -526,12 +606,12 @@ def _split_sequence_decode(attend):
                                         n_kv_heads=cfg.n_kv_heads // heads)
         local_cache = {n: t.to_local() for n, t in cache.items()}
         span = local_cache["k"].shape[1]
+        # positions: (B, Sq), or M-RoPE's (3, B, Sq): split by batch
+        rows = [Shard(positions.ndim - 2) if p == Shard(0) else Replicate()
+                for p in pl]
         out = attend(_local(q, mesh, pl), _local(k, mesh, pl),
                      _local(v, mesh, pl), local_cache, cache_index % span,
-                     local_cfg, _local(positions, mesh, [
-                         Replicate() if s else p
-                         for s, p in zip(seq, positions.placements)])
-                     if isinstance(positions, DTensor) else positions)
+                     local_cfg, _local(positions, mesh, rows))
         b, sq = q.shape[:2]
         shape = (b, sq, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
                  out.shape[-1])
@@ -704,15 +784,16 @@ def _expert_parallel(moe_ffn):
 @contextlib.contextmanager
 def traced_model():
     """The model functions the dry run traces in place of the port's own
-    while it is active: ``_vocab_parallel_nll``, ``_folded_flash``,
-    ``_head_parallel`` attention cores, ``_split_sequence_decode``,
-    ``_head_parallel_mla``, ``_head_parallel_ssm`` and
-    ``_expert_parallel`` MoE layers.  On plain tensors each computes what the function it stands
-    for does."""
+    while it is active: ``_gathered_heads``, ``_vocab_parallel_nll``,
+    ``_folded_flash``, ``_head_parallel`` attention cores,
+    ``_split_sequence_decode``, ``_head_parallel_mla``,
+    ``_head_parallel_ssm`` and ``_expert_parallel`` MoE layers.  On plain
+    tensors each computes what the function it stands for does."""
     from ..models import attention
     saved = (lm._nll, lm.moe_ffn, lm.ssm_layer, attention._sdpa_flash,
              attention._sdpa_dense, attention.mla_attention,
-             attention._attend_cache)
+             attention._attend_cache, attention._project_qkv)
+    attention._project_qkv = _gathered_heads(saved[7])
     lm._nll = _vocab_parallel_nll(saved[0])
     lm.moe_ffn = _expert_parallel(saved[1])
     lm.ssm_layer = _head_parallel_ssm(saved[2])
@@ -725,7 +806,7 @@ def traced_model():
     finally:
         (lm._nll, lm.moe_ffn, lm.ssm_layer, attention._sdpa_flash,
          attention._sdpa_dense, attention.mla_attention,
-         attention._attend_cache) = saved
+         attention._attend_cache, attention._project_qkv) = saved
 
 
 @dataclasses.dataclass
@@ -736,6 +817,7 @@ class ShardedTrace:
     arguments: int
     output: int
     temp: int
+    bf16_events: List[Tuple[str, int]]
 
 
 def _local_bytes(obj: Any) -> int:
@@ -787,7 +869,8 @@ def trace_sharded(fn, args: tuple, dmesh, out_specs: Any = None
                         for o, s in zip(out, out_specs))
     return out, ShardedTrace(
         events=recorder.events, arguments=_local_bytes(args),
-        output=_local_bytes(out), temp=recorder.peak)
+        output=_local_bytes(out), temp=recorder.peak,
+        bf16_events=recorder.bf16_events)
 
 
 # --------------------------------------------------------------------------
@@ -804,16 +887,16 @@ def _bf16_params(params: lm.LM) -> lm.LM:
 def _build(cfg: ModelConfig, cell: Cell, opts: dict, pmesh,
            dmesh=None) -> Tuple[Any, tuple, Any]:
     """(step, args, out specs) of ``cell``: args on meta, or with
-    ``dmesh`` DTensors placed by the reference's specs on ``pmesh``, the
-    model laid out by ``tp_config``."""
+    ``dmesh`` DTensors placed by the reference's specs on ``pmesh``, a
+    train or prefill step's heads laid out by ``tp_config``."""
     dp = ("pod", "data") if "pod" in pmesh.axis_names else "data"
-    if dmesh is not None:
+    if dmesh is not None and cell.kind != "decode":
         cfg = tp_config(cfg, pmesh.shape["model"])
     params = lm.abstract_params(cfg)
-    if cell.kind != "train":
-        # a server holds its weights cast once (``DecodeEngine``); the
-        # steps cast float32 ones on their first call, inside the trace
-        params = lm.cast_params(params, torch.bfloat16)
+    if cell.kind == "decode" and opts.get("params_dtype") == "bf16":
+        params = _bf16_params(params)      # serve from bfloat16 weights
+    # the serving steps cast float32 weights on their first call, inside
+    # the trace, as the reference casts each at its product
     p_specs = rules.param_pspecs(params, pmesh)
     opt_specs = (rules.zero1_pspecs(params, pmesh) if opts.get("zero1")
                  else p_specs)
@@ -929,7 +1012,9 @@ def trace_cell(cfg: ModelConfig, cell: Cell, *, multi_pod: bool = False,
         "hlo_bytes": jc["bytes"],
         "coll_bytes_per_dev": coll_per_dev,
         "collectives": {"bytes_by_kind": stats.bytes_by_kind,
-                        "count_by_kind": stats.count_by_kind},
+                        "count_by_kind": stats.count_by_kind,
+                        "bf16_bytes_by_kind": collective_stats(
+                            tr.bf16_events).bytes_by_kind},
         "t_compute_s": t_compute, "t_memory_s": t_memory,
         "t_collective_s": t_collective, "dominant": dominant,
         "t_bound_s": t_bound,

@@ -92,17 +92,15 @@ def _sdpa_flash(q, k, v, q_pos, kv_pos, causal: bool, q_chunk: int,
         raise ValueError(f"chunks {q_chunk}/{kv_chunk} must divide "
                          f"{sq}/{skv}")
     scale = _scale(dh, q.device)
+    # the chunks are split once: views, whose gradients one cat gathers
+    ks, vs = k.split(kv_chunk, dim=1), v.split(kv_chunk, dim=1)
+    kps = kv_pos.split(kv_chunk, dim=1)
     outs = []
-    for i in range(sq // q_chunk):
-        qi = q[:, i * q_chunk:(i + 1) * q_chunk]
-        qpi = q_pos[:, i * q_chunk:(i + 1) * q_chunk]
+    for qi, qpi in zip(q.split(q_chunk, dim=1), q_pos.split(q_chunk, dim=1)):
         acc = torch.zeros((b, kh, g, q_chunk, dh), device=q.device)
         m = torch.full((b, kh, g, q_chunk), NEG_INF, device=q.device)
         length = torch.zeros((b, kh, g, q_chunk), device=q.device)
-        for j in range(skv // kv_chunk):
-            ki = k[:, j * kv_chunk:(j + 1) * kv_chunk]
-            vi = v[:, j * kv_chunk:(j + 1) * kv_chunk]
-            kpi = kv_pos[:, j * kv_chunk:(j + 1) * kv_chunk]
+        for ki, vi, kpi in zip(ks, vs, kps):
             s = _gqa_scores(qi, ki).float() * scale
             if causal:
                 mask = kpi[:, None, :] <= qpi[:, :, None]

@@ -147,15 +147,18 @@ def combine(p, r: Routed, y: torch.Tensor, cfg: ModelConfig,
     xt = r.xt.reshape(g * sg, d)
     out = out.reshape(g * sg, d)
 
-    if "shared" in p:
-        sp = p.shared
-        out = out + (F.silu(xt @ sp.w_gate) * (xt @ sp.w_up)) @ sp.w_down
-
-    # aux losses (Switch-style load balance + router z-loss)
+    # aux losses (Switch-style load balance + router z-loss), taken
+    # before the shared experts: a checkpoint's recompute stops at the
+    # last tensor its backward saves, so it skips their down product, as
+    # the reference's remat drops it
     me = r.probs.mean(dim=(0, 1))                                   # (E,)
     ce = r.onehot.float().sum(dim=2).mean(dim=(0, 1))               # (E,)
     aux = (me * ce).sum() * e * cfg.router_aux_weight
     z = torch.mean(torch.logsumexp(r.logits, dim=-1) ** 2) * 1e-3
+
+    if "shared" in p:
+        sp = p.shared
+        out = out + (F.silu(xt @ sp.w_gate) * (xt @ sp.w_up)) @ sp.w_down
     return out.reshape(shape), {"aux_loss": aux, "z_loss": z}
 
 

@@ -9,7 +9,11 @@
   and the ``--layout fsdp`` / ``sp`` and ``--zero1`` options trace (on a
   4 x 4 mesh, whose model axis splits the reduced configs' 4 heads); an
   op DTensor refuses makes an error row naming it; a decode step's
-  collectives are the Megatron reductions, with no gather of a cache.
+  collectives are the Megatron reductions, with no gather of a cache;
+  heads that do not divide the model axis are padded up to it in train
+  and prefill steps, gathered in decode steps.
+  ``tests/test_torch_dryrun_rows.py`` holds rows against the reference's
+  compiled rows.
 * Tables: ``launch.report``'s three sections and
   ``bench.render_perf`` are byte-identical to the reference's on the
   same fixture rows.
@@ -133,6 +137,25 @@ def test_megatron_block_collectives_match_xla():
     assert tr.arguments == 4 * (8 * D + D * F // 4 + F // 4 * D)
 
 
+def test_a_rebuilt_world_forgets_the_old_meshes():
+    """DTensor caches an op's sharding by its specs, whose meshes compare
+    equal across worlds; a fake world rebuilt at another size (or after a
+    module tore it down) must not hand back a mesh of the old one, whose
+    groups no longer resolve (a train step traced after 16 x 16 rows
+    failed so).  Rebuilding the world empties DTensor's caches."""
+    from torch.distributed.tensor import DTensor
+    dm = dryrun.device_mesh((2, 4), ("data", "model"))
+    x = dryrun.distribute(torch.empty(16, 64, device=META), ("data", "model"),
+                          dm)
+    x * 2 + x
+    stats = torch._C._get_DTensor_sharding_propagator_cache_stats
+    assert stats() != (0, 0)
+    dryrun.device_mesh((4, 4), ("data", "model"))
+    assert stats() == (0, 0)
+    prop = DTensor._op_dispatcher.sharding_propagator
+    assert prop.propagate_op_sharding.cache_info().currsize == 0
+
+
 # --------------------------------------------------------------------------
 # rows
 # --------------------------------------------------------------------------
@@ -165,35 +188,70 @@ def test_reduced_row_has_the_reference_fields(cell):
     json.dumps(row)
 
 
-def test_an_op_dtensor_refuses_ends_the_trace_naming_it():
-    """The reduced config's 4 heads over a model axis of 16: the reshape
-    into heads splits a split dim unevenly, and the row is an error row
-    naming that op; nothing reruns it on other placements."""
-    with pytest.raises(dryrun.UnshardableOp, match=r"^aten\.view"):
+def _refusing_step(cfg, **kw):
+    """A decode step of the test's own whose first op is one DTensor has
+    no sharding rule for (``unfold``)."""
+    def step(params, tokens, caches, index):
+        return tokens.unfold(1, 1, 1), caches
+    return step
+
+
+def test_an_op_dtensor_refuses_ends_the_trace_naming_it(monkeypatch):
+    """An op DTensor refuses to shard ends the trace with an error naming
+    that op; nothing reruns it on other placements."""
+    monkeypatch.setattr(dryrun.steps, "make_decode_step", _refusing_step)
+    with pytest.raises(dryrun.UnshardableOp, match=r"^aten\.unfold"):
         dryrun.lower_cell("mistral-nemo-12b", "decode_32k",
-                          cfg=_reduced("mistral-nemo-12b"))
+                          cfg=_reduced("mistral-nemo-12b"), mesh=_mesh())
 
 
 def test_kv_heads_are_duplicated_up_to_the_model_axis():
+    """A train or prefill step pads heads that do not divide the model
+    axis up to it (Mistral-NeMo-12B's 8 KV heads to 16; Qwen1.5-32B's 40
+    heads to 48); a decode step keeps them, gathers q / k / v over the
+    axis (``_gathered_heads``) and keeps the reference's cache placement
+    (split by sequence over the model axis), not twice its bytes: the
+    reduced config's 2 KV heads over 4 hold a cache half the size of the
+    one with 4 KV heads."""
+    from repro_torch.launch.cells import CELLS
     cfg = p_configs.get_arch("mistral-nemo-12b")       # 32 heads, 8 KV
-    assert dryrun.tp_config(cfg, 16).n_kv_heads == 16
+    padded = dryrun.tp_config(cfg, 16)
+    assert (padded.n_heads, padded.n_kv_heads) == (32, 16)
     assert dryrun.tp_config(cfg, 8) is cfg
-    qwen = p_configs.get_arch("qwen1.5-32b")            # 40 heads: no split
-    assert dryrun.tp_config(qwen, 16) is qwen
+    qwen = dryrun.tp_config(p_configs.get_arch("qwen1.5-32b"), 16)
+    assert (qwen.n_heads, qwen.n_kv_heads) == (48, 48)
+    assert dryrun._uneven_heads(cfg, 16)
+    assert not dryrun._uneven_heads(
+        p_configs.get_arch("deepseek-v2-lite-16b"), 16)   # MLA: its own
+    import dataclasses
+    small = _reduced("mistral-nemo-12b")
+    out = {}
+    for kv in (4, 2):
+        row = dryrun.trace_cell(dataclasses.replace(small, n_kv_heads=kv),
+                                CELLS["decode_32k"], mesh=_mesh())
+        out[kv] = row["bytes_per_device"]["output"]
+    # a device's cache of one KV head's worth of positions: k and v in
+    # bfloat16, its batch shard of 128 / 4, all 32768 positions
+    head = small.n_layers * (128 // 4) * 32768 * small.head_dim * 2 * 2
+    # 4 KV heads: one a device; 2: both, at a quarter of the positions
+    assert out[4] - out[2] == head - 2 * head // 4
 
 
 @pytest.mark.parametrize("arch,kv,cell", [
     ("mistral-nemo-12b", 2, "decode_32k"),
+    ("qwen2-vl-72b", 2, "decode_32k"),
     ("deepseek-v2-lite-16b", None, "decode_32k"),
-    ("zamba2-7b", None, "long_500k")], ids=["gqa", "mla-moe", "hybrid-long"])
+    ("zamba2-7b", None, "long_500k")],
+    ids=["gqa", "vision-mrope", "mla-moe", "hybrid-long"])
 def test_decode_rows_move_only_the_megatron_reductions(arch, kv, cell):
-    """A decode step with its heads over the model axis (GQA with KV
-    heads duplicated up to it; MLA with a MoE layer split by experts;
-    Mamba2 layers by heads, and a batch-1 attention cache split by
-    sequence over the data axis) runs every device on its own shard of
-    the caches: its collectives are the reductions of the row-split
-    products and of split-sequence attention, none gathers a cache or a
-    table."""
+    """A decode step with its heads over the model axis (GQA, and vision
+    with M-RoPE's positions, whose 2 KV heads do not divide it: q / k / v
+    gathered and the cache split by sequence; MLA with a MoE layer split
+    by experts; Mamba2 layers by heads, and a batch-1 attention cache
+    split by sequence over the data axis) runs every device on its own shard of the caches: its
+    collectives are the reductions of the row-split products and of
+    split-sequence attention, and the gathers of the step's own q / k /
+    v rows; none gathers a cache or a table."""
     import dataclasses
     cfg = _reduced(arch)
     if kv:
@@ -201,7 +259,12 @@ def test_decode_rows_move_only_the_megatron_reductions(arch, kv, cell):
     _, _, row = dryrun.lower_cell(arch, cell, cfg=cfg, mesh=_mesh())
     kinds = row["collectives"]["bytes_by_kind"]
     assert kinds["all-reduce"] > 0
-    assert kinds["all-gather"] == kinds["all-to-all"] == 0
+    assert kinds["all-to-all"] == 0
+    rows = 0                     # the gathered q / k / v rows, bfloat16
+    if kv:
+        rows = (cfg.n_layers * 128 // 4
+                * (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.head_dim * 2)
+    assert kinds["all-gather"] == rows
     # the caches' shards are updated in place: output bytes at least theirs
     assert row["bytes_per_device"]["output"] > 0
 
@@ -264,11 +327,12 @@ def test_train_steps_of_the_other_families_trace(arch):
     assert row["bytes_per_device"]["temp"] > 0
 
 
-def test_main_writes_resumable_rows(tmp_path, capsys):
+def test_main_writes_resumable_rows(tmp_path, capsys, monkeypatch):
     out = tmp_path / "dryrun.json"
     cfg = _reduced("deepseek-7b")
     real = dryrun.get_arch
     dryrun.get_arch = lambda name: cfg
+    monkeypatch.setattr(dryrun.steps, "make_decode_step", _refusing_step)
     try:
         dryrun.main(["--arch", "deepseek-7b", "--cell", "decode_32k",
                      "--out", str(out)])
@@ -283,9 +347,9 @@ def test_main_writes_resumable_rows(tmp_path, capsys):
         ("deepseek-7b", "decode_32k", "16x16"),
         ("deepseek-7b", "long_500k", "16x16")]
     assert "skipped" in rows[1] and rows[1]["tag"] is None
-    # the reduced config's heads do not split over 16: an error row
-    # naming the op DTensor refused
-    assert rows[0]["error"].startswith("UnshardableOp: aten.")
+    # the test's decode step runs an op DTensor refuses: an error row
+    # naming it
+    assert rows[0]["error"].startswith("UnshardableOp: aten.unfold")
     assert "wrote" in capsys.readouterr().out
 
 
