@@ -1259,9 +1259,9 @@ def _packed_checks(torch, op, ex, log, engine, args, size, tag, failures):
 
 def _trace_cost(ex, log, card):
     """A packed batch's compute time inside and outside a trace capture,
-    20 executions each, twice in turns: the traced launch span
-    synchronizes and computes a roofline sample inside the timed
-    window."""
+    20 executions each, twice in turns: the traced launch span records
+    a CUDA event pair and takes the call's traits inside the timed
+    window (the pairs resolve when the capture closes)."""
     import numpy as np
 
     from repro_torch.obs.trace import capture

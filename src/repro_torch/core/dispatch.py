@@ -26,11 +26,15 @@ mismatch raises; nothing falls back.
 
 When the :mod:`repro_torch.obs` tracer is enabled, ``Dispatcher.run``
 wraps each call in a ``dispatch`` span with a nested ``launch`` span that
-waits for the result and carries the Eq. 2/3/4 roofline counters.
+carries the Eq. 2/3/4 roofline counters; on the card the launch is timed
+by a CUDA event pair that the outermost capture resolves, so nothing
+waits for the card.  While a ``torch.profiler`` records, the two spans
+are also its ranges ``dispatch.<kernel>`` and ``launch.<kernel>.<engine>``.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import time
 import warnings
@@ -40,8 +44,7 @@ import torch
 
 from ..obs.counters import roofline_sample
 from ..obs.log import LOG
-from ..obs.metrics import REGISTRY
-from ..obs.trace import TRACER
+from ..obs.trace import TRACER, profiling
 from .advisor import DEFAULT_ADVISOR, Advice, EngineAdvisor
 from .intensity import KernelTraits
 
@@ -362,15 +365,19 @@ class Dispatcher:
 
         When the :mod:`repro_torch.obs` tracer is enabled, the call is
         wrapped in a ``dispatch`` span (routing) with a nested ``launch``
-        span around the engine body; the launch span waits for the result
-        (``torch.cuda.synchronize()`` for card tensors) and carries the
-        roofline counters for the measured time.  Disabled tracing costs
-        one attribute check.
+        span around the engine body, which carries the roofline counters
+        for the measured time: on the card a CUDA event pair's, resolved
+        when the outermost capture closes (nothing waits for the card),
+        on the CPU the body's.  While a profiler records, the two spans
+        are its ranges ``dispatch.<kernel>`` and
+        ``launch.<kernel>.<engine>``.  Untraced and unprofiled, the call
+        costs one branch.
         """
-        if not TRACER.enabled:
+        if not (TRACER.enabled or profiling()):
             return self._run(op, *args, engine=engine, backend=backend,
                              tile_config=tile_config, **kwargs)
         with TRACER.span("dispatch", layer="dispatch",
+                         label=f"dispatch.{op.name}",
                          kernel=op.name) as span_attrs:
             return self._run(op, *args, engine=engine, backend=backend,
                              tile_config=tile_config,
@@ -412,28 +419,45 @@ class Dispatcher:
                                        if kwargs.get(k) is None}}
         if _span_attrs is None:
             return fn(*args, backend=backend, **kwargs)
-        # traced launch: wait for the result so the span duration is the
-        # call's real time, then attach the roofline counters
         dtype = _dtype_of(args, kwargs) or ""
         _span_attrs.update(engine=eng, dtype=dtype)
-        with TRACER.span("launch", layer="dispatch", kernel=op.name,
+        with TRACER.span("launch", layer="dispatch",
+                         label=f"launch.{op.name}.{eng}", kernel=op.name,
                          engine=eng, dtype=dtype) as launch_attrs:
+            if not TRACER.enabled:       # a profiler's range alone
+                return fn(*args, backend=backend, **kwargs)
+            counters = self._counters(op, eng, dtype, args, semantic)
+            if backend == "cuda":
+                stream = torch.cuda.current_stream()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record(stream)
+                out = fn(*args, backend=backend, **kwargs)
+                end.record(stream)
+                if counters is not None:
+                    TRACER.defer(start, end, counters)
+                return out
             t0 = time.perf_counter()
             out = fn(*args, backend=backend, **kwargs)
-            if backend == "cuda":
-                torch.cuda.synchronize()
-            dur_us = (time.perf_counter() - t0) * 1e6
-            try:
-                sample = roofline_sample(op.traits(*args, **semantic),
-                                         self.hw, eng, dtype, dur_us)
-                launch_attrs.update(sample.as_attrs())
-                REGISTRY.counter("dispatch.launches").inc()
-                REGISTRY.histogram(
-                    f"dispatch.launch_us.{op.name}.{eng}").observe(dur_us)
-            except (TypeError, ValueError) as e:
-                LOG.debug("roofline counters unavailable",
-                          kernel=op.name, engine=eng, error=str(e))
+            if counters is not None:
+                launch_attrs.update(
+                    counters((time.perf_counter() - t0) * 1e6))
         return out
+
+    def _counters(self, op, eng: str, dtype: str, args: tuple,
+                  semantic: Dict[str, Any]
+                  ) -> Optional[Callable[[float], Dict[str, Any]]]:
+        """The launch span's roofline counters as a function of the
+        measured microseconds, from this call's Eq. 2 traits (taken now,
+        so no argument is kept alive), or None without traits."""
+        try:
+            traits = op.traits(*args, **semantic)
+        except (TypeError, ValueError) as e:
+            LOG.debug("roofline counters unavailable", kernel=op.name,
+                      engine=eng, error=str(e))
+            return None
+        return functools.partial(_roofline_attrs, traits, self.hw, eng,
+                                 dtype)
 
     def load_tuned(self, path: str) -> None:
         """Adopt a tuned.json and drop the memoized Advice, which embeds
@@ -455,6 +479,19 @@ class Dispatcher:
         """Drop all memoized Advice (e.g. after swapping hardware specs)."""
         self._cache.clear()
         self._hits = self._misses = 0
+
+
+def _roofline_attrs(traits: KernelTraits, hw, eng: str, dtype: str,
+                    measured_us: float) -> Dict[str, Any]:
+    """A launch span's roofline counters (``RooflineSample.as_attrs``),
+    or none where the sample cannot be taken."""
+    try:
+        return roofline_sample(traits, hw, eng, dtype,
+                               measured_us).as_attrs()
+    except (TypeError, ValueError) as e:
+        LOG.debug("roofline counters unavailable", kernel=traits.name,
+                  engine=eng, error=str(e))
+        return {}
 
 
 DEFAULT_DISPATCHER = Dispatcher()

@@ -43,6 +43,7 @@ from typing import Dict, Mapping, Optional
 import torch
 from torch import nn
 
+from ..obs.trace import TRACER
 from .attention import attention, cross_attend, make_cache
 from .config import ModelConfig
 from .layers import dense_init, init_mlp, mlp, rmsnorm
@@ -423,29 +424,35 @@ def _dense_block(p: DenseLayer, x, cfg: ModelConfig, *, positions, cache,
     if cache is not None and "ck" in cache:
         cross_kv = (cache["ck"], cache["cv"])
         self_cache = {k: v for k, v in cache.items() if k not in ("ck", "cv")}
-    h, new_cache = attention(p.attn, rmsnorm(p.ln1, x, cfg.norm_eps), cfg,
-                             positions=positions, cache=self_cache,
-                             cache_index=cache_index, causal=causal)
+    with TRACER.span("model.attention", layer="model"):
+        h, new_cache = attention(p.attn, rmsnorm(p.ln1, x, cfg.norm_eps),
+                                 cfg, positions=positions, cache=self_cache,
+                                 cache_index=cache_index, causal=causal)
     x = x + h
     if p.cross is not None and enc_out is not None:    # full pass: build kv
-        h, ckv = attention(p.cross, rmsnorm(p.ln_cross, x, cfg.norm_eps),
-                           cfg, positions=positions, kv_x=enc_out,
-                           kv_positions=enc_pos)
+        with TRACER.span("model.attention", layer="model"):
+            h, ckv = attention(p.cross,
+                               rmsnorm(p.ln_cross, x, cfg.norm_eps), cfg,
+                               positions=positions, kv_x=enc_out,
+                               kv_positions=enc_pos)
         x = x + h
         new_cache = {**new_cache, **ckv}
     elif p.cross is not None and cross_kv is not None:  # decode: cached kv
         b, se = x.shape[0], cross_kv[0].shape[1]
         kv_pos = torch.arange(se, dtype=torch.int32,
                               device=x.device)[None].expand(b, se)
-        h = cross_attend(p.cross, rmsnorm(p.ln_cross, x, cfg.norm_eps), cfg,
-                         cross_kv,
-                         positions if positions.ndim == 2 else positions[0],
-                         kv_pos)
+        with TRACER.span("model.attention", layer="model"):
+            h = cross_attend(p.cross, rmsnorm(p.ln_cross, x, cfg.norm_eps),
+                             cfg, cross_kv,
+                             positions if positions.ndim == 2
+                             else positions[0], kv_pos)
         x = x + h
     if p.moe is not None:
-        h, aux = moe_ffn(p.moe, rmsnorm(p.ln2, x, cfg.norm_eps), cfg)
+        with TRACER.span("model.moe", layer="model"):
+            h, aux = moe_ffn(p.moe, rmsnorm(p.ln2, x, cfg.norm_eps), cfg)
     else:
-        h, aux = mlp(p.mlp, rmsnorm(p.ln2, x, cfg.norm_eps)), {}
+        with TRACER.span("model.mlp", layer="model"):
+            h, aux = mlp(p.mlp, rmsnorm(p.ln2, x, cfg.norm_eps)), {}
     return x + h, new_cache, aux
 
 
@@ -785,36 +792,45 @@ def decode_step(p: LM, cfg: ModelConfig, tokens: torch.Tensor, caches: Dict,
     layer), and so are the SSM and conv states, and returned, where the
     reference returns new ones.  An encoder-decoder's cross K / V are
     read, never written.
+
+    Spans (profiler ranges while one records): ``model.decode_step``
+    around the step, ``model.attention`` and ``model.mlp`` /
+    ``model.moe`` around each dense layer's sublayers (``_dense_block``),
+    ``model.head`` around the final norm and the LM head.
     """
     check_family(cfg)
-    x = p.embed[tokens.long()].to(dtype)
-    b = tokens.shape[0]
-    pos = torch.full((b, 1), cache_index, dtype=torch.int32, device=x.device)
-    if cfg.rope_kind == "mrope":
-        pos = pos[None].expand(3, b, 1)
-    if cfg.family == "ssm":
-        x = _ssm_steps(p.layers, x, cfg, caches["ssm"])
-    elif cfg.family == "hybrid":
-        for s, block in enumerate(p.layers):
-            x = _ssm_steps(block, x, cfg,
-                           {k: c[s] for k, c in caches["ssm"].items()})
-            # the one shared block, each super-block's own KV cache
-            x, _, _ = _dense_block(
-                p.shared_attn, x, cfg, positions=pos,
-                cache={k: c[s] for k, c in caches["attn"].items()},
-                cache_index=cache_index)
-        if len(p.tail):
-            x = _ssm_steps(p.tail, x, cfg, caches["tail"])
-    else:
-        for group, name in _GROUPS:
-            for i, layer in enumerate(getattr(p, name)):
-                # each leaf [i] is a view: the layer writes its rows in place
+    with TRACER.span("model.decode_step", layer="model"):
+        x = p.embed[tokens.long()].to(dtype)
+        b = tokens.shape[0]
+        pos = torch.full((b, 1), cache_index, dtype=torch.int32,
+                         device=x.device)
+        if cfg.rope_kind == "mrope":
+            pos = pos[None].expand(3, b, 1)
+        if cfg.family == "ssm":
+            x = _ssm_steps(p.layers, x, cfg, caches["ssm"])
+        elif cfg.family == "hybrid":
+            for s, block in enumerate(p.layers):
+                x = _ssm_steps(block, x, cfg,
+                               {k: c[s] for k, c in caches["ssm"].items()})
+                # the one shared block, each super-block's own KV cache
                 x, _, _ = _dense_block(
-                    layer, x, cfg, positions=pos,
-                    cache={k: c[i] for k, c in caches[group].items()},
+                    p.shared_attn, x, cfg, positions=pos,
+                    cache={k: c[s] for k, c in caches["attn"].items()},
                     cache_index=cache_index)
-    x = rmsnorm(p.final_norm, x, cfg.norm_eps)
-    return _logits(p, cfg, x), caches
+            if len(p.tail):
+                x = _ssm_steps(p.tail, x, cfg, caches["tail"])
+        else:
+            for group, name in _GROUPS:
+                for i, layer in enumerate(getattr(p, name)):
+                    # each leaf [i] is a view: the layer writes its rows
+                    # in place
+                    x, _, _ = _dense_block(
+                        layer, x, cfg, positions=pos,
+                        cache={k: c[i] for k, c in caches[group].items()},
+                        cache_index=cache_index)
+        with TRACER.span("model.head", layer="model"):
+            logits = _logits(p, cfg, rmsnorm(p.final_norm, x, cfg.norm_eps))
+        return logits, caches
 
 
 def prefill(p: LM, cfg: ModelConfig, batch: Dict, *, dtype=torch.bfloat16):

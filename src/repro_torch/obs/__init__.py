@@ -3,7 +3,8 @@ structured logging for the port's layers.
 
 * :mod:`repro_torch.obs.trace` -- span tracer on two clocks with
   byte-deterministic Chrome-trace export and a
-  ``python -m repro_torch.obs.trace`` validator.
+  ``python -m repro_torch.obs.trace`` validator; while a
+  ``torch.profiler`` records, its spans are also the profiler's ranges.
 * :mod:`repro_torch.obs.counters` -- per-launch roofline counters:
   modeled bytes (Eq. 2 traits), measured us, achieved GB/s, percent of
   the Eq. 4 bandwidth bound and of the Eq. 3/23/24 attainable ceiling.

@@ -14,7 +14,18 @@ Every layer emits :class:`SpanEvent` records into one process-wide
 
 Spans form trees (``depth``/``parent`` via the context-manager stack);
 explicitly-timed emissions (:meth:`Tracer.emit`) attach under the
-currently-open wall span.
+currently-open wall span.  A span whose body runs on the card can carry
+a CUDA event pair (:meth:`Tracer.defer`): nothing waits for the card
+while the span is open, and the outermost :func:`capture` resolves every
+pair with one synchronisation when it closes.
+
+While a ``torch.profiler`` records, every :meth:`Tracer.span` also opens
+a ``record_function`` range of the span's ``label`` (its name unless
+given), whether the tracer is on or off: the range lands in the
+profiler's trace beside the device operations, on their clock, so each
+device operation can be traced to the program range that launched it.
+With the tracer off and no profiler recording, a span costs two flag
+reads and enters a shared no-op context.
 
 Export is Chrome-trace JSON (the ``traceEvents`` array format Perfetto
 and ``chrome://tracing`` load): ``ph:"X"`` complete events with
@@ -32,12 +43,14 @@ import contextlib
 import dataclasses
 import json
 import time
-from typing import (Any, Dict, Iterator, List, Mapping, Optional, Sequence,
-                    Tuple)
+from typing import (Any, Callable, ContextManager, Dict, Iterator, List,
+                    Mapping, Optional, Sequence, Tuple)
+
+import torch
 
 __all__ = [
     "SpanEvent", "TraceView", "Tracer", "TRACER", "capture",
-    "chrome_trace", "dump_chrome_trace", "read_chrome_trace",
+    "chrome_trace", "dump_chrome_trace", "profiling", "read_chrome_trace",
     "validate_chrome_trace", "write_chrome_trace",
 ]
 
@@ -45,9 +58,50 @@ _CLOCKS = ("wall", "virtual")
 # one Chrome-trace pid per clock so the two timelines never interleave
 # on a shared track (wall ts and virtual ts share no origin)
 _CLOCK_PID = {"wall": 1, "virtual": 2}
+#: torch's profiler module: its ``_is_profiler_enabled`` global is True
+#: while a ``torch.profiler.profile`` records and False otherwise.
+_TORCH_PROFILER = torch.autograd.profiler
 
 
-@dataclasses.dataclass(frozen=True)
+def profiling() -> bool:
+    """Whether a ``torch.profiler`` is recording in this process."""
+    return _TORCH_PROFILER._is_profiler_enabled
+
+
+class _NoSpan:
+    """The span of a tracer that is off while no profiler records."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> Dict[str, Any]:
+        return {}
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+_NO_SPAN = _NoSpan()
+
+
+class _ProfilerRange:
+    """The span of a tracer that is off while a profiler records: the
+    ``record_function`` range alone, no event."""
+
+    __slots__ = ("_range",)
+
+    def __init__(self, label: str):
+        self._range = torch.profiler.record_function(label)
+
+    def __enter__(self) -> Dict[str, Any]:
+        self._range.__enter__()
+        return {}
+
+    def __exit__(self, *exc) -> bool:
+        self._range.__exit__(*exc)
+        return False
+
+
+@dataclasses.dataclass(frozen=True, slots=True)
 class SpanEvent:
     """One traced interval (or instant) on one clock.
 
@@ -107,7 +161,8 @@ class Tracer:
     so the span is the sample, not a re-measurement).  Virtual spans
     and instants carry explicit simulated-clock times.  Every emission
     path returns at once when disabled, so traced code pays one
-    attribute check on the fast path.
+    attribute check on the fast path (a span two: the profiler's flag
+    too).
     """
 
     def __init__(self) -> None:
@@ -115,12 +170,15 @@ class Tracer:
         self.events: List[SpanEvent] = []
         self._stack: List[int] = []  # indices of open wall spans
         self._origin: Optional[float] = None
+        # (span index, start event, end event, finish) per deferred pair
+        self._pending: List[Tuple[int, Any, Any, Callable]] = []
 
     # -- lifecycle ---------------------------------------------------------
 
     def clear(self) -> None:
         self.events = []
         self._stack = []
+        self._pending = []
 
     def _now_us(self) -> float:
         if self._origin is None:
@@ -141,32 +199,42 @@ class Tracer:
             return idx, self.events[idx].depth + 1
         return -1, 0
 
-    @contextlib.contextmanager
-    def span(self, name: str, *, layer: str,
-             **attrs: Any) -> Iterator[Dict[str, Any]]:
-        """Time the block on the wall clock; yields the attrs dict so the
-        body can attach results known only once the work ran."""
+    def span(self, name: str, *, layer: str, label: Optional[str] = None,
+             **attrs: Any) -> ContextManager[Dict[str, Any]]:
+        """Time the block on the wall clock; the context yields the attrs
+        dict so the body can attach results known only once the work ran.
+
+        While a profiler records, the block is also a ``record_function``
+        range named ``label`` (default ``name``), with the tracer on or
+        off; with the tracer off only that range opens."""
         if not self.enabled:
-            yield {}
+            if not _TORCH_PROFILER._is_profiler_enabled:
+                return _NO_SPAN
+            return _ProfilerRange(label or name)
+        return _WallSpan(self, name, layer, label or name, attrs)
+
+    def defer(self, start: "torch.cuda.Event", end: "torch.cuda.Event",
+              finish: Callable[[float], Mapping[str, Any]]) -> None:
+        """Attach a CUDA event pair, recorded around work on the card, to
+        the innermost open wall span, without waiting for the card.  When
+        the outermost :func:`capture` closes, ``finish`` gets the pair's
+        microseconds and its attrs are merged into the span's
+        (:meth:`resolve`); the span's ``dur_us`` stays the host's."""
+        if self.enabled and self._stack:
+            self._pending.append((self._stack[-1], start, end, finish))
+
+    def resolve(self) -> None:
+        """One synchronisation, then every deferred event pair's time
+        into its span."""
+        if not self._pending:
             return
-        parent, depth = self._parent()
-        start = self._now_us()
-        live_attrs: Dict[str, Any] = dict(attrs)
-        idx = len(self.events)
-        # placeholder so children opened inside the block can point at a
-        # real parent index; finalized (immutably replaced) on exit
-        self.events.append(SpanEvent(name=name, layer=layer, clock="wall",
-                                     start_us=start, dur_us=0.0,
-                                     depth=depth, parent=parent,
-                                     attrs=live_attrs))
-        self._stack.append(idx)
-        try:
-            yield live_attrs
-        finally:
-            self._stack.pop()
-            dur = self._now_us() - start
-            self.events[idx] = dataclasses.replace(
-                self.events[idx], dur_us=dur, attrs=dict(live_attrs))
+        pending, self._pending = self._pending, []
+        torch.cuda.synchronize()
+        for idx, start, end, finish in pending:
+            ev = self.events[idx]
+            attrs = dict(ev.attrs)
+            attrs.update(finish(start.elapsed_time(end) * 1e3))
+            self.events[idx] = dataclasses.replace(ev, attrs=attrs)
 
     def emit(self, name: str, *, layer: str, start_s: float, dur_s: float,
              **attrs: Any) -> None:
@@ -207,6 +275,51 @@ class Tracer:
             attrs=dict(attrs)))
 
 
+class _WallSpan:
+    """The span of an enabled tracer: a wall-clock :class:`SpanEvent`,
+    and while a profiler records, its range.  Entering yields the live
+    attrs dict; exiting records the duration and a copy of the attrs."""
+
+    __slots__ = ("_tracer", "_name", "_layer", "_label", "_attrs", "_idx",
+                 "_range")
+
+    def __init__(self, tracer: Tracer, name: str, layer: str, label: str,
+                 attrs: Dict[str, Any]):
+        self._tracer = tracer
+        self._name = name
+        self._layer = layer
+        self._label = label
+        self._attrs = attrs
+        self._range = None
+
+    def __enter__(self) -> Dict[str, Any]:
+        if _TORCH_PROFILER._is_profiler_enabled:
+            self._range = torch.profiler.record_function(self._label)
+            self._range.__enter__()
+        tr = self._tracer
+        parent, depth = tr._parent()
+        self._idx = len(tr.events)
+        # placeholder so children opened inside the block can point at a
+        # real parent index; finalized (immutably replaced) on exit
+        tr.events.append(SpanEvent(self._name, self._layer, "wall",
+                                   tr._now_us(), 0.0, depth, parent, "span",
+                                   self._attrs))
+        tr._stack.append(self._idx)
+        return self._attrs
+
+    def __exit__(self, *exc) -> bool:
+        tr = self._tracer
+        tr._stack.pop()
+        ev = tr.events[self._idx]
+        tr.events[self._idx] = SpanEvent(
+            ev.name, ev.layer, "wall", ev.start_us,
+            tr._now_us() - ev.start_us, ev.depth, ev.parent, "span",
+            dict(self._attrs))
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        return False
+
+
 TRACER = Tracer()
 
 
@@ -214,7 +327,8 @@ TRACER = Tracer()
 def capture() -> Iterator[TraceView]:
     """Enable the process tracer for the block; yield a view of the
     events it emits.  Reentrant: nested captures share the tracer and
-    see only their own slice; the outermost enable/disable wins."""
+    see only their own slice; the outermost enable/disable wins, and the
+    outermost close resolves the deferred CUDA event pairs."""
     was_enabled = TRACER.enabled
     if not was_enabled:
         TRACER.enabled = True
@@ -226,6 +340,7 @@ def capture() -> Iterator[TraceView]:
     finally:
         view.close()
         if not was_enabled:
+            TRACER.resolve()
             TRACER.enabled = False
 
 

@@ -6,7 +6,11 @@
 * Histogram percentiles, registry snapshots and log lines are identical.
 * ``time_fn``'s spans are its samples; ``Dispatcher.run``'s launch spans
   carry the reference's attribute keys and the same traffic and work.
-* With the tracer off, neither emits anything.
+* With the tracer off, neither emits anything, and a decode step opens no
+  profiler range; while a profiler records, the step's spans are its
+  ranges, nested as the step runs them.
+* On the card (``gpu``), a traced launch waits for nothing until the
+  capture closes, and its ``measured_us`` is its CUDA event pair's time.
 """
 import io
 import pathlib
@@ -215,3 +219,147 @@ def test_launch_span_matches_reference(name, engine):
     assert launch.depth == p_spans["dispatch"].depth + 1
     assert p_trace.TRACER.events[launch.parent].name == "dispatch"
     assert launch.attrs["measured_us"] > 0
+
+
+# --------------------------------------------------------------------------
+# the spans inside a decode step, on the profiler's clock
+# --------------------------------------------------------------------------
+
+def _tiny_engine(device="cpu"):
+    from repro_torch.models import lm
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.models.engine import DecodeEngine
+    cfg = ModelConfig(name="tiny", family="dense", n_layers=2, d_model=64,
+                      n_heads=4, n_kv_heads=2, head_dim=16, d_ff=128,
+                      vocab=512)
+    eng = DecodeEngine(cfg, max_batch=2, prompt_len=8, max_gen=8,
+                       dtype=torch.float32, engine="vector",
+                       attention_impl="registry", device=device)
+    caches = lm.init_caches(eng.cfg, 2, 16, dtype=torch.float32,
+                            device=device)
+    return eng, caches, torch.zeros(2, 1, dtype=torch.long, device=device)
+
+
+def test_untraced_unprofiled_decode_step_opens_no_range(monkeypatch):
+    eng, caches, tok = _tiny_engine()
+    opened = []
+    real = torch.profiler.record_function
+
+    def counting(*args, **kwargs):
+        opened.append(args)
+        return real(*args, **kwargs)
+    monkeypatch.setattr(torch.profiler, "record_function", counting)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function",
+                        counting)
+    before = len(p_trace.TRACER.events)
+    assert not p_trace.TRACER.enabled and not p_trace.profiling()
+    for i in range(2):
+        eng.decode_step(tok, caches, 8 + i)
+    assert opened == []
+    assert len(p_trace.TRACER.events) == before
+    assert p_trace.TRACER.span("x", layer="t") is \
+        p_trace.TRACER.span("y", layer="t")
+
+
+def _ranges(prof, tmp_path):
+    import json
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    return sorted(((e["name"], float(e["ts"]), float(e["ts"]) + e["dur"])
+                   for e in events if e.get("cat") == "user_annotation"),
+                  key=lambda r: (r[1], -r[2]))
+
+
+def _paths(ranges):
+    """Each range's enclosing names, outermost first."""
+    out, stack = [], []
+    for name, s, e in ranges:
+        while stack and not (stack[-1][1] <= s and e <= stack[-1][2]):
+            stack.pop()
+        out.append(tuple(r[0] for r in stack) + (name,))
+        stack.append((name, s, e))
+    return out
+
+
+@pytest.mark.parametrize("traced", [False, True], ids=["off", "on"])
+def test_profiled_decode_step_ranges_nest_as_the_step_runs(tmp_path,
+                                                           traced):
+    eng, caches, tok = _tiny_engine()
+    steps, layers = 3, eng.cfg.n_layers
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    before = len(p_trace.TRACER.events)
+    with torch.profiler.profile(activities=acts) as prof:
+        assert p_trace.profiling()
+        if traced:
+            with p_trace.capture() as view:
+                for i in range(steps):
+                    eng.decode_step(tok, caches, 8 + i)
+        else:
+            for i in range(steps):
+                eng.decode_step(tok, caches, 8 + i)
+    assert not p_trace.profiling()
+    paths = _paths(_ranges(prof, tmp_path))
+    step = ("model.decode_step",)
+    attn = step + ("model.attention",)
+    k4 = attn + ("dispatch.attention", "launch.attention.vector")
+    assert paths.count(step) == steps
+    for path in (attn, attn + ("dispatch.attention",), k4,
+                 step + ("model.mlp",)):
+        assert paths.count(path) == steps * layers, path
+    assert paths.count(step + ("model.head",)) == steps
+    assert len(paths) == steps * (2 + 4 * layers)
+    if traced:
+        names = [e.name for e in view.events]
+        assert names.count("model.decode_step") == steps
+        assert names.count("launch") == steps * layers
+        launch = next(e for e in view.events if e.name == "launch")
+        assert launch.attrs["measured_us"] > 0
+        assert [e.name for e in p_trace.TRACER.events[launch.parent:]
+                ][:2] == ["dispatch", "launch"]
+    else:
+        assert len(p_trace.TRACER.events) == before
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card and nvcc (CUDA kernels have no "
+                    "CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+def test_card_launch_span_waits_for_nothing_until_capture_closes(
+        card, monkeypatch):
+    op = p_registry.get("attention")
+    args, kw = op.make_inputs(np.random.default_rng(0), op.test_size,
+                              device="cuda")
+    op(*args, engine="vector", **kw)
+    torch.cuda.synchronize()
+    syncs, pairs = [], []
+    real_sync, real_event = torch.cuda.synchronize, torch.cuda.Event
+
+    def sync(*a, **k):
+        syncs.append(a)
+        return real_sync(*a, **k)
+
+    def event(*a, **k):
+        ev = real_event(*a, **k)
+        pairs.append(ev)
+        return ev
+    monkeypatch.setattr(torch.cuda, "synchronize", sync)
+    monkeypatch.setattr(torch.cuda, "Event", event)
+    with p_trace.capture() as view:
+        for _ in range(3):
+            op(*args, engine="vector", **kw)
+        assert syncs == []
+        assert all("measured_us" not in e.attrs for e in view.events
+                   if e.name == "launch")
+    assert len(syncs) == 1
+    launches = [e for e in view.events if e.name == "launch"]
+    assert len(launches) == 3 and len(pairs) == 6
+    for span, start, end in zip(launches, pairs[::2], pairs[1::2]):
+        us = start.elapsed_time(end) * 1e3
+        assert span.attrs["measured_us"] == round(us, 3)
+        assert span.attrs["measured_us"] > 0
