@@ -470,9 +470,10 @@ def main() -> int:
     # issues DMMA/HMMA, no vector kernel does
     sass = {}
     for symbol, ops in _ext.mma_instructions().items():
-        # stencil_kernel<ndim, radius, box, matrix>
+        # stencil_kernel<ndim, radius, box, matrix>; attention's float32
+        # ring kernels attention_{vector,matrix}_ring_kernel<DH>
         match = re.search(r"(elementwise|spmv|stencil|attention)_"
-                          r"(?:(vector|matrix)_)?kernel"
+                          r"(?:(vector|matrix)_)?(?:ring_)?kernel"
                           r"(?:ILb[01]ELb[01]ELb([01])E|ILb([01])E|"
                           r"ILi[23]ELi[1-3]ELb[01]ELb([01])E)?",
                           symbol)
@@ -675,7 +676,7 @@ def main() -> int:
             q, k, v = (t.to(dtype) for t in qkv)
             for engine in ("vector", "matrix"):
                 rows = _ext.attention_ranges(s, block_s, b * kh, sms, kv_len,
-                                             dtype, g, engine)[0]
+                                             dtype, g, engine, dh)[0]
                 tag = (f"attention/{engine}/{dtype}/G={g}/Dh={dh}/kv_len="
                        f"{kv_len} of {s} in ranges of {rows}")
                 got = attention_op(q, k, v, kv_len, engine=engine,
@@ -1938,7 +1939,8 @@ def _k4_model_points(torch, hw, card, failures, cfg, points):
             for e in edges:
                 got = decode_attention(q, k, v, e, engine=engine)
                 rows = _ext.attention_ranges(s, block_s, b * kh, sms, e,
-                                             q.dtype, g, engine)[0]
+                                             q.dtype, g, engine,
+                                             q.shape[-1])[0]
                 full = _ext.attention_launch(q, k, v, e, rows=rows,
                                              nsplit=-(-s // rows), end=s,
                                              engine=engine)

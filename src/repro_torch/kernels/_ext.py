@@ -33,7 +33,8 @@ import torch
 
 __all__ = ["CTAS_PER_SM", "ELEMENTWISE_THREADS", "HEAD_DIMS", "LAUNCHES",
            "MAX_GROUP", "attention", "attention_kernel_usage",
-           "attention_launch", "attention_ranges", "attention_split",
+           "attention_launch", "attention_ranges", "attention_ring",
+           "attention_split",
            "build", "ctas_per_sm", "elementwise", "elementwise_grid",
            "mma_instructions", "parse_ptxas", "ptxas_usage",
            "reset_launches", "spmv", "stencil", "stencil_offsets"]
@@ -132,9 +133,10 @@ def ptxas_usage(name: str = "attention") -> Dict[str, Dict[str, int]]:
 
 def attention_kernel_usage() -> List[Dict[str, object]]:
     """One dict per flash-decode range kernel (``attention_{vector,
-    matrix}_kernel<T, DH, HT>``): engine, dtype, head dim, head tile and
-    its ``ptxas_usage`` counts, in (dtype, head dim, head tile, engine)
-    order."""
+    matrix}_kernel<T, DH, HT>``, and the float32 ring kernels at a head
+    tile of 8, ``attention_{vector,matrix}_ring_kernel<DH>``): engine,
+    dtype, head dim, head tile and its ``ptxas_usage`` counts, in (dtype,
+    head dim, head tile, engine) order."""
     import re
     rows = []
     for fn, u in ptxas_usage("attention").items():
@@ -146,6 +148,10 @@ def attention_kernel_usage() -> List[Dict[str, object]]:
                          else "bfloat16",
                          "dh": int(m.group(3)), "head_tile": int(m.group(4)),
                          **u})
+        m = re.search(r"attention_(vector|matrix)_ring_kernelILi(\d+)E", fn)
+        if m:
+            rows.append({"engine": m.group(1), "dtype": "float32",
+                         "dh": int(m.group(2)), "head_tile": 8, **u})
     return sorted(rows, key=lambda r: (r["dtype"], r["dh"], r["head_tile"],
                                        r["engine"]))
 
@@ -424,31 +430,64 @@ MAX_GROUP = 16
 HEAD_DIMS = (16, 32, 64, 112, 128, 160)
 
 
-#: CTAs per SM that keep HBM busy, by dtype: the bfloat16 kernels stage two
-#: tiles ahead per warp, so one CTA of four warps per SM suffices and runs
-#: best as one long range; the float32 kernels load straight from global
-#: memory and need two CTAs per SM.
-CTAS_PER_SM = {torch.bfloat16: 1, torch.float32: 2}
+#: CTAs per SM for the kernels at a head tile of 8 (G <= 8), by dtype.  Both
+#: stage K and V ahead of the compute through rings in shared memory
+#: (bfloat16: each warp's cp.async ring, two tiles ahead; float32: the ring
+#: kernels' TMA copies, issued by a producer warp to keep ~48 KB in flight),
+#: so one CTA of four consumer warps per SM keeps HBM busy and runs best as
+#: one long range (``attention_ranges`` takes two for short caches).
+CTAS_PER_SM = {torch.bfloat16: 1, torch.float32: 1}
 
 
 def ctas_per_sm(dtype: torch.dtype, g: int, engine: str) -> int:
-    """CTAs per SM for one call: ``CTAS_PER_SM``, but for the vector
-    kernels at a head tile of 16 (G > 8), which stage K and V through
-    shared memory like the bfloat16 kernels, the slots their layout fits.
+    """CTAs per SM for one call: ``CTAS_PER_SM`` at a head tile of 8 (G <=
+    8); at a head tile of 16 (G > 8) the slots each kernel's layout fits.
 
-    bfloat16 takes two: that kernel is bound by FFMA issue (four times
-    G = 4's FFMAs per cache byte); its 112 KB of shared memory and 255
-    registers a thread fit two CTAs of four warps per SM, and one CTA per
-    SM leaves one warp per scheduler to hide the latencies.  float32 takes
-    one: its FFMA floor is 40% of its byte bound, so one warp per scheduler
-    issues enough; its rings of 16 KB half-stages take 144 KB at Dh 128,
-    so a second CTA per SM would only run as a second wave, and one long
-    range per SM pays a CTA's start and end once.  Measured with
-    ``tools/decode_audit.py --parts slots`` (``PERF.md``); the matrix
-    kernels are fastest at ``CTAS_PER_SM``."""
-    if g > 8 and engine == "vector":
+    float32 at G <= 8 takes one (the ring kernels): each CTA walks one long
+    range, its producer warp keeping ~48 KB of K and V in flight.  Measured
+    with ``tools/decode_audit.py --parts ptxas slots`` (NVIDIA H100 80GB
+    HBM3, 700 W; ``PERF.md`` §6): at Mistral-NeMo's decode shape (B
+    4, KH 8, G 4, S 32768, kv_len 28672) 1, 2, 3 and 4 slots per SM take
+    318.7, 321.6, 325.3 and 322.8 us (vector) and 319.0, 321.6, 324.2 and
+    322.4 us (matrix); the ring kernels use 72-250 registers (245 vector,
+    158 matrix at Dh 128) and spill nothing.  ``attention_ranges`` takes
+    two for short caches whose rings fit an SM twice.
+
+    At G > 8 the bfloat16 vector kernel takes two: it is bound by FFMA
+    issue (four times G = 4's FFMAs per cache byte); its 112 KB of shared
+    memory and 255 registers fit two CTAs of four warps per SM, and one CTA
+    per SM leaves one warp per scheduler to hide the latencies.  The
+    float32 vector kernel takes one: its FFMA floor is 40% of its byte
+    bound, so one warp per scheduler issues enough; its rings of 16 KB
+    half-stages take 144 KB at Dh 128, so a second CTA per SM would only
+    run as a second wave.  The float32 matrix kernel, which loads straight
+    from global memory, takes two, and the bfloat16 matrix kernel one."""
+    if g <= 8:
+        return CTAS_PER_SM[dtype]
+    if engine == "vector":
         return 2 if dtype == torch.bfloat16 else 1
-    return CTAS_PER_SM[dtype]
+    return 1 if dtype == torch.bfloat16 else 2
+
+
+#: Shared memory of an SM that resident CTAs share, and the part of it the
+#: system reserves for each CTA (H100).
+SM_SHARED_BYTES = 228 * 1024
+CTA_RESERVED_BYTES = 1024
+
+
+def attention_ring(dh: int, tiles: int):
+    """``(depth, bytes)``: the float32 ring kernels' stages a warp and
+    dynamic shared memory for a range of ``tiles`` 16-position tiles a warp
+    (``RingLayout`` in ``csrc/attention.cu``, which the launcher computes
+    the same way): the fewest stages, at least two, that keep 48 KB of a
+    CTA's tiles in flight beyond the ones being computed, within a block's
+    227 KB, but no more than the range's tiles, and at least one."""
+    tile = 2 * 16 * dh                       # floats: K's box, V's box
+    aux = 4 * 16 * 8 + 2 * 4 * 8 + 8 * 4 * (dh // 4 + 4)
+    max_depth = (227 * 1024 - 1024 - aux * 4) // (4 * (tile * 4 + 16))
+    ring = min(max_depth, max(2, 1 + -(-48 * 1024 // (4 * tile * 4))))
+    depth = max(1, min(ring, tiles))
+    return depth, 1024 + (4 * depth * tile + aux) * 4 + 2 * 4 * depth * 8
 
 
 def attention_split(s: int, block_s: int, pairs: int, slots: int,
@@ -477,7 +516,7 @@ def attention_split(s: int, block_s: int, pairs: int, slots: int,
 
 def attention_ranges(s: int, block_s: int, pairs: int, sms: int,
                      kv_len: int, dtype: torch.dtype, g: int,
-                     engine: str):
+                     engine: str, dh: int):
     """``(rows, nsplit, end)``: the CTAs one flash-decode call launches
     (``ctas_per_sm(dtype, g, engine)`` slots per SM).
 
@@ -486,10 +525,24 @@ def attention_ranges(s: int, block_s: int, pairs: int, sms: int,
     is the mean of V.  A range wholly past ``kv_len`` would enter the merge
     with weight ``e^(-1e30 - m*) = 0``, so reading every position with the
     same ``rows`` (``end = S``) changes no bit of the result.
+
+    The float32 ring kernels (G <= 8) take two slots per SM where the
+    ranges cut for two leave each CTA a ring of at least two stages
+    (``attention_ring`` at head dim ``dh``) that two CTAs fit in one SM: a
+    short cache whose whole ranges sit in the ring, so that halving them
+    halves each warp's serial tiles (SeamlessM4T's S 512 at Dh 64: 10.3
+    against 12.0 us).  Elsewhere a ring fills a block, or a range of one
+    tile a warp is mostly its CTA's start, and one slot stays best.
     """
     end = min(kv_len, s) if kv_len >= 1 else s
     rows, nsplit = attention_split(s, block_s, pairs,
                                    ctas_per_sm(dtype, g, engine) * sms, end)
+    if dtype == torch.float32 and g <= 8:
+        rows2, nsplit2 = attention_split(s, block_s, pairs, 2 * sms, end)
+        depth, nbytes = attention_ring(dh, -(-min(rows2, end) // 64))
+        if depth >= 2 and \
+                2 * (nbytes + CTA_RESERVED_BYTES) <= SM_SHARED_BYTES:
+            rows, nsplit = rows2, nsplit2
     return rows, nsplit, end
 
 
@@ -528,7 +581,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"B * KH = {b * kh}")
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
     rows, nsplit, end = attention_ranges(s, block_s, pairs, sms,
-                                         int(kv_len), dtype, g, engine)
+                                         int(kv_len), dtype, g, engine, dh)
     return attention_launch(q, k, v, int(kv_len), rows=rows, nsplit=nsplit,
                             end=end, engine=engine)
 
@@ -564,4 +617,6 @@ def attention_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             int(q.dtype == torch.bfloat16), int(engine == "matrix"),
             _stream(out))
     _check("attention", code, f"attention_{engine}")
+    if q.dtype == torch.float32 and g <= 8:
+        LAUNCHES[f"attention_ring_{engine}"] += 1
     return out

@@ -48,9 +48,13 @@
 // summed exactly in double by DMMA and rounded once: a double accumulator
 // of 16 heads x Dh would take 128 registers a lane.
 //
-// float32, but the vector engine at G > 8: each lane loads elements
-// [t*Dh/4, (t+1)*Dh/4) of K rows g and g + 8 and elements [g*Dh/8,
-// (g+1)*Dh/8) of V rows straight from global memory.
+// float32, G <= 8 (both engines: attention_{vector,matrix}_ring_kernel):
+// each lane takes elements [t*Dh/4, (t+1)*Dh/4) of K rows g and g + 8 and
+// elements [g*Dh/8, (g+1)*Dh/8) of V rows from a ring in shared memory,
+// which a producer warp fills ahead of the four consumer warps with the
+// TMA's bulk copies, each stage completing on an mbarrier (below, "K and
+// V staged through a TMA-fed ring").  The matrix kernel at G > 8 loads the
+// same spans straight from global memory.
 //   Matrix: q.K^T and p.V on DMMA m8n8k4 on values converted to double
 //   (q.K^T with positions on M and heads on N; p.V with V^T on M, heads on
 //   N, 4 positions on K), products exact.
@@ -96,6 +100,7 @@
 // below say where each takes a different path.
 // The merge of the ranges is launched as a programmatic dependent of the
 // range kernel, so it is scheduled while the range kernel's last CTAs run.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -328,26 +333,26 @@ __device__ __forceinline__ void merge_warps(const float* sm_m,
 }
 
 // ---------------------------------------------------------------------------
-// float32: the tile loop with direct loads, one per engine
+// float32, matrix engine at a head tile of 16: the tile loop with direct
+// loads
 // ---------------------------------------------------------------------------
 
-template <int DH, bool kMMA, int HT>
-__device__ __forceinline__ void attention_tiles_f32(
+template <int DH>
+__device__ __forceinline__ void attention_tiles_f32_mma16(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, float* __restrict__ out,
     float* __restrict__ part_ml, float* __restrict__ part_acc,
     const Shape& sh) {
+  constexpr int HT = 16;
   constexpr int KS = DH / 4;  // a lane's span of a K row
   constexpr int VS = DH / 8;  // a lane's span of a V row = its acc chunks
   constexpr int QS = KS + 4;  // padded row of the staged q
   constexpr int NI = HT / 4;  // heads per lane
   constexpr int NT = HT / 8;  // MMA N tiles
-  // matrix, HT = 8: q's B fragment in registers and a double accumulator
-  constexpr bool kNarrowMMA = kMMA && HT == 8;
-  constexpr int kAccN = kWarps * HT * DH, kQN = kNarrowMMA ? 4 : HT * 4 * QS;
+  constexpr int kAccN = kWarps * HT * DH, kQN = HT * 4 * QS;
   // sm_q is read only in the tile loop and sm_acc written only after it:
-  // where the arrays exceed the 48 KB of static shared memory (HT 16 at
-  // Dh 160: 56.8 KB), sm_acc takes sm_q's place
+  // where the arrays exceed the 48 KB of static shared memory (Dh 160:
+  // 56.8 KB), sm_acc takes sm_q's place
   constexpr bool kAccInQ =
       (kAccN + kQN + kWarps * kTile * HT + 2 * kWarps * HT) * 4 > 48 * 1024;
   __shared__ __align__(16) float sm_p[kWarps][kTile][HT];
@@ -369,22 +374,14 @@ __device__ __forceinline__ void attention_tiles_f32(
   const float* vb = v + head0 + g * VS;
   const float* qp = q + static_cast<size_t>(pair) * sh.g * DH;
 
-  // the matrix engine's B fragment: head g's span [t*KS, (t+1)*KS) of q
-  float qs[kNarrowMMA ? KS : 1];
-  if constexpr (kNarrowMMA) {
-    load_span<KS>(qp + static_cast<size_t>(g) * DH + t * KS, g < sh.g, qs);
-  } else {
-    for (int i = threadIdx.x; i < HT * DH; i += kThreads) {
-      const int hh = i / DH, d = i - hh * DH;
-      sm_q[(hh * 4 + d / KS) * QS + d % KS] = hh < sh.g ? qp[i] : 0.f;
-    }
-    __syncthreads();
+  for (int i = threadIdx.x; i < HT * DH; i += kThreads) {
+    const int hh = i / DH, d = i - hh * DH;
+    sm_q[(hh * 4 + d / KS) * QS + d % KS] = hh < sh.g ? qp[i] : 0.f;
   }
+  __syncthreads();
 
-  // acc[d = g*VS + c][head lane_head(j, t)], in double on the tensor cores
-  // at HT = 8
-  using Acc = typename std::conditional<kNarrowMMA, double, float>::type;
-  Acc acc[VS][NI] = {};
+  // acc[d = g*VS + c][head lane_head(j, t)]
+  float acc[VS][NI] = {};
   float m[NI], l[NI];
 #pragma unroll
   for (int j = 0; j < NI; ++j) m[j] = kNegInf, l[j] = 0.f;
@@ -397,37 +394,31 @@ __device__ __forceinline__ void attention_tiles_f32(
     load_span<KS>(kb + rows[0] * stride, in[0], k0);
     load_span<KS>(kb + rows[1] * stride, in[1], k1);
     float s[2][NI];
-    if constexpr (kNarrowMMA) {
-      score_mma<DH>(k0, k1, qs, s);
-    } else if constexpr (kMMA) {
-      // one N tile at a time, its B fragment from the staged q
+    // one N tile at a time, its B fragment from the staged q
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        float qn[KS];
-        const float4* q4 = reinterpret_cast<const float4*>(
-            sm_q + ((8 * nt + g) * 4 + t) * QS);
+    for (int nt = 0; nt < NT; ++nt) {
+      float qn[KS];
+      const float4* q4 =
+          reinterpret_cast<const float4*>(sm_q + ((8 * nt + g) * 4 + t) * QS);
 #pragma unroll
-        for (int j = 0; j < KS / 4; ++j) {
-          const float4 x = q4[j];
-          qn[4 * j] = x.x, qn[4 * j + 1] = x.y, qn[4 * j + 2] = x.z,
-          qn[4 * j + 3] = x.w;
-        }
-        float sn[2][2];
-        score_mma<DH>(k0, k1, qn, sn);
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf)
-#pragma unroll
-          for (int i = 0; i < 2; ++i) s[hf][2 * nt + i] = sn[hf][i];
+      for (int j = 0; j < KS / 4; ++j) {
+        const float4 x = q4[j];
+        qn[4 * j] = x.x, qn[4 * j + 1] = x.y, qn[4 * j + 2] = x.z,
+        qn[4 * j + 3] = x.w;
       }
-    } else {
-      score_fma<DH, HT, HT>(k0, k1, sm_q, sh.g, t, s);
+      float sn[2][2];
+      score_mma<DH>(k0, k1, qn, sn);
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) s[hf][2 * nt + i] = sn[hf][i];
     }
     float p[2][NI], corr[NI];
     softmax_step<NI>(s, rows, in, sh, m, l, p, corr);
 #pragma unroll
     for (int i = 0; i < NI; ++i)
 #pragma unroll
-      for (int c = 0; c < VS; ++c) acc[c][i] *= static_cast<Acc>(corr[i]);
+      for (int c = 0; c < VS; ++c) acc[c][i] *= corr[i];
     // p (16 positions x HT heads) through shared memory to the lanes that
     // multiply it into V
 #pragma unroll
@@ -436,70 +427,33 @@ __device__ __forceinline__ void attention_tiles_f32(
       for (int j = 0; j < NI; ++j)
         sm_p[warp][8 * hf + g][lane_head(j, t)] = p[hf][j];
     __syncwarp();
-    if constexpr (kNarrowMMA) {
-      // B fragment: p[position 4ks + t][head g]; A: V row 4ks + t
+    // the tile's p.V exactly in double, one Dh chunk c at a time, then
+    // rounded once into the float accumulator: A = V rows 4ks + t (all
+    // four loaded first), B = p[position 4ks + t][head 8nt + g]
+    float vr[kTile / 4][VS];
+    double pb[kTile / 4][NT];
 #pragma unroll
-      for (int ks = 0; ks < kTile / 4; ++ks) {
-        const int r = tile0 + 4 * ks + t;
-        float vs[VS];
-        load_span<VS>(vb + r * stride, r < s1, vs);
-        const double pb = sm_p[warp][4 * ks + t][g];
+    for (int ks = 0; ks < kTile / 4; ++ks) {
+      const int r = tile0 + 4 * ks + t;
+      load_span<VS>(vb + r * stride, r < s1, vr[ks]);
 #pragma unroll
-        for (int c = 0; c < VS; ++c)
-          dmma_884(acc[c][0], acc[c][1], vs[c], pb, acc[c][0], acc[c][1]);
-      }
-    } else if constexpr (kMMA) {
-      // the tile's p.V exactly in double, one Dh chunk c at a time, then
-      // rounded once into the float accumulator: A = V rows 4ks + t (all
-      // four loaded first), B = p[position 4ks + t][head 8nt + g]
-      float vr[kTile / 4][VS];
-      double pb[kTile / 4][NT];
+      for (int nt = 0; nt < NT; ++nt)
+        pb[ks][nt] = sm_p[warp][4 * ks + t][8 * nt + g];
+    }
 #pragma unroll
-      for (int ks = 0; ks < kTile / 4; ++ks) {
-        const int r = tile0 + 4 * ks + t;
-        load_span<VS>(vb + r * stride, r < s1, vr[ks]);
+    for (int c = 0; c < VS; ++c) {
+      double d[NT][2] = {};
+#pragma unroll
+      for (int ks = 0; ks < kTile / 4; ++ks)
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt)
-          pb[ks][nt] = sm_p[warp][4 * ks + t][8 * nt + g];
-      }
+          dmma_884(d[nt][0], d[nt][1], vr[ks][c], pb[ks][nt], d[nt][0],
+                   d[nt][1]);
 #pragma unroll
-      for (int c = 0; c < VS; ++c) {
-        double d[NT][2] = {};
+      for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-        for (int ks = 0; ks < kTile / 4; ++ks)
-#pragma unroll
-          for (int nt = 0; nt < NT; ++nt)
-            dmma_884(d[nt][0], d[nt][1], vr[ks][c], pb[ks][nt], d[nt][0],
-                     d[nt][1]);
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-            acc[c][2 * nt + i] += __double2float_rn(d[nt][i]);
-      }
-    } else {
-#pragma unroll
-      for (int ks = 0; ks < kTile / 4; ++ks) {
-        float vs[4][VS];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int r = tile0 + 4 * ks + u;
-          load_span<VS>(vb + r * stride, r < s1, vs[u]);
-        }
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-#pragma unroll
-          for (int nt = 0; nt < NT; ++nt) {
-            const float2 pu = *reinterpret_cast<const float2*>(
-                &sm_p[warp][4 * ks + u][8 * nt + 2 * t]);
-#pragma unroll
-            for (int c = 0; c < VS; ++c) {
-              acc[c][2 * nt] = fmaf(pu.x, vs[u][c], acc[c][2 * nt]);
-              acc[c][2 * nt + 1] = fmaf(pu.y, vs[u][c], acc[c][2 * nt + 1]);
-            }
-          }
-        }
-      }
+        for (int i = 0; i < 2; ++i)
+          acc[c][2 * nt + i] += __double2float_rn(d[nt][i]);
     }
     __syncwarp();
   }
@@ -516,8 +470,7 @@ __device__ __forceinline__ void attention_tiles_f32(
   for (int c = 0; c < VS; ++c)
 #pragma unroll
     for (int j = 0; j < NI; ++j)
-      sm_acc[(warp * HT + lane_head(j, t)) * DH + g * VS + c] =
-          static_cast<float>(acc[c][j]);
+      sm_acc[(warp * HT + lane_head(j, t)) * DH + g * VS + c] = acc[c][j];
   __syncthreads();
   merge_warps<float, DH, HT>(sm_m, sm_l, sm_acc, out, part_ml, part_acc, sh);
 }
@@ -1590,8 +1543,459 @@ __device__ __forceinline__ void attention_tiles_f32_h16(
                              sh);
 }
 
+// ---------------------------------------------------------------------------
+// float32, head tile 8: K and V staged through a TMA-fed ring, both engines
+// ---------------------------------------------------------------------------
+//
+// A tile of 16 cache positions is 16 KB of K and V at Dh 128 in float32,
+// about 640 SM clocks at the datasheet HBM rate when all 132 SMs stream.
+// Loaded straight from global memory inside each lane's dependency chain,
+// only occupancy hid the latency (77-82% of the byte bound).  Here the
+// loads leave the consumers' chains altogether:
+// - A CTA is four consumer warps, which keep the tile loop, lane maps and
+//   arithmetic of the direct-load kernels (warp w takes the tiles s0 + 16w
+//   + 64i; each lane's sums run in the same order, so a range's partial is
+//   the same bit for bit), and one producer warp.
+// - The producer copies each consumer warp's tiles into that warp's ring
+//   of `depth` stages with the TMA: two tensor copies a tile
+//   (cp.async.bulk.tensor), one for its 16 K rows and one for its 16 V
+//   rows, boxes of tensor maps over the cache with each row cut into box
+//   lines of up to 128 bytes.  One lane issues them.  Both complete on the
+//   stage's `full` mbarrier, which that lane armed with the tile's byte
+//   count first; a consumer warp waits on it, computes, and arrives on the
+//   stage's `empty` mbarrier, on which the producer waits before it
+//   refills the stage.  Positions past S lie outside the tensor: zero,
+//   never read.  The consumers still take positions at or past the range's
+//   end as zero, as the direct loads did.
+// - The boxes are dense, and the TMA's swizzle spreads a wavefront's lanes
+//   over the bank groups (RingLayout): K's image holds rows whole, V's
+//   holds each box line of the 16 rows together, so that the swizzle key
+//   of a V load follows its row and the matrix engine's four rows 4ks + t
+//   land apart.  (Measured at Dh 128, data path alone: 1-D bulk copies,
+//   one a row or quarter row, cost the TMA ~65 SM clocks each and held 24%
+//   of the bound; boxes padded by zero-filled columns past the tensor's
+//   edge 64-74%; dense boxes 91-93%.)
+// - The ring takes the fewest stages a warp (at least two) that keep ~48
+//   KB of each CTA's tiles in flight beyond the stages being computed
+//   (RingLayout::DEPTH: 2 at Dh 112, 128 and 160, 3 at 64, 4 at 32, 7 at
+//   16), but no more than the longest range has tiles a warp, so that a
+//   short range asks for no shared memory it cannot fill and the producer
+//   never waits for a stage it will not reuse.  One CTA runs per SM
+//   (_ext.ctas_per_sm) and walks one long range; two where a short cache's
+//   ranges cut for two leave rings of two or more stages that fit an SM
+//   twice (_ext.attention_ranges; RingLayout::MIN_CTAS).
+constexpr int kRingThreads = kThreads + 32;  // four consumer warps, a producer
+constexpr int kSmSmem = 228 * 1024;    // shared memory of an SM
+constexpr int kCtaReserved = 1024;     // of it, reserved for each CTA
+// Bytes of K and V a CTA keeps in flight (one CTA per SM): HBM's 3.35 TB/s
+// over 132 SMs for ~1.5 us of latency under load is ~38 KB (Little's law);
+// a deeper ring only queues requests (Dh 128: 2 stages read 89-90% of the
+// bound alone, 3 stages 88%)
+constexpr int kInFlight = 48 * 1024;
+
+// One stage: the K box's image, 16 rows each cut into NP parts of PW
+// elements (row r, element e at (r * DH + e) * 4 bytes), then the V box's,
+// the parts outermost (((16 * (e / PW) + r) * PW + e % PW) * 4).  A part
+// is a box line: 128 bytes where a row holds a power-of-two number of them
+// (Dh 32, 64, 128), the row where it is shorter (Dh 16: 64 bytes), else a
+// quarter row (Dh 112, 160); fewer, longer lines keep the TMA's per-line
+// cost down.  Through the TMA's swizzle over a line of 32, 64 or 128 bytes
+// the 16-byte unit of byte a within its 128-byte line is XORed with the
+// line's index modulo MASK + 1, so that a wavefront's lanes reach every
+// bank group: K's (g, t), g of one parity pair, read quarter t of row g;
+// the matrix engine's V loads (g, t) read span g of row 4ks + t, whose
+// swizzle key follows the row; the vector engine's read span g of one row.
+// Two lanes share a group only for the matrix V loads at Dh 16, 32, 64 and
+// 112, for the vector V loads at Dh 112 and for K at 160.
+template <int DH>
+struct RingLayout {
+  static constexpr int KS = DH / 4, VS = DH / 8, QS = KS + 4;
+  static constexpr int PW =
+      DH * 4 < 128 ? DH : (DH & (DH - 1)) == 0 ? 32 : KS;
+  static constexpr int NP = DH / PW;
+  static constexpr int MASK = PW * 4 == 128 ? 7 : PW * 4 == 64 ? 3
+                              : PW * 4 == 32 ? 1 : 0;
+  static constexpr int TILE = 2 * kTile * DH;  // floats: K's image, V's
+  // after the ring: p [warp][position][head], (m, l) [warp][head], the
+  // vector engine's q [head][t][QS], then the full and empty barriers; the
+  // ring starts at a 1024-byte boundary, as the swizzle reads the address
+  static constexpr int AUX = kWarps * kTile * 8 + 2 * kWarps * 8 + 8 * 4 * QS;
+  static constexpr int bytes(int depth) {
+    return 1024 + (kWarps * depth * TILE + AUX) * 4 + 2 * kWarps * depth * 8;
+  }
+  static constexpr int MAX_DEPTH =
+      (kBlockSmem - 1024 - AUX * 4) / (kWarps * (TILE * 4 + 16));
+  // stages a warp: the fewest (at least two) whose stages beyond the one a
+  // warp computes hold kInFlight bytes of the CTA's tiles in flight
+  static constexpr int DEPTH_FOR =
+      1 + (kInFlight + kWarps * TILE * 4 - 1) / (kWarps * TILE * 4);
+  static constexpr int DEPTH =
+      DEPTH_FOR < 2 ? 2 : DEPTH_FOR > MAX_DEPTH ? MAX_DEPTH : DEPTH_FOR;
+  // CTAs an SM must hold at once: two where two rings of two stages fit
+  // its shared memory (Dh <= 64), for the short caches that
+  // _ext.attention_ranges cuts for two CTAs per SM; the kernels are
+  // compiled to fit that many in its registers too
+  static constexpr int MIN_CTAS =
+      2 * (bytes(2) + kCtaReserved) <= kSmSmem ? 2 : 1;
+  // byte a of the image as the TMA placed it
+  static __device__ __forceinline__ int at(int a) {
+    return a ^ (((a >> 7) & MASK) << 4);
+  }
+  static_assert(KS % 4 == 0 && VS % 2 == 0, "16- and 8-byte spans");
+  static_assert(TILE * 4 % 1024 == 0, "stages on 1024-byte boundaries");
+  static_assert(MAX_DEPTH >= 2 && bytes(MAX_DEPTH) <= kBlockSmem,
+                "two stages a warp must fit one block");
+  static_assert(kWarps * 8 * DH <= kWarps * TILE,
+                "sm_acc must fit in one stage a warp, which it reuses");
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+// One arrival that also expects `bytes` of copies to complete.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+// Wait until the barrier's phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// The box of 5-D tensor map `map` at coordinates c (innermost first) into
+// shared dst by the TMA, completing on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap& map,
+                                         int c0, int c1, int c2, int c3,
+                                         int c4, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(&map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(c4), "r"(smem_addr(bar))
+      : "memory");
+}
+// The 128 consumer threads' own barrier (the producer never joins it).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kThreads) : "memory");
+}
+
+// N consecutive floats of an image from logical byte a, zero where the row
+// is out of range.
+template <int N, typename L>
+__device__ __forceinline__ void stage_span(const unsigned char* img, int a,
+                                           bool ok, float (&o)[N]) {
+  if (!ok) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) o[i] = 0.f;
+  } else if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N / 4; ++i) {
+      const float4 x =
+          *reinterpret_cast<const float4*>(img + L::at(a + 16 * i));
+      o[4 * i] = x.x, o[4 * i + 1] = x.y, o[4 * i + 2] = x.z,
+      o[4 * i + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const float2 x =
+          *reinterpret_cast<const float2*>(img + L::at(a + 8 * i));
+      o[2 * i] = x.x, o[2 * i + 1] = x.y;
+    }
+  }
+}
+
+// Matrix, float32, from a stage: score_mma's chains in score_mma's order,
+// K rows g and g + 8 (image bytes a0, a1) and head g's span t of q (staged
+// as the vector engine stages it) read four elements at a time, so that no
+// span is held whole in registers.
+template <int DH, typename L>
+__device__ __forceinline__ void score_mma_staged(const unsigned char* kt,
+                                                 int a0, int a1,
+                                                 const bool (&in)[2],
+                                                 const float* qg,
+                                                 float (&s)[2][2]) {
+  double c[2][2][2] = {};  // [half][chain][column]
+#pragma unroll
+  for (int u = 0; u < DH / 16; ++u) {
+    const float4 qv = reinterpret_cast<const float4*>(qg)[u];
+    float4 x0 = make_float4(0.f, 0.f, 0.f, 0.f), x1 = x0;
+    if (in[0]) x0 = *reinterpret_cast<const float4*>(kt + L::at(a0 + 16 * u));
+    if (in[1]) x1 = *reinterpret_cast<const float4*>(kt + L::at(a1 + 16 * u));
+    const float k0[4] = {x0.x, x0.y, x0.z, x0.w};
+    const float k1[4] = {x1.x, x1.y, x1.z, x1.w};
+    const float qq[4] = {qv.x, qv.y, qv.z, qv.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = 4 * u + e;
+      const double b = qq[e];
+      dmma_884(c[0][j & 1][0], c[0][j & 1][1], k0[e], b, c[0][j & 1][0],
+               c[0][j & 1][1]);
+      dmma_884(c[1][j & 1][0], c[1][j & 1][1], k1[e], b, c[1][j & 1][0],
+               c[1][j & 1][1]);
+    }
+  }
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      s[hf][i] = __double2float_rn(c[hf][0][i] + c[hf][1][i]);
+}
+
+// tk, tv: tensor maps over K as (PW, NP, KH, S, B) with boxes (PW, NP, 1,
+// 16, 1), and over V as (PW, S, NP, KH, B) with boxes (PW, 16, NP, 1, 1)
+// (RingLayout)
+template <int DH, bool kMMA>
+__device__ __forceinline__ void attention_tiles_f32_ring(
+    const float* __restrict__ q, const CUtensorMap& tk,
+    const CUtensorMap& tv, float* __restrict__ out,
+    float* __restrict__ part_ml, float* __restrict__ part_acc,
+    const Shape& sh, int depth) {
+  using L = RingLayout<DH>;
+  constexpr int HT = 8;
+  constexpr int KS = L::KS;  // a lane's span of a K row
+  constexpr int VS = L::VS;  // a lane's span of a V row = its acc chunks
+  constexpr int QS = L::QS;  // padded row of the staged q
+  constexpr int NI = HT / 4;  // heads per lane
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* const ring = reinterpret_cast<float*>(
+      smem + ((1024 - (smem_addr(smem) & 1023)) & 1023));
+  float* const aux = ring + kWarps * depth * L::TILE;
+  float(*const sm_p)[kTile][HT] = reinterpret_cast<float(*)[kTile][HT]>(aux);
+  float* const sm_m = aux + kWarps * kTile * HT;
+  float* const sm_l = sm_m + kWarps * HT;
+  float* const sm_q = sm_l + kWarps * HT;
+  uint64_t* const full = reinterpret_cast<uint64_t*>(sm_q + HT * 4 * QS);
+  uint64_t* const empty = full + kWarps * depth;
+
+  const int pair = blockIdx.x;
+  const int b = pair / sh.kh, h = pair - b * sh.kh;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int s0 = blockIdx.y * sh.rows;
+  const int s1 = min(sh.s, s0 + sh.rows);
+  const int e1 = min(s1, sh.end);  // no tile starts at or past `end`
+  // consumer warp w's tiles start at s0 + 16w + 64i, i < tiles(w)
+  auto tiles = [&](int w) {
+    const int first = s0 + w * kTile;
+    return first < e1 ? (e1 - first + kWarps * kTile - 1) / (kWarps * kTile)
+                      : 0;
+  };
+
+  // the consumers' state (lane (g, t), as in the direct-load kernels):
+  // acc[d = g*VS + c][head lane_head(j, t)], in double on the tensor cores
+  const int g = lane >> 2, t = lane & 3;
+  using Acc = typename std::conditional<kMMA, double, float>::type;
+  Acc acc[VS][NI] = {};
+  float m[NI], l[NI];
+#pragma unroll
+  for (int j = 0; j < NI; ++j) m[j] = kNegInf, l[j] = 0.f;
+
+  // the producer, one lane: tile i of every consumer warp in turn, into
+  // stage i % depth of its ring once the warp has released tile i - depth;
+  // each warp's first tile is issued before the CTA's first barrier, as
+  // soon as the stages' barriers exist
+  const int n0 = warp == kWarps && lane == 0 ? tiles(0) : 0;
+  auto issue = [&](int i, int w) {
+    const int slot = w * depth + i % depth;
+    const int tile0 = s0 + w * kTile + i * kWarps * kTile;
+    float* const st = ring + slot * L::TILE;
+    mbar_expect_tx(&full[slot], L::TILE * 4);
+    tma_load(st, tk, 0, 0, h, tile0, b, &full[slot]);
+    tma_load(st + kTile * DH, tv, 0, tile0, 0, h, b, &full[slot]);
+  };
+  if (warp == kWarps && lane == 0) {
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                     reinterpret_cast<uint64_t>(&tk))
+                 : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                     reinterpret_cast<uint64_t>(&tv))
+                 : "memory");
+    for (int i = 0; i < kWarps * depth; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 1);
+    }
+    // the barriers' initialisation visible to the TMA (the async proxy)
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    for (int w = 0; w < kWarps && 0 < tiles(w); ++w) issue(0, w);
+  } else if (warp < kWarps) {
+    // q staged as [head][t][QS], zero past G; the matrix engine's B
+    // fragment is head g's span [t*KS, (t+1)*KS)
+    const float* qp = q + static_cast<size_t>(pair) * sh.g * DH;
+    for (int i = threadIdx.x; i < HT * DH; i += kThreads) {
+      const int hh = i / DH, d = i - hh * DH;
+      sm_q[(hh * 4 + d / KS) * QS + d % KS] = hh < sh.g ? qp[i] : 0.f;
+    }
+  }
+  __syncthreads();
+
+  if (warp == kWarps) {
+    for (int i = 1; i < n0; ++i) {
+      for (int w = 0; w < kWarps && i < tiles(w); ++w) {
+        if (i >= depth)
+          mbar_wait(&empty[w * depth + i % depth], (i / depth - 1) & 1);
+        issue(i, w);
+      }
+    }
+  } else {
+    // the lane's span g of V's row 0 (part g * VS / PW); row r adds r * PW
+    const int vspan =
+        (16 * (g * VS / L::PW) * L::PW + g * VS % L::PW) * 4;
+    const int n = tiles(warp);
+    int stage = 0;
+    uint32_t parity = 0;
+    for (int i = 0; i < n; ++i) {
+      // tile0 is uniform across the warp, as mma.sync and the shuffles need
+      const int tile0 = s0 + warp * kTile + i * kWarps * kTile;
+      const float* const kf = ring + (warp * depth + stage) * L::TILE;
+      const auto* const kt = reinterpret_cast<const unsigned char*>(kf);
+      const auto* const vt = reinterpret_cast<const unsigned char*>(
+          kf + kTile * DH);
+      mbar_wait(&full[warp * depth + stage], parity);
+      const int rows[2] = {tile0 + g, tile0 + 8 + g};
+      const bool in[2] = {rows[0] < s1, rows[1] < s1};
+      const int a0 = (g * DH + t * KS) * 4, a1 = ((g + 8) * DH + t * KS) * 4;
+      float s[2][NI];
+      if constexpr (kMMA) {
+        score_mma_staged<DH, L>(kt, a0, a1, in, sm_q + (g * 4 + t) * QS, s);
+      } else {
+        float k0[KS], k1[KS];
+        stage_span<KS, L>(kt, a0, in[0], k0);
+        stage_span<KS, L>(kt, a1, in[1], k1);
+        score_fma<DH, HT, HT>(k0, k1, sm_q, sh.g, t, s);
+      }
+      float p[2][NI], corr[NI];
+      softmax_step<NI>(s, rows, in, sh, m, l, p, corr);
+#pragma unroll
+      for (int j = 0; j < NI; ++j)
+#pragma unroll
+        for (int c = 0; c < VS; ++c) acc[c][j] *= static_cast<Acc>(corr[j]);
+      // p (16 positions x HT heads) through shared memory to the lanes
+      // that multiply it into V
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+        for (int j = 0; j < NI; ++j)
+          sm_p[warp][8 * hf + g][lane_head(j, t)] = p[hf][j];
+      __syncwarp();
+      if constexpr (kMMA) {
+        // B fragment: p[position 4ks + t][head g]; A: V row 4ks + t
+#pragma unroll
+        for (int ks = 0; ks < kTile / 4; ++ks) {
+          const int r = 4 * ks + t;
+          float vs[VS];
+          stage_span<VS, L>(vt, vspan + r * L::PW * 4, tile0 + r < s1, vs);
+          const double pb = sm_p[warp][r][g];
+#pragma unroll
+          for (int c = 0; c < VS; ++c)
+            dmma_884(acc[c][0], acc[c][1], vs[c], pb, acc[c][0], acc[c][1]);
+        }
+      } else {
+#pragma unroll
+        for (int ks = 0; ks < kTile / 4; ++ks) {
+          float vs[4][VS];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int r = 4 * ks + u;
+            stage_span<VS, L>(vt, vspan + r * L::PW * 4, tile0 + r < s1,
+                              vs[u]);
+          }
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const float2 pu = *reinterpret_cast<const float2*>(
+                &sm_p[warp][4 * ks + u][2 * t]);
+#pragma unroll
+            for (int c = 0; c < VS; ++c) {
+              acc[c][0] = fmaf(pu.x, vs[u][c], acc[c][0]);
+              acc[c][1] = fmaf(pu.y, vs[u][c], acc[c][1]);
+            }
+          }
+        }
+      }
+      __syncwarp();  // every lane is done with the stage and with sm_p
+      if (lane == 0) mbar_arrive(&empty[warp * depth + stage]);
+      if (++stage == depth) stage = 0, parity ^= 1;
+    }
+  }
+
+  // every copy has landed and every warp is done with its ring: sm_acc
+  // reuses it
+  __syncthreads();
+  if (warp == kWarps) return;
+  float* const sm_acc = ring;
+  if (g == 0) {
+#pragma unroll
+    for (int j = 0; j < NI; ++j) {
+      sm_m[warp * HT + lane_head(j, t)] = m[j];
+      sm_l[warp * HT + lane_head(j, t)] = l[j];
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < VS; ++c)
+#pragma unroll
+    for (int j = 0; j < NI; ++j)
+      sm_acc[(warp * HT + lane_head(j, t)) * DH + g * VS + c] =
+          static_cast<float>(acc[c][j]);
+  consumers_sync();
+  merge_warps<float, DH, HT>(sm_m, sm_l, sm_acc, out, part_ml, part_acc, sh);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kRingThreads, RingLayout<DH>::MIN_CTAS)
+    attention_vector_ring_kernel(const float* __restrict__ q,
+                                 const __grid_constant__ CUtensorMap tk,
+                                 const __grid_constant__ CUtensorMap tv,
+                                 float* __restrict__ out,
+                                 float* __restrict__ part_ml,
+                                 float* __restrict__ part_acc, Shape sh,
+                                 int depth) {
+  // the combine kernel may be scheduled now; it waits for this grid
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  attention_tiles_f32_ring<DH, false>(q, tk, tv, out, part_ml, part_acc, sh,
+                                      depth);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kRingThreads, RingLayout<DH>::MIN_CTAS)
+    attention_matrix_ring_kernel(const float* __restrict__ q,
+                                 const __grid_constant__ CUtensorMap tk,
+                                 const __grid_constant__ CUtensorMap tv,
+                                 float* __restrict__ out,
+                                 float* __restrict__ part_ml,
+                                 float* __restrict__ part_acc, Shape sh,
+                                 int depth) {
+  // the combine kernel may be scheduled now; it waits for this grid
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  attention_tiles_f32_ring<DH, true>(q, tk, tv, out, part_ml, part_acc, sh,
+                                     depth);
+}
+
 // HT: the head tile, 8 for G <= 8 and 16 for 8 < G <= 16 (one kernel each,
-// so the G <= 8 kernels keep their registers)
+// so the G <= 8 kernels keep their registers); float32 at HT 8 is
+// attention_{vector,matrix}_ring_kernel
 template <typename T, int DH, int HT>
 __global__ void __launch_bounds__(kThreads)
     attention_vector_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -1600,10 +2004,8 @@ __global__ void __launch_bounds__(kThreads)
                             float* __restrict__ part_acc, Shape sh) {
   // the combine kernel may be scheduled now; it waits for this grid
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-  if constexpr (std::is_same<T, float>::value && HT == 16)
+  if constexpr (std::is_same<T, float>::value)
     attention_tiles_f32_h16<DH>(q, k, v, out, part_ml, part_acc, sh);
-  else if constexpr (std::is_same<T, float>::value)
-    attention_tiles_f32<DH, false, HT>(q, k, v, out, part_ml, part_acc, sh);
   else if constexpr (HT == 16)
     attention_tiles_bf16_h16<DH>(q, k, v, out, part_ml, part_acc, sh);
   else if (sh.g <= 1)
@@ -1629,7 +2031,7 @@ __global__ void __launch_bounds__(kThreads)
   // the combine kernel may be scheduled now; it waits for this grid
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   if constexpr (std::is_same<T, float>::value)
-    attention_tiles_f32<DH, true, HT>(q, k, v, out, part_ml, part_acc, sh);
+    attention_tiles_f32_mma16<DH>(q, k, v, out, part_ml, part_acc, sh);
   else
     attention_tiles_bf16<DH, true, HT, HT>(q, k, v, out, part_ml, part_acc,
                                            sh);
@@ -1719,6 +2121,88 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The CUDA driver's tensor-map encoder, fetched through the runtime once
+// (no link against libcuda); null where the installed CUDA lacks it.
+using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
+EncodeTiled tensor_map_encoder() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A 5-D float32 tensor map (dims innermost first; strides in bytes of dims
+// 1..4) with boxes `box`, swizzled over `mask` + 1 16-byte units.
+bool tensor_map(CUtensorMap* map, const float* base, const cuuint64_t* dims,
+                const cuuint64_t* strides, const cuuint32_t* box, int mask) {
+  const EncodeTiled encode = tensor_map_encoder();
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      mask == 7   ? CU_TENSOR_MAP_SWIZZLE_128B
+      : mask == 3 ? CU_TENSOR_MAP_SWIZZLE_64B
+      : mask == 1 ? CU_TENSOR_MAP_SWIZZLE_32B
+                  : CU_TENSOR_MAP_SWIZZLE_NONE;
+  return encode != nullptr &&
+         encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 5,
+                const_cast<float*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// float32 at a head tile of 8: the ring kernels, with a ring of
+// RingLayout::DEPTH stages a warp, but no deeper than the longest range
+// (range 0) has tiles a warp.
+template <int DH>
+cudaError_t launch_ring(const float* q, const float* k, const float* v,
+                        float* out, float* part_ml, float* part_acc,
+                        dim3 grid, const Shape& sh, int matrix,
+                        cudaStream_t s) {
+  using L = RingLayout<DH>;
+  const cuuint64_t batch = grid.x / sh.kh, kh = sh.kh, len = sh.s;
+  const cuuint64_t row = kh * DH * 4;  // bytes of a position's K (or V)
+  // K: (element, part, head, position, batch); V: (element, position,
+  // part, head, batch)
+  const cuuint64_t part = L::PW * 4;
+  const cuuint64_t k_dims[5] = {L::PW, L::NP, kh, len, batch};
+  const cuuint64_t k_strides[4] = {part, DH * 4, row, row * len};
+  const cuuint32_t k_box[5] = {L::PW, L::NP, 1, kTile, 1};
+  const cuuint64_t v_dims[5] = {L::PW, len, L::NP, kh, batch};
+  const cuuint64_t v_strides[4] = {row, part, DH * 4, row * len};
+  const cuuint32_t v_box[5] = {L::PW, kTile, L::NP, 1, 1};
+  CUtensorMap tk, tv;
+  if (!tensor_map(&tk, k, k_dims, k_strides, k_box, L::MASK) ||
+      !tensor_map(&tv, v, v_dims, v_strides, v_box, L::MASK))
+    return cudaErrorInvalidValue;
+  auto kernel = matrix ? attention_matrix_ring_kernel<DH>
+                       : attention_vector_ring_kernel<DH>;
+  const int tiles = (min(sh.rows, sh.end) + kWarps * kTile - 1) /
+                    (kWarps * kTile);
+  const int depth = max(1, min(L::DEPTH, tiles));
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      L::bytes(L::DEPTH));
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, kRingThreads, L::bytes(depth), s>>>(q, tk, tv, out, part_ml,
+                                                      part_acc, sh, depth);
+  return cudaGetLastError();
+}
+
 template <typename T, int DH, int HT>
 cudaError_t launch_tiles(const T* q, const T* k, const T* v, T* out,
                          float* part_ml, float* part_acc, dim3 grid,
@@ -1726,7 +2210,7 @@ cudaError_t launch_tiles(const T* q, const T* k, const T* v, T* out,
   auto kernel = matrix ? attention_matrix_kernel<T, DH, HT>
                        : attention_vector_kernel<T, DH, HT>;
   // dynamic shared memory: the head-tile-16 vector kernels' layout and
-  // the bfloat16 kernels' ring; the other float32 kernels' is static
+  // the bfloat16 kernels' ring; the float32 matrix kernel's is static
   const bool h16 = !matrix && HT == 16;
   int smem = h16 ? H16Layout<T, DH>::BYTES : 0;
   if constexpr (!std::is_same<T, float>::value)
@@ -1746,18 +2230,24 @@ cudaError_t launch_tiles(const T* q, const T* k, const T* v, T* out,
   return cudaGetLastError();
 }
 
-// The range kernel at head dim DH (head tile 8 for G <= 8, 16 above), then
-// with several ranges per pair their merge.
+// The range kernel at head dim DH (head tile 8 for G <= 8, 16 above; the
+// ring kernels for float32 at 8), then with several ranges per pair their
+// merge.
 template <typename T, int DH>
 cudaError_t launch_dh(const T* q, const T* k, const T* v, T* out,
                       float* part_ml, float* part_acc, int pairs,
                       const Shape& sh, int matrix, cudaStream_t s) {
   const dim3 grid(pairs, sh.nsplit);
-  const cudaError_t err =
-      sh.g <= 8 ? launch_tiles<T, DH, 8>(q, k, v, out, part_ml, part_acc,
-                                         grid, sh, matrix, s)
-                : launch_tiles<T, DH, 16>(q, k, v, out, part_ml, part_acc,
-                                          grid, sh, matrix, s);
+  cudaError_t err;
+  if (sh.g > 8)
+    err = launch_tiles<T, DH, 16>(q, k, v, out, part_ml, part_acc, grid, sh,
+                                  matrix, s);
+  else if constexpr (std::is_same<T, float>::value)
+    err = launch_ring<DH>(q, k, v, out, part_ml, part_acc, grid, sh, matrix,
+                          s);
+  else
+    err = launch_tiles<T, DH, 8>(q, k, v, out, part_ml, part_acc, grid, sh,
+                                 matrix, s);
   if (err != cudaSuccess || sh.nsplit == 1) return err;
   // programmatic dependent launch: the merge is scheduled while the range
   // kernel's last CTAs run, instead of after it

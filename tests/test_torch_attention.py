@@ -200,7 +200,7 @@ def test_ranges_cover_the_positions_read(s, block_s, pairs, kv_len, dtype):
     for each engine at head tiles of 8 and 16."""
     for g, engine in itertools.product((4, 16), ENGINES):
         rows, nsplit, end = attention_ranges(s, block_s, pairs, 132, kv_len,
-                                             dtype, g, engine)
+                                             dtype, g, engine, 128)
         slots = ctas_per_sm(dtype, g, engine) * 132
         assert end == (min(kv_len, s) if kv_len >= 1 else s)
         assert rows * (nsplit - 1) < end <= rows * nsplit
@@ -229,32 +229,113 @@ def test_blocks_past_kv_len_change_no_bit(kv_len, dtype, engine):
 
 def test_bfloat16_vector_kernel_above_g8_takes_two_ctas_per_sm():
     """The vector kernels at a head tile of 16 take the CTA slots per SM
-    that their shared-memory layout fits: bfloat16 two, float32 one; every
-    other kernel takes CTAS_PER_SM.  At Qwen3-MoE's decode shape the
-    bfloat16 vector kernel launches twice its matrix kernel's ranges."""
+    that their shared-memory layout fits: bfloat16 two, float32 one; the
+    float32 matrix kernel there, which loads straight from global memory,
+    two; every kernel at a head tile of 8 takes CTAS_PER_SM.  At
+    Qwen3-MoE's decode shape the bfloat16 vector kernel launches twice its
+    matrix kernel's ranges."""
     assert ctas_per_sm(torch.bfloat16, 16, "vector") == 2
     assert ctas_per_sm(torch.float32, 16, "vector") == 1
+    assert ctas_per_sm(torch.float32, 16, "matrix") == 2
     for args in ((torch.bfloat16, 16, "matrix"), (torch.bfloat16, 8, "vector"),
-                 (torch.float32, 16, "matrix"), (torch.float32, 8, "vector")):
+                 (torch.float32, 8, "matrix"), (torch.float32, 8, "vector")):
         assert ctas_per_sm(*args) == CTAS_PER_SM[args[0]]
     pt = (32768, 512, 16, 132, 28672, torch.bfloat16, 16)
-    assert attention_ranges(*pt, "vector")[1] == \
-        2 * attention_ranges(*pt, "matrix")[1]
+    assert attention_ranges(*pt, "vector", 128)[1] == \
+        2 * attention_ranges(*pt, "matrix", 128)[1]
 
 
 @pytest.mark.parametrize("g", range(9, 17))
 def test_float32_vector_kernel_above_g8_takes_one_cta_per_sm(g):
     """The float32 vector kernel at a head tile of 16 (G 9..16) takes one
-    CTA slot per SM, its matrix twin and the G <= 8 kernels two.  At
-    Qwen3-MoE's decode shape (B 4, KH 4, S 32768, kv_len 28672) on 132
+    CTA slot per SM, its matrix twin two, and the G <= 8 ring kernels one.
+    At Qwen3-MoE's decode shape (B 4, KH 4, S 32768, kv_len 28672) on 132
     SMs the 16 pairs then get 8 ranges of 3584 positions, 128 CTAs in one
     wave, and the matrix kernel 16 ranges of 1792."""
     assert ctas_per_sm(torch.float32, g, "vector") == 1
     assert ctas_per_sm(torch.float32, g, "matrix") == 2
-    assert ctas_per_sm(torch.float32, g - 8, "vector") == 2
+    assert ctas_per_sm(torch.float32, g - 8, "vector") == 1
     pt = (32768, 512, 16, 132, 28672, torch.float32, g)
-    assert attention_ranges(*pt, "vector") == (3584, 8, 28672)
-    assert attention_ranges(*pt, "matrix") == (1792, 16, 28672)
+    assert attention_ranges(*pt, "vector", 128) == (3584, 8, 28672)
+    assert attention_ranges(*pt, "matrix", 128) == (1792, 16, 28672)
+
+
+#: (name, B, KH, G, Dh, S, block_s, split_pairs, kv_lens, two-slot kv_lens):
+#: every shape that runs the float32 ring kernels (G <= 8) in the main
+#: path: the decode cells' layer call over ~28.7-29.1k positions, the stream
+#: cells' K4 point, StableLM-2-12B's head dim, the short caches of
+#: Zamba2-7B, SeamlessM4T-large-v2 and Qwen2-VL-72B, the examples' reduced
+#: DeepSeek-7B (prompt 32 + 16 tokens), and a head shard of the stream point
+#: (one of 4: 8 pairs cut as the unsharded call's 32); the last field names
+#: the kv_lens whose ranges the planner cuts for two CTAs per SM
+RING_PLANS = [
+    ("mistral-decode-cell", 16, 8, 4, 128, 32768, 512, None,
+     (28672, 28900, 29100, 32768), ()),
+    ("stream-k4", 4, 8, 4, 128, 32768, 512, None, (28672,), ()),
+    ("stablelm-12b", 4, 8, 4, 160, 32768, 512, None, (28672, 1), ()),
+    ("zamba2-7b", 4, 32, 1, 112, 512, 512, None, (0, 1, 100, 511, 512), ()),
+    ("seamless-m4t", 4, 16, 1, 64, 512, 512, None, (1, 256, 257, 512),
+     (257, 512)),
+    ("qwen2-vl-72b", 4, 8, 8, 128, 1536, 512, None, (1520, 1536), ()),
+    ("deepseek-7b-reduced", 2, 4, 1, 32, 48, 48, None, (1, 32, 48), ()),
+    ("stream-k4-shard", 4, 2, 4, 128, 32768, 512, 32, (28672,), ()),
+]
+
+
+@pytest.mark.parametrize("name,b,kh,g,dh,s,block_s,split,kv_lens,two",
+                         RING_PLANS, ids=[p[0] for p in RING_PLANS])
+def test_ring_kernel_plan_covers_each_position_once(name, b, kh, g, dh, s,
+                                                    block_s, split, kv_lens,
+                                                    two):
+    """The float32 kernels at a head tile of 8 (the TMA-fed ring) take one
+    CTA slot per SM on both engines, and at every shape of the main path
+    that runs them the planned ranges cover [0, end) exactly once, each CTA
+    one contiguous range, in one wave: one CTA per SM of an H100's 132, or
+    two where the ranges cut for two leave each CTA a ring of two or more
+    stages that two CTAs fit in an SM (SeamlessM4T's short cache)."""
+    from repro_torch.kernels._ext import (CTA_RESERVED_BYTES,
+                                          SM_SHARED_BYTES, attention_ring)
+    pairs = b * kh if split is None else split
+    for engine in ENGINES:
+        assert ctas_per_sm(torch.float32, g, engine) == 1 == \
+            CTAS_PER_SM[torch.float32]
+        for kv_len in kv_lens:
+            rows, nsplit, end = attention_ranges(
+                s, block_s, pairs, 132, kv_len, torch.float32, g, engine, dh)
+            assert end == (min(kv_len, s) if kv_len >= 1 else s)
+            starts = [i * rows for i in range(nsplit)]
+            stops = [min(a + rows, end) for a in starts]
+            assert starts[0] == 0 and stops[-1] == end
+            assert all(a < z for a, z in zip(starts, stops))
+            assert all(z == a for z, a in zip(stops, starts[1:]))
+            assert sum(z - a for a, z in zip(starts, stops)) == end
+            per_sm = 2 if kv_len in two else 1
+            assert (rows, nsplit) == attention_split(s, block_s, pairs,
+                                                     per_sm * 132, end)
+            assert pairs * nsplit <= per_sm * 132
+            assert b * kh * nsplit <= per_sm * 132
+            depth, nbytes = attention_ring(dh, -(-min(rows, end) // 64))
+            assert per_sm * (nbytes + CTA_RESERVED_BYTES) <= SM_SHARED_BYTES
+            assert per_sm == 1 or depth >= 2
+
+
+def test_ring_shared_memory_fits_a_block_at_every_head_dim():
+    """The ring's stages a warp and bytes (csrc/attention.cu's RingLayout):
+    the fewest stages, at least two, that keep 48 KB of a CTA's tiles in
+    flight beyond the ones being computed, within a block's 227 KB at every
+    head dim; a range's tiles cap the depth; at Mistral-NeMo's Dh 128 two
+    stages take 139,136 bytes."""
+    from repro_torch.kernels._ext import attention_ring
+    full = {dh: attention_ring(dh, 10 ** 6) for dh in HEAD_DIMS}
+    assert all(d >= 2 and n <= 227 * 1024 for d, n in full.values())
+    assert {dh: d for dh, (d, _) in full.items()} == {
+        16: 7, 32: 4, 64: 3, 112: 2, 128: 2, 160: 2}
+    assert all((d - 1) * 4 * 128 * dh >= 48 * 1024
+               for dh, (d, _) in full.items())
+    assert full[128][1] == 139136
+    assert attention_ring(64, 2)[0] == 2 and attention_ring(64, 0)[0] == 1
+    for dh in HEAD_DIMS:
+        assert attention_ring(dh, 1)[1] < attention_ring(dh, 2)[1]
 
 
 def test_kernel_takes_up_to_16_query_heads_per_kv_head():
@@ -342,7 +423,7 @@ def test_card_flash_decode_matches_plain(card, dtype, engine):
             if kv_len >= 1:
                 # bit for bit against reading every range and position
                 rows = attention_ranges(s, block, b * kh, sms, kv_len,
-                                        dtype, g, engine)[0]
+                                        dtype, g, engine, dh)[0]
                 full = attention_launch(q, k, v, kv_len, rows=rows,
                                         nsplit=-(-s // rows), end=s,
                                         engine=engine)
@@ -370,7 +451,7 @@ def test_card_flash_decode_at_config_head_dims(card, g, dh, dtype, engine):
                       "bfloat16" if dtype == torch.bfloat16 else "float32")
         if kv_len >= 1:
             rows = attention_ranges(s, block, b * kh, sms, kv_len, dtype, g,
-                                    engine)[0]
+                                    engine, dh)[0]
             full = attention_launch(q, k, v, kv_len, rows=rows,
                                     nsplit=-(-s // rows), end=s,
                                     engine=engine)
@@ -400,8 +481,82 @@ def test_card_head_tile_16_at_every_head_dim(card, g, dh, dtype, engine):
                       "bfloat16" if dtype == torch.bfloat16 else "float32")
         if kv_len >= 1:
             rows = attention_ranges(s, block, b * kh, sms, kv_len, dtype, g,
-                                    engine)[0]
+                                    engine, dh)[0]
             full = attention_launch(q, k, v, kv_len, rows=rows,
                                     nsplit=-(-s // rows), end=s,
                                     engine=engine)
             assert torch.equal(got, full)
+
+
+#: G of the float32 ring kernels (head tile 8) that the card tests sweep
+RING_GROUPS = (1, 2, 4, 8)
+
+
+def _ring_launches(engine):
+    from repro_torch.kernels import _ext
+    return _ext.LAUNCHES.get(f"attention_ring_{engine}", 0)
+
+
+def _check_ring(q, k, v, kv_len, block, engine, sms, launch=None):
+    """One call of the float32 ring kernel against the plain version (the
+    module's tolerance), counted once under attention_ring_<engine>; for
+    kv_len >= 1 also bit for bit against reading every range and position
+    with the same ranges.  ``launch`` = (rows, nsplit, end) calls
+    attention_launch with those ranges instead of the planner's."""
+    before = _ring_launches(engine)
+    if launch is None:
+        got = flash_decode(q, k, v, kv_len, block_s=block, engine=engine)
+    else:
+        rows, nsplit, end = launch
+        got = attention_launch(q, k, v, kv_len, rows=rows, nsplit=nsplit,
+                               end=end, engine=engine)
+    assert _ring_launches(engine) == before + 1
+    want = flash_decode_plain(q, k, v, kv_len, block_s=block, engine=engine)
+    _assert_close(got.cpu(), want.cpu().numpy(), "float32")
+    if kv_len >= 1 and launch is None:
+        b, kh, g, dh = q.shape
+        s = k.shape[1]
+        rows = attention_ranges(s, block, b * kh, sms, kv_len, torch.float32,
+                                g, engine, dh)[0]
+        full = attention_launch(q, k, v, kv_len, rows=rows,
+                                nsplit=-(-s // rows), end=s, engine=engine)
+        assert torch.equal(got, full)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("engine", ENGINES)
+@pytest.mark.parametrize("g", RING_GROUPS)
+@pytest.mark.parametrize("dh", HEAD_DIMS)
+def test_card_float32_ring_kernel_matches_plain(card, dh, g, engine):
+    """The float32 ring kernel at every head dim and G 1, 2, 4 and 8: at
+    kv_len 0, 1, 15, 16, 17, a range boundary - 1 / + 1 (ranges of 64
+    positions), S - 1 and S; then one range over the whole cache and
+    ranges of 1000 positions (a ragged tile at a range's end), where each
+    warp walks 16 tiles and reuses every stage of its ring."""
+    b, s, kh, block = 2, 1024, 2, 128
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    q, k, v = [t.to(card) for t in
+               _port(_mk(b, s, kh, g, dh, "float32", 7 * g + dh))]
+    for kv_len in (0, 1, 15, 16, 17, 63, 64, 65, s - 1, s):
+        _check_ring(q, k, v, kv_len, block, engine, sms)
+    for rows, end in ((s, s - 5), (1000, s)):
+        _check_ring(q, k, v, s - 5, block, engine, sms,
+                    launch=(rows, -(-end // rows), end))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("engine", ENGINES)
+@pytest.mark.parametrize("b,kh,g,dh", [(4, 32, 1, 112), (4, 16, 1, 64)],
+                         ids=["zamba2-7b", "seamless-m4t"])
+def test_card_float32_ring_kernel_on_short_caches(card, b, kh, g, dh,
+                                                  engine):
+    """Zamba2-7B's and SeamlessM4T's decode shapes over a cache of 512: the
+    ranges hold fewer tiles a warp than a full ring (at kv_len 100 two,
+    SeamlessM4T's 256-position ranges four of Dh 64's five stages), so the
+    ring is cut to them; against the plain version at the kv_len edges."""
+    s, block = 512, 512
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    q, k, v = [t.to(card) for t in
+               _port(_mk(b, s, kh, g, dh, "float32", dh))]
+    for kv_len in (0, 1, 15, 16, 17, 100, 255, 256, 257, s - 1, s):
+        _check_ring(q, k, v, kv_len, block, engine, sms)

@@ -163,7 +163,7 @@ def main() -> int:
             ss = kk.shape[1]
             rows, nsplit, end = _ext.attention_ranges(
                 ss, block, qq.shape[0] * qq.shape[1], sms, kl, dtype,
-                opts.g, opts.engine)
+                opts.g, opts.engine, opts.dh)
             got = launch(qq, kk, vv, kl, rows, nsplit, end)
             want = flash_decode_plain(qq, kk, vv, kl, block_s=block,
                                       engine=opts.engine)
@@ -176,7 +176,8 @@ def main() -> int:
                            "equal_to_full_read": bool(torch.equal(got,
                                                                   full))})
         rows, nsplit, end = _ext.attention_ranges(
-            s, 512, b * opts.kh, sms, kv_len, dtype, opts.g, opts.engine)
+            s, 512, b * opts.kh, sms, kv_len, dtype, opts.g, opts.engine,
+            opts.dh)
 
         def call():
             return launch(q, k, v, kv_len, rows, nsplit, end)

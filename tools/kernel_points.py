@@ -3,7 +3,7 @@
 flash-decode at chip_smoke.py's experiment points.
 
     python3 tools/kernel_points.py [--root DIR] [--label NAME]
-        [--points {elementwise,spmv,stencil,attention} ...]
+        [--points {elementwise,spmv,stencil,attention,decode} ...]
 
 Imports ``repro_torch`` from ``DIR/src`` (default: this checkout), builds
 that checkout's kernels, and prints one JSON line per point and engine: the
@@ -18,7 +18,10 @@ flash-decode at Mistral-NeMo-12B's decode shape (B 4, KH 8, G 4, Dh 128),
 at Qwen3-MoE-235B-A22B's (B 4, KH 4, G 16) and at StableLM-2-12B's (B 4,
 KH 8, G 4, Dh 160) over S = 32768 with kv_len = 7S/8, in float32 and
 bfloat16 (a checkout whose kernels refuse a point's G or Dh prints one
-``refused`` line for it).  Yardsticks are
+``refused`` line for it); ``decode``: float32 flash-decode at the
+decode shapes of the configs and cells that run it at a head tile of 8
+(DECODE_POINTS), beside the byte bound of its valid positions at the
+datasheet 3.35 TB/s.  Yardsticks are
 timed beside them: ``torch.mul`` / ``torch.add(..., alpha=q)`` on the same
 arrays, ``torch.mv`` on the same matrix in CSR, ``F.conv2d`` /
 ``F.conv3d`` with the stencil's weights, t times, and
@@ -40,7 +43,17 @@ import sys
 import time
 
 WARMUP, ITERS = 3, 20
-POINTS = ("elementwise", "spmv", "stencil", "attention")
+POINTS = ("elementwise", "spmv", "stencil", "attention", "decode")
+#: (name, B, KH, G, Dh, S, kv_len) of float32 flash-decode in the main
+#: path at a head tile of 8: the decode cells' layer call at a mid-window
+#: kv_len, the stream cells' K4 point, StableLM-2-12B's head dim, and the
+#: short caches of Zamba2-7B, SeamlessM4T-large-v2 and Qwen2-VL-72B
+DECODE_POINTS = (("mistral-decode-cell", 16, 8, 4, 128, 32768, 28900),
+                 ("stream-k4", 4, 8, 4, 128, 32768, 28672),
+                 ("stablelm-dh160", 4, 8, 4, 160, 32768, 28672),
+                 ("zamba2", 4, 32, 1, 112, 512, 512),
+                 ("seamless-m4t", 4, 16, 1, 64, 512, 512),
+                 ("qwen2-vl", 4, 8, 8, 128, 1536, 1536))
 
 
 def main() -> int:
@@ -69,7 +82,8 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    _ext.build(tuple(n for n in _ext.SOURCES if n in opts.points))
+    _ext.build(tuple(n for n in _ext.SOURCES if n in opts.points or
+                     (n == "attention" and "decode" in opts.points)))
     build_s = time.perf_counter() - t0
 
     def device_us(fn, calls=20):
@@ -110,14 +124,14 @@ def main() -> int:
         torch.cuda.synchronize()
         return elapsed / calls * 1e6
 
-    def emit(point, engine, fn):
+    def emit(point, engine, fn, **extra):
         t = time_fn(fn, warmup=WARMUP, iters=ITERS)
         busy, per_kernel = device_us(fn)
         print(json.dumps({"label": label, "point": point, "engine": engine,
                           "median_us": t.median_us, "iqr_us": t.iqr_us,
                           "host_enqueue_us": host_us(fn),
                           "profiler_device_us": busy,
-                          "profiler_kernel_us": per_kernel,
+                          "profiler_kernel_us": per_kernel, **extra,
                           "card": card, "build_s": build_s}), flush=True)
 
     if "elementwise" in opts.points:
@@ -221,6 +235,21 @@ def main() -> int:
                  lambda: F.scaled_dot_product_attention(qs, ks, vs,
                                                         enable_gqa=True))
             del q, k, v, qs, ks, vs
+            torch.cuda.empty_cache()
+
+    if "decode" in opts.points:
+        attention = registry.get("attention")
+        cgen = torch.Generator(device="cuda").manual_seed(0)
+        for name, b, kh, g, dh, s, kv_len in DECODE_POINTS:
+            q, k, v = (torch.randn(shape, generator=cgen, device="cuda")
+                       for shape in ((b, kh, g, dh), (b, s, kh, dh),
+                                     (b, s, kh, dh)))
+            bound_us = 2 * b * kv_len * kh * dh * 4 / 3.35e12 * 1e6
+            for engine in ("vector", "matrix"):
+                emit(f"decode/{name}/B{b}xKH{kh}xG{g}xDh{dh}xS{s}", engine,
+                     lambda: attention(q, k, v, kv_len, engine=engine),
+                     kv_len=kv_len, bound_us=bound_us)
+            del q, k, v
             torch.cuda.empty_cache()
     return 0
 
