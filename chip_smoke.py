@@ -143,6 +143,12 @@ Phases, each fatal on failure:
      gap and greedy agreement against the float32 cache printed; one
      layer's cache read at S 32768, kv_len 28672 from a float32 and from an
      int8 cache (device time beside the bytes each moves);
+ 8f. the expert share's grouped SwiGLU (csrc/experts.cu) at DeepSeek-V2's
+     widths (20 held experts, d 5120, f 1536, float32): a decode step's
+     routing (Poisson rows, 2.4 an expert), 3 rows each, one expert over
+     a pass of 8 rows, all 64 rows on one expert; each one launch, held
+     against grouped_swiglu_plain (1e-5 + 1e-5 |b|), timed beside its
+     bound and its plain version;
   9. tile tuning: repro_torch.tuning.tune_op for SCALE / Triad / AXPY,
      the stencils and flash-decode on both engines at their STREAM
      points (phase 4's inputs), every candidate of the family's tile
@@ -472,8 +478,9 @@ def main() -> int:
     for symbol, ops in _ext.mma_instructions().items():
         # stencil_kernel<ndim, radius, box, matrix>; attention's float32
         # ring kernels attention_{vector,matrix}_ring_kernel<DH>
-        match = re.search(r"(elementwise|spmv|stencil|attention)_"
-                          r"(?:(vector|matrix)_)?(?:ring_)?kernel"
+        match = re.search(r"(elementwise|spmv|stencil|attention|experts)_"
+                          r"(?:(vector|matrix|gate_up|down)_)?(?:ring_)?"
+                          r"kernel"
                           r"(?:ILb[01]ELb[01]ELb([01])E|ILb([01])E|"
                           r"ILi[23]ELi[1-3]ELb[01]ELb([01])E)?",
                           symbol)
@@ -491,9 +498,10 @@ def main() -> int:
             failures.append(f"SASS of {symbol}: {ops} tensor-core "
                             f"instructions in a {key} kernel")
     print(json.dumps({"sass_mma": sass}), flush=True)
-    if len(sass) != 8:
+    if len(sass) != 9:
         failures.append(f"SASS audit found {sorted(sass)}, expected the "
-                        f"eight family/engine kernels")
+                        f"nine family/engine kernels (experts: vector "
+                        f"only)")
     # flash-decode's registers and spills per instantiation (ptxas -v of
     # the build): dtype/head dim/head tile/engine -> [registers, spill
     # store bytes, spill load bytes]
@@ -863,6 +871,9 @@ def main() -> int:
 
     # -- 8e. the int8 KV cache through flash-decode ------------------------
     model_launches.update(_int8_phase(torch, hw, card, failures))
+
+    # -- 8f. the expert share's grouped SwiGLU -------------------------------
+    _experts_phase(torch, hw, card, failures)
 
     # -- 9. tile tuning on the card ---------------------------------------
     cache, tune_launches = _tune_phase(torch, hw, card, failures)
@@ -1413,6 +1424,82 @@ def _frontend_phase(torch, hw, card, failures):
         _k4_model_points(torch, hw, card, failures, cfg,
                          ((s, s), (s, prompt_len + MAX_GEN // 2)))
     return out
+
+
+#: Phase 8f: (name, rows routed to each of the 20 held experts); "decode"
+#: draws them, the rest are fixed.
+EXPERT_ROUTINGS = (
+    ("decode", None),
+    ("three_each", [3] * 20),
+    ("over_a_pass", [0, 1, 2, 3, 9, 17, 0, 5, 2, 2, 3, 1, 0, 4, 2, 2, 3, 1,
+                     2, 1]),
+    ("one_expert", [64] + [0] * 19),
+)
+
+
+def _experts_phase(torch, hw, card, failures):
+    """The expert share's grouped SwiGLU on the card (phase 8f).
+
+    DeepSeek-V2's widths, float32, seeded weights: 20 held experts of d
+    5120, f 1536.  For each routing of ``EXPERT_ROUTINGS`` (``decode``:
+    Poisson rows at 2.4 an expert, what the cell's share sees a layer),
+    one call of ``kernels.experts.grouped_swiglu`` is one launch of
+    ``_ext.experts`` and agrees with ``grouped_swiglu_plain`` within 1e-5 +
+    1e-5 |b|; then the kernel and the plain version are timed by events,
+    beside the bound of the bytes (each touched expert's weights once,
+    each row's input, output and hidden once) and operations at the
+    float32 peak.
+    """
+    from repro_torch.core.hw import dense_peak
+    from repro_torch.core.timing import time_fn
+    from repro_torch.kernels import _ext
+    from repro_torch.kernels.experts import (grouped_swiglu,
+                                             grouped_swiglu_plain)
+    t_phase = time.perf_counter()
+    n, d, f = 20, 5120, 1536
+    gen = torch.Generator(device=card).manual_seed(SEED)
+    wg = torch.randn(n, d, f, generator=gen, device=card) / d ** 0.5
+    wu = torch.randn(n, d, f, generator=gen, device=card) / d ** 0.5
+    wd = torch.randn(n, f, d, generator=gen, device=card) / f ** 0.5
+    peak = dense_peak(hw, "float32")
+    for name, counts in EXPERT_ROUTINGS:
+        if counts is None:
+            counts = torch.poisson(
+                torch.full((n,), 2.4),
+                generator=torch.Generator().manual_seed(SEED)).int().tolist()
+        rows = sum(counts)
+        offsets = torch.tensor([0] + counts, device=card).cumsum(0).to(
+            torch.int32)
+        xs = torch.randn(rows + 5, d, generator=gen, device=card)
+        _ext.LAUNCHES["experts"] = 0
+        got = grouped_swiglu(xs, offsets, wg, wu, wd)
+        launches = _ext.LAUNCHES["experts"]
+        want = grouped_swiglu_plain(xs, offsets, wg, wu, wd)
+        torch.cuda.synchronize()
+        err = (got[:rows] - want[:rows]).abs().max().item() if rows else 0.0
+        ok = bool(torch.allclose(got[:rows], want[:rows], rtol=1e-5,
+                                 atol=1e-5))
+        if launches != 1 or not ok:
+            failures.append(f"experts/{name}: {launches} launches, "
+                            f"max_abs_err {err}")
+        touched = sum(1 for c in counts if c)
+        nbytes = 4 * (touched * 3 * d * f + rows * (2 * d + 2 * f))
+        bound_ms = 1e3 * max(nbytes / hw.mem_bw, 2 * rows * 3 * d * f / peak)
+        t = time_fn(grouped_swiglu, xs, offsets, wg, wu, wd, warmup=WARMUP,
+                    iters=ITERS)
+        plain = time_fn(grouped_swiglu_plain, xs, offsets, wg, wu, wd,
+                        warmup=1, iters=5)
+        ms = t.median_us / 1e3
+        print(json.dumps({
+            "phase": "experts", "routing": name, "rows": rows,
+            "touched": touched, "most_rows": max(counts),
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "iqr_ms": t.iqr_us / 1e3, "plain_ms": plain.median_us / 1e3,
+            "bound_ms": bound_ms, "share": bound_ms / ms}), flush=True)
+    print(json.dumps({"phase": "experts_done",
+                      "phase_s": time.perf_counter() - t_phase}), flush=True)
+    del wg, wu, wd
+    torch.cuda.empty_cache()
 
 
 def _int8_phase(torch, hw, card, failures):

@@ -36,13 +36,14 @@ __all__ = ["CTAS_PER_SM", "ELEMENTWISE_THREADS", "HEAD_DIMS", "LAUNCHES",
            "attention_launch", "attention_ranges", "attention_ring",
            "attention_split",
            "build", "ctas_per_sm", "elementwise", "elementwise_grid",
+           "experts",
            "mma_instructions", "parse_ptxas", "ptxas_usage",
            "reset_launches", "spmv", "stencil", "stencil_offsets"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_ext"
-SOURCES = ("attention", "elementwise", "spmv", "stencil")
+SOURCES = ("attention", "elementwise", "experts", "spmv", "stencil")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: Sources compiled as this many objects in parallel: ``stencil.cu``
@@ -248,6 +249,9 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     elif name == "spmv":
         fn = lib.spmv_launch
         fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+    elif name == "experts":
+        fn = lib.experts_launch
+        fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]
     else:
         fn = lib.stencil_launch
         fn.argtypes = [_P, _P, _P, _I, _P, _P, _I, _P, _F, _I, _I, _I, _I,
@@ -360,6 +364,33 @@ def spmv(blocks: torch.Tensor, cols: torch.Tensor, x: torch.Tensor, *,
             None if xd is None else xd.data_ptr(), y.data_ptr(),
             nbr, mb, x.numel() // bn, int(matrix), _stream(y))
     _check("spmv", code, f"spmv_{engine}")
+    return y
+
+
+def experts(xs: torch.Tensor, offsets: torch.Tensor, w_gate: torch.Tensor,
+            w_up: torch.Tensor, w_down: torch.Tensor) -> torch.Tensor:
+    """Launch the grouped SwiGLU of an expert share (``csrc/experts.cu``):
+    ``xs`` (P, D) rows sorted by held expert, expert e's at ``offsets[e]
+    .. offsets[e + 1]`` (int32, n + 1, on the card), ``w_gate`` / ``w_up``
+    (n, D, F), ``w_down`` (n, F, D).  Returns y (P, D) float32, whose rows
+    past ``offsets[n]`` are left unwritten."""
+    n, d, f = w_gate.shape
+    if (tuple(w_up.shape) != (n, d, f) or tuple(w_down.shape) != (n, f, d)
+            or xs.ndim != 2 or xs.shape[1] != d
+            or tuple(offsets.shape) != (n + 1,)):
+        raise ValueError("expert share shapes disagree")
+    for t, what in ((xs, "experts xs"), (w_gate, "experts w_gate"),
+                    (w_up, "experts w_up"), (w_down, "experts w_down")):
+        _need(t, what, torch.float32)
+    _need(offsets, "experts offsets", torch.int32)
+    h = torch.empty((xs.shape[0], f), dtype=torch.float32, device=xs.device)
+    y = torch.empty((xs.shape[0], d), dtype=torch.float32, device=xs.device)
+    with torch.cuda.device(y.device):
+        code = _lib("experts").experts_launch(
+            xs.data_ptr(), offsets.data_ptr(), w_gate.data_ptr(),
+            w_up.data_ptr(), w_down.data_ptr(), h.data_ptr(), y.data_ptr(),
+            n, d, f, _stream(y))
+    _check("experts", code, "experts")
     return y
 
 

@@ -34,12 +34,15 @@ reference does.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
 
-from .config import ModelConfig
-from .layers import apply_mrope, apply_rope, rmsnorm
+from ..obs.trace import TRACER
+from .config import ModelConfig, YarnRopeConfig, yarn_mscale
+from .layers import (apply_mrope, apply_rope, apply_rope_freqs,
+                     pairs_to_halves, rmsnorm, yarn_frequencies)
 
 __all__ = ["attention", "cross_attend", "make_cache", "make_cross_kv",
            "mla_attention", "sdpa"]
@@ -328,12 +331,42 @@ def _mla_q(p, x, cfg: ModelConfig):
     return q[..., :cfg.qk_nope_dim], q[..., cfg.qk_nope_dim:]
 
 
+@functools.lru_cache(maxsize=None)
+def _yarn(cfg: YarnRopeConfig, device: str) -> Tuple[torch.Tensor, float]:
+    """(inverse frequencies, cos / sin factor) of a YaRN config's rotary
+    dims on ``device``, made once."""
+    freqs = yarn_frequencies(cfg.qk_rope_dim, cfg.rope_theta,
+                             cfg.yarn_factor, cfg.yarn_original_len,
+                             cfg.yarn_beta_fast, cfg.yarn_beta_slow, device)
+    mscale = (yarn_mscale(cfg.yarn_factor, cfg.yarn_mscale)
+              / yarn_mscale(cfg.yarn_factor, cfg.yarn_mscale_all_dim))
+    return freqs, mscale
+
+
+def _yarn_on(cfg: ModelConfig) -> bool:
+    return isinstance(cfg, YarnRopeConfig) and cfg.yarn_factor > 1
+
+
+def _mla_rope(x, positions, cfg: ModelConfig):
+    """MLA's rotary embedding of q_pe / k_pe (B, S, heads, rd): rotate-half
+    with the plain frequencies of ``rope_theta``, or YaRN's for a
+    :class:`YarnRopeConfig` with a factor above 1; its (even, odd) pairs
+    first reordered to halves where it sets ``rope_pairs``."""
+    if isinstance(cfg, YarnRopeConfig) and cfg.rope_pairs:
+        x = pairs_to_halves(x)
+    if not _yarn_on(cfg):
+        return apply_rope(x, positions, cfg.rope_theta)
+    freqs, mscale = _yarn(cfg, str(x.device))
+    return apply_rope_freqs(x, positions, freqs, mscale)
+
+
 def mla_attention(p, x, cfg: ModelConfig, *, positions, cache=None,
                   cache_index: Optional[int] = None):
     """MLA: latent-compressed KV.  Prefill returns the fresh cache
     ``{"latent", "k_rope"}``; decode (cache given, ``cache_index`` a
     Python int) writes the step's rows into it in place and runs the
-    absorbed formulation entirely in latent space."""
+    absorbed formulation entirely in latent space, inside a
+    ``model.mla`` span (absorb, scores, softmax, weighted sum, ``w_uv``)."""
     dtype = x.dtype
     b, s, _ = x.shape
     h, r = cfg.n_heads, cfg.kv_lora_rank
@@ -341,14 +374,14 @@ def mla_attention(p, x, cfg: ModelConfig, *, positions, cache=None,
 
     kv_a = x @ p.wkv_a                                      # (B,S,r+rd)
     latent = rmsnorm(p.kv_norm, kv_a[..., :r], cfg.norm_eps)
-    k_rope = apply_rope(kv_a[..., r:].reshape(b, s, 1, rd), positions,
-                        cfg.rope_theta)
+    k_rope = _mla_rope(kv_a[..., r:].reshape(b, s, 1, rd), positions, cfg)
     q_nope, q_rope = _mla_q(p, x, cfg)
-    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    q_rope = _mla_rope(q_rope, positions, cfg)
     # the float32 1 / sqrt(nope + rd) as a Python number: a 0-d tensor
     # made on the host and moved to the card would make the host wait for
     # the card in every layer
-    scale = float(_scale(nope + rd, "cpu"))
+    scale = (cfg.mla_softmax_scale if _yarn_on(cfg)
+             else float(_scale(nope + rd, "cpu")))
 
     if cache is None:                                        # train / prefill
         kv = (latent @ p.wkv_b).reshape(b, s, h, nope + vd)
@@ -366,17 +399,18 @@ def mla_attention(p, x, cfg: ModelConfig, *, positions, cache=None,
     lat, kr = cache["latent"], cache["k_rope"]
     lat[:, cache_index:cache_index + s] = latent.to(lat.dtype)
     kr[:, cache_index:cache_index + s] = k_rope.squeeze(2).to(kr.dtype)
-    wkv_b = p.wkv_b.reshape(r, h, nope + vd)
-    w_uk, w_uv = wkv_b[..., :nope], wkv_b[..., nope:]
-    # absorb: q' = q_nope @ w_uk -> score against the latent directly
-    q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope, w_uk)     # (B,1,H,r)
-    latf = lat.to(dtype)
-    sc = (torch.einsum("bqhr,bkr->bhqk", q_lat, latf)
-          + torch.einsum("bqhd,bkd->bhqk", q_rope, kr.to(dtype))
-          ).float() * scale
-    valid = torch.arange(lat.shape[1], device=x.device) < cache_index + s
-    sc = torch.where(valid, sc, NEG_INF)
-    w = torch.softmax(sc, dim=-1).to(dtype)
-    out_lat = torch.einsum("bhqk,bkr->bqhr", w, latf)        # (B,1,H,r)
-    out = torch.einsum("bqhr,rhd->bqhd", out_lat, w_uv)      # (B,1,H,vd)
+    with TRACER.span("model.mla", layer="model"):
+        wkv_b = p.wkv_b.reshape(r, h, nope + vd)
+        w_uk, w_uv = wkv_b[..., :nope], wkv_b[..., nope:]
+        # absorb: q' = q_nope @ w_uk -> score against the latent directly
+        q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope, w_uk)  # (B,1,H,r)
+        latf = lat.to(dtype)
+        sc = (torch.einsum("bqhr,bkr->bhqk", q_lat, latf)
+              + torch.einsum("bqhd,bkd->bhqk", q_rope, kr.to(dtype))
+              ).float() * scale
+        valid = torch.arange(lat.shape[1], device=x.device) < cache_index + s
+        sc = torch.where(valid, sc, NEG_INF)
+        w = torch.softmax(sc, dim=-1).to(dtype)
+        out_lat = torch.einsum("bhqk,bkr->bqhr", w, latf)     # (B,1,H,r)
+        out = torch.einsum("bqhr,rhd->bqhd", out_lat, w_uv)   # (B,1,H,vd)
     return out.reshape(b, s, h * vd) @ p.wo, cache

@@ -4,10 +4,14 @@ One frozen dataclass describes dense / MoE / MLA / SSM / hybrid / enc-dec /
 modality-stub variants; families toggle features rather than subclassing so
 `lm.py` can stay a single layer-loop implementation.  Copied from the
 reference package (pure Python) so that the port imports none of it.
+The settings the reference's schema lacks live in subclasses named for
+the feature they carry (``ExpertShareConfig``, ``YarnRopeConfig``), so
+that the copied schema stays field for field the reference's.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 
@@ -130,6 +134,90 @@ class ModelConfig:
             routed = c["moe_routed"]
             total -= int(routed * (1 - (self.top_k / self.n_experts)))
         return total
+
+
+@dataclasses.dataclass(frozen=True)
+class ExpertShareConfig(ModelConfig):
+    """An MoE layer that holds a share of its gate's experts, in a subclass
+    so that the registered configurations keep their fields as they are.
+
+    The layer holds ``n_experts`` of the gate's ``router_experts``, ids
+    ``expert_start ..``; experts ``g * router_experts / n_groups ..`` form
+    group g.  The gate (``moe.route``) is a group-limited greedy top-k:
+    softmax scores over every expert, each group scored by its best
+    expert, the ``topk_groups`` best groups, then the ``top_k`` best
+    experts inside them (one group of all experts: a plain top-k); their
+    scores times ``routed_scale`` weigh them (no renormalisation).  The layer computes its held experts' part, dropless
+    (``moe.share_ffn``).
+    """
+
+    router_experts: int = 0
+    expert_start: int = 0
+    n_groups: int = 1
+    topk_groups: int = 1
+    routed_scale: float = 1.0
+
+    def __post_init__(self):
+        super().__post_init__()
+        e, g = self.router_experts, self.n_groups
+        if e <= 0 or g <= 0 or e % g:
+            raise ValueError(f"{self.name}: {e} routed experts do not split "
+                             f"into {g} groups")
+        if not 0 <= self.expert_start <= e - self.n_experts:
+            raise ValueError(f"{self.name}: experts {self.expert_start}.. "
+                             f"+{self.n_experts} do not lie in 0..{e - 1}")
+        if not (1 <= self.topk_groups <= g and 1 <= self.top_k
+                <= self.topk_groups * (e // g)):
+            raise ValueError(f"{self.name}: top {self.top_k} experts in "
+                             f"{self.topk_groups} of {g} groups")
+
+
+@dataclasses.dataclass(frozen=True)
+class YarnRopeConfig(ModelConfig):
+    """MLA's rotary dims (``qk_rope_dim``) as a published checkpoint lays
+    them out and scales them, in a subclass for the reason above.
+
+    ``rope_pairs``: q_pe and k_pe come in (even, odd) pairs and are
+    reordered to halves before the rotate-half rotation.  A
+    ``yarn_factor`` above 1 takes YaRN: its inverse frequencies
+    (``layers.yarn_frequencies``), cos and sin times the ratio of the
+    ``yarn_mscale`` and ``yarn_mscale_all_dim`` factors, and the softmax
+    scale times the ``yarn_mscale_all_dim`` factor squared
+    (``mla_softmax_scale``).
+    """
+
+    rope_pairs: bool = False
+    yarn_factor: float = 1.0
+    yarn_original_len: int = 4096
+    yarn_beta_fast: float = 32.0
+    yarn_beta_slow: float = 1.0
+    yarn_mscale: float = 1.0
+    yarn_mscale_all_dim: float = 0.0
+
+    @property
+    def mla_softmax_scale(self) -> float:
+        """The published MLA softmax scale: ``(qk_nope + qk_rope) ** -0.5``
+        times the YaRN ``mscale`` squared (a Python float, as the published
+        attention keeps it)."""
+        m = yarn_mscale(self.yarn_factor, self.yarn_mscale_all_dim)
+        return (self.qk_nope_dim + self.qk_rope_dim) ** -0.5 * m * m
+
+
+@dataclasses.dataclass(frozen=True)
+class DeepSeekV2Config(ExpertShareConfig, YarnRopeConfig):
+    """DeepSeek-V2: an expert share under the published
+    ``group_limited_greedy`` gate, and YaRN over rotary dims in (even,
+    odd) pairs."""
+
+    rope_pairs: bool = True
+
+
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention factor ``0.1 * mscale * ln(factor) + 1`` (1 for a
+    factor of at most 1), as the published ``yarn_get_mscale``."""
+    if factor <= 1:
+        return 1.0
+    return 0.1 * mscale * math.log(factor) + 1.0
 
 
 def _count(cfg: ModelConfig) -> dict:

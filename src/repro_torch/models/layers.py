@@ -15,8 +15,9 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-__all__ = ["apply_mrope", "apply_rope", "dense_init", "init_mlp", "mlp",
-           "rmsnorm", "rope_frequencies"]
+__all__ = ["apply_mrope", "apply_rope", "apply_rope_freqs", "dense_init",
+           "init_mlp", "mlp", "pairs_to_halves", "rmsnorm",
+           "rope_frequencies", "yarn_frequencies"]
 
 
 # --------------------------------------------------------------------------
@@ -73,6 +74,53 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     """x: (..., S, H, Dh); positions: (..., S) int."""
     freqs = rope_frequencies(x.shape[-1], theta, x.device)     # (half,)
     return _rotate(x, positions[..., None].float() * freqs)
+
+
+def yarn_frequencies(dim: int, theta: float, factor: float,
+                     original_len: int, beta_fast: float, beta_slow: float,
+                     device="cpu") -> torch.Tensor:
+    """YaRN's inverse frequencies for a rotary dim of ``dim``, as the
+    published ``DeepseekV2YarnRotaryEmbedding`` makes them: the plain
+    frequencies ``theta ** (-2j / dim)`` on the fast dimensions, those
+    divided by ``factor`` on the slow ones, and a linear ramp between
+    dimensions ``low`` and ``high``, where a dimension turns ``beta_fast``
+    and ``beta_slow`` times over ``original_len`` positions."""
+    def corr(rotations: float) -> float:
+        return (dim * math.log(original_len / (rotations * 2 * math.pi))
+                / (2 * math.log(theta)))
+    low = max(math.floor(corr(beta_fast)), 0)
+    high = min(math.ceil(corr(beta_slow)), dim - 1)
+    if low == high:
+        high += 0.001
+    exps = torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim
+    extra = 1.0 / (theta ** exps)
+    inter = 1.0 / (factor * theta ** exps)
+    ramp = torch.clamp((torch.arange(dim // 2, dtype=torch.float32,
+                                     device=device) - low) / (high - low),
+                       0, 1)
+    keep = 1.0 - ramp
+    return inter * (1 - keep) + extra * keep
+
+
+def pairs_to_halves(x: torch.Tensor) -> torch.Tensor:
+    """The last axis from (even, odd) pairs to its even then its odd
+    elements, as the published DeepSeek-V2 reorders q_pe and k_pe before
+    its rotate-half rotation."""
+    return x.unflatten(-1, (x.shape[-1] // 2, 2)).transpose(-1, -2).flatten(-2)
+
+
+def apply_rope_freqs(x: torch.Tensor, positions: torch.Tensor,
+                     freqs: torch.Tensor, mscale: float) -> torch.Tensor:
+    """Rotate-half RoPE of x (..., S, H, Dh) at positions (..., S) with the
+    inverse frequencies ``freqs`` (Dh / 2,), cos and sin times ``mscale``
+    (YaRN's ratio of its two attention factors)."""
+    angles = positions[..., None].float() * freqs
+    half = x.shape[-1] // 2
+    cos = (torch.cos(angles) * mscale)[..., None, :]
+    sin = (torch.sin(angles) * mscale)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
 
 
 def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,

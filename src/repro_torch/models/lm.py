@@ -10,7 +10,9 @@ The weight names and layouts are the reference's: ``(d_in, d_out)`` for
 (``first_dense_layers``, DeepSeek-V2-Lite's first) are ``first_dense.<i>``
 as the reference stacks them under ``first_dense``; its other layers
 carry a ``moe`` group (router, experts, ``shared`` experts) in place of
-``mlp``.  An SSM config's layers are ``layers.<i>.ssm.w_z``; a hybrid
+``mlp``: for an ``ExpertShareConfig`` the layer's share of the experts
+(``moe.share_ffn``), with a router over every expert.  An SSM config's
+layers are ``layers.<i>.ssm.w_z``; a hybrid
 config (Zamba2) nests its super-blocks as the reference stacks them,
 ``layers.<s>.<j>.ssm.w_z`` for ``layers/ssm/w_z[s, j]``, then ``tail.<i>``
 and the one ``shared_attn`` dense layer applied after every super-block.
@@ -796,7 +798,10 @@ def decode_step(p: LM, cfg: ModelConfig, tokens: torch.Tensor, caches: Dict,
     Spans (profiler ranges while one records): ``model.decode_step``
     around the step, ``model.attention`` and ``model.mlp`` /
     ``model.moe`` around each dense layer's sublayers (``_dense_block``),
-    ``model.head`` around the final norm and the LM head.
+    ``model.head`` around the final norm and the LM head; MLA's absorbed
+    attention inside ``model.mla``, and an expert share's gate, held
+    experts (their kernel in ``launch.experts``) and shared experts in
+    ``model.moe.route`` / ``.experts`` / ``.shared``.
     """
     check_family(cfg)
     with TRACER.span("model.decode_step", layer="model"):

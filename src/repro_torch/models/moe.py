@@ -15,19 +15,36 @@ the one-hot tensors.  Every expert's product runs for every step, one
 batched matmul per projection over all experts' buffers, as the
 reference's einsums do; computing only the experts a step touches is a
 later lever (ROADMAP.md Queue 1 item 10).
+
+An :class:`~.config.ExpertShareConfig` (DeepSeek-V2's) takes the expert
+share instead (``share_ffn``): the layer holds ``n_experts`` of the
+gate's ``router_experts``, routes every token over all of them with a
+group-limited gate (``route``; DeepSeek-V2's published one), and computes
+its held experts' part, dropless, each held expert over the rows routed to it and no other
+(``kernels.experts.grouped_swiglu``), plus the shared experts.  What the
+experts held elsewhere would add is left out.  The rows are sorted by
+held expert on the card and the kernel reads their counts there, so the
+host never waits for the card.  While ``obs.record.RECORD`` records, each
+call leaves the rows routed to each held expert (``moe.counts``), each
+token's experts (``moe.routes``) and their weights (``moe.gates``).
+Spans: ``model.moe.route``, ``model.moe.experts`` (the kernel inside its
+``launch.experts``) and ``model.moe.shared``.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from .config import ModelConfig
+from ..kernels.experts import grouped_swiglu
+from ..obs.record import RECORD
+from ..obs.trace import TRACER
+from .config import ExpertShareConfig, ModelConfig
 from .layers import dense_init
 
 __all__ = ["Routed", "combine", "dispatch", "expert_ffn", "init_moe",
-           "moe_ffn", "top_k"]
+           "moe_ffn", "route", "share_ffn", "top_k"]
 
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig, device="cuda"
@@ -39,6 +56,8 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig, device="cuda"
     ``n_shared_experts * moe_d_ff``.
     """
     d, e, f = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+    if isinstance(cfg, ExpertShareConfig):
+        return _init_share(gen, cfg, device)
 
     def experts(d_in, d_out):
         w = torch.randn((e, d_in, d_out), generator=gen, device=device)
@@ -46,6 +65,36 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig, device="cuda"
     t = {"router": dense_init(gen, d, e, scale=0.02, device=device),
          "w_gate": experts(d, f), "w_up": experts(d, f),
          "w_down": experts(f, d)}
+    if cfg.n_shared_experts:
+        fs = cfg.n_shared_experts * cfg.moe_d_ff
+        t["shared.w_gate"] = dense_init(gen, d, fs, device=device)
+        t["shared.w_up"] = dense_init(gen, d, fs, device=device)
+        t["shared.w_down"] = dense_init(gen, fs, d, device=device)
+    return t
+
+
+def _init_share(gen: Optional[torch.Generator], cfg: ExpertShareConfig,
+                device) -> Dict[str, torch.Tensor]:
+    """An expert share's weights: the router over all ``router_experts``
+    and the shared experts from ``gen``, and each held expert from a
+    generator of its own, seeded by one draw of ``gen`` (the layer's) and
+    the expert's id, so that a share holds the same weights for an
+    expert whichever others it holds."""
+    d, e, f = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+    t = {"router": dense_init(gen, d, cfg.router_experts, scale=0.02,
+                              device=device)}
+    layer = (0 if gen is None else
+             int(torch.randint(2**40, (1,), generator=gen, device=device)))
+    for name, d_in, d_out in (("w_gate", d, f), ("w_up", d, f),
+                              ("w_down", f, d)):
+        t[name] = torch.empty((e, d_in, d_out), device=device)
+    for j in range(e):
+        g = (None if gen is None else torch.Generator(device=device)
+             .manual_seed(layer * 4099 + cfg.expert_start + j))
+        for name in ("w_gate", "w_up", "w_down"):
+            w = t[name][j]
+            w.copy_(torch.randn(w.shape, generator=g, device=device)
+                    .div_(w.shape[0] ** 0.5))
     if cfg.n_shared_experts:
         fs = cfg.n_shared_experts * cfg.moe_d_ff
         t["shared.w_gate"] = dense_init(gen, d, fs, device=device)
@@ -170,6 +219,85 @@ def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig, group_size: int = 2048
     ``w_down`` (E, F, D) and, with shared experts, a ``shared`` group of
     dense SwiGLU weights; all in x's dtype but the router's logits, which
     are taken in float32 after the product, as the reference takes them.
+    An :class:`~.config.ExpertShareConfig` takes ``share_ffn`` (no aux
+    metrics).
     """
+    if isinstance(cfg, ExpertShareConfig):
+        return share_ffn(p, x, cfg), {}
     r = dispatch(p, x, cfg, group_size)
     return combine(p, r, expert_ffn(p, r.xe), cfg, x.shape)
+
+
+# --------------------------------------------------------------------------
+# the expert share (ExpertShareConfig)
+# --------------------------------------------------------------------------
+
+def route(x: torch.Tensor, router: torch.Tensor, cfg: ExpertShareConfig
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The group-limited greedy gate of tokens x (T, D) (DeepSeek-V2's
+    published ``group_limited_greedy``): (T, top_k) expert ids over all
+    ``router_experts`` and their weights.
+
+    Softmax scores over every expert (float32); each of the ``n_groups``
+    contiguous groups scored by its best expert; the ``topk_groups`` best
+    groups kept and the other experts' scores set to 0; the ``top_k`` best
+    experts of what is left, weighed by their scores times
+    ``routed_scale`` (no renormalisation).  Ties go to the lower index, at
+    both stages (``top_k``)."""
+    scores = torch.softmax((x @ router).float(), dim=-1)            # (T,E)
+    t, e = scores.shape
+    g = cfg.n_groups
+    groups = scores.view(t, g, e // g).amax(-1)                      # (T,G)
+    _, gidx = top_k(groups, cfg.topk_groups)
+    keep = torch.zeros((t, g), dtype=torch.bool, device=x.device)
+    keep.scatter_(1, gidx, True)
+    keep = keep[:, :, None].expand(t, g, e // g).reshape(t, e)
+    w, idx = top_k(scores.masked_fill(~keep, 0.0), cfg.top_k)
+    return idx, w * cfg.routed_scale
+
+
+def _held_experts(p, x: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
+                  cfg: ExpertShareConfig) -> torch.Tensor:
+    """The held experts' part of the output of tokens x (T, D) routed to
+    ``idx`` with weights ``w`` (T, k): the (token, slot) pairs sorted by
+    held expert (the others last), each held expert's SwiGLU over its
+    rows, the results weighed back onto their tokens."""
+    t, k = idx.shape
+    n = cfg.n_experts
+    local = idx - cfg.expert_start
+    held = (local >= 0) & (local < n)                                # (T,k)
+    key = torch.where(held, local, n).reshape(-1)
+    order = torch.argsort(key, stable=True)
+    offsets = torch.searchsorted(
+        key[order], torch.arange(n + 1, device=x.device, dtype=key.dtype)
+    ).to(torch.int32)
+    if RECORD.enabled:
+        RECORD.add("moe.counts", offsets.diff())
+        RECORD.add("moe.routes", idx)
+        RECORD.add("moe.gates", w)
+    xs = x[order // k]
+    with TRACER.span("launch.experts", layer="kernels"):
+        y = grouped_swiglu(xs, offsets, p.w_gate, p.w_up, p.w_down)
+    # back to (token, slot) order; a slot of an expert held elsewhere
+    # reads a row the kernel left unwritten, and weighs 0
+    y = y[torch.argsort(order)].view(t, k, -1)
+    y = torch.where(held[..., None], y, 0.0)
+    return (y * w[..., None].to(y.dtype)).sum(1)
+
+
+def share_ffn(p, x: torch.Tensor, cfg: ExpertShareConfig) -> torch.Tensor:
+    """x: (B, S, D) -> (B, S, D): the expert share's part of an MoE layer
+    (module docstring).  ``p`` holds ``router``
+    (D, router_experts), the held experts' ``w_gate`` / ``w_up`` (n, D,
+    F) and ``w_down`` (n, F, D), and the ``shared`` experts' SwiGLU."""
+    shape = x.shape
+    xt = x.reshape(-1, shape[-1])
+    with TRACER.span("model.moe.route", layer="model"):
+        idx, w = route(xt, p.router, cfg)
+    with TRACER.span("model.moe.experts", layer="model"):
+        out = _held_experts(p, xt, idx, w, cfg).to(x.dtype)
+    if "shared" in p:
+        with TRACER.span("model.moe.shared", layer="model"):
+            sp = p.shared
+            out = out + (F.silu(xt @ sp.w_gate) * (xt @ sp.w_up)) @ sp.w_down
+    return out.reshape(shape)

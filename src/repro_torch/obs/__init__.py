@@ -11,6 +11,9 @@ structured logging for the port's layers.
 * :mod:`repro_torch.obs.metrics` -- counters, gauges and histograms with
   numpy percentile semantics.
 * :mod:`repro_torch.obs.log` -- the leveled structured logger.
+* :mod:`repro_torch.obs.record` -- device-side counters a step leaves on
+  the card (the expert share's routed rows), read once after a reader's
+  synchronisation.
 
 Bench records carry a ``trace`` reconciliation block, and
 ``repro_torch.report.claims`` proves that the span medians match the
