@@ -1456,11 +1456,12 @@ def _experts_phase(torch, hw, card, failures):
     from repro_torch.kernels.experts import (grouped_swiglu,
                                              grouped_swiglu_plain)
     t_phase = time.perf_counter()
+    dev = torch.device("cuda")
     n, d, f = 20, 5120, 1536
-    gen = torch.Generator(device=card).manual_seed(SEED)
-    wg = torch.randn(n, d, f, generator=gen, device=card) / d ** 0.5
-    wu = torch.randn(n, d, f, generator=gen, device=card) / d ** 0.5
-    wd = torch.randn(n, f, d, generator=gen, device=card) / f ** 0.5
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    wg = torch.randn(n, d, f, generator=gen, device=dev) / d ** 0.5
+    wu = torch.randn(n, d, f, generator=gen, device=dev) / d ** 0.5
+    wd = torch.randn(n, f, d, generator=gen, device=dev) / f ** 0.5
     peak = dense_peak(hw, "float32")
     for name, counts in EXPERT_ROUTINGS:
         if counts is None:
@@ -1468,9 +1469,9 @@ def _experts_phase(torch, hw, card, failures):
                 torch.full((n,), 2.4),
                 generator=torch.Generator().manual_seed(SEED)).int().tolist()
         rows = sum(counts)
-        offsets = torch.tensor([0] + counts, device=card).cumsum(0).to(
+        offsets = torch.tensor([0] + counts, device=dev).cumsum(0).to(
             torch.int32)
-        xs = torch.randn(rows + 5, d, generator=gen, device=card)
+        xs = torch.randn(rows + 5, d, generator=gen, device=dev)
         _ext.LAUNCHES["experts"] = 0
         got = grouped_swiglu(xs, offsets, wg, wu, wd)
         launches = _ext.LAUNCHES["experts"]

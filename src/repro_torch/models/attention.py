@@ -16,7 +16,8 @@ prefill decompresses them through ``wkv_b``, and decode runs the
 *absorbed* formulation (``w_uk`` folded into q, scores against the
 latent, ``w_uv`` applied after the weighted latent sum), the cache never
 decompressed.  MLA decode runs no flash-decode kernel, as in the
-reference.
+reference; its scores, softmax and weighted latent sum are batched
+products over the valid cache positions only (``latent_decode``).
 
 Cross-attention (the encoder-decoder family) projects the encoder's
 output to K / V once (``make_cross_kv``, cached across decode steps as
@@ -360,13 +361,44 @@ def _mla_rope(x, positions, cfg: ModelConfig):
     return apply_rope_freqs(x, positions, freqs, mscale)
 
 
+def latent_decode(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                  latent: torch.Tensor, k_rope: torch.Tensor, kv_len: int,
+                  scale: float) -> torch.Tensor:
+    """out_lat (B, s, H, r): ``softmax((q_lat . latent + q_rope . k_rope)
+    * scale) . latent`` over positions ``[0, kv_len)`` of the caches
+    ``latent`` (B, S_max, r) and ``k_rope`` (B, S_max, rd), for q_lat
+    (B, s, H, r) and q_rope (B, s, H, rd).  Every query row of a sequence
+    sees the same positions, so the s x H rows are one batched product's
+    rows, and positions at or past ``kv_len`` are never read: no mask.
+    The softmax runs in float32, the weighted sum in ``q_lat``'s dtype."""
+    b, s, h, r = q_lat.shape
+    dtype = q_lat.dtype
+    q, q_r = q_lat.reshape(b, s * h, r), q_rope.reshape(b, s * h, -1)
+    lat = latent[:, :kv_len].to(dtype)
+    kr = k_rope[:, :kv_len].to(dtype).transpose(1, 2)
+    if dtype == torch.float32:
+        # the latent scores added onto the rope scores with the scale by
+        # one product, in place: the scaled sum rounded once, within
+        # float32's rounding of (a + b) * scale, and no pass over scores
+        sc = torch.bmm(q_r, kr).baddbmm_(q, lat.transpose(1, 2),
+                                         beta=scale, alpha=scale)
+    else:
+        # a narrower type rounds each product, then their sum, before the
+        # float32 scale, as the reference does
+        sc = (torch.bmm(q, lat.transpose(1, 2)) + torch.bmm(q_r, kr)
+              ).float() * scale
+    w = torch.softmax(sc.float(), dim=-1).to(dtype)
+    return torch.bmm(w, lat).reshape(b, s, h, r)
+
+
 def mla_attention(p, x, cfg: ModelConfig, *, positions, cache=None,
                   cache_index: Optional[int] = None):
     """MLA: latent-compressed KV.  Prefill returns the fresh cache
     ``{"latent", "k_rope"}``; decode (cache given, ``cache_index`` a
     Python int) writes the step's rows into it in place and runs the
     absorbed formulation entirely in latent space, inside a
-    ``model.mla`` span (absorb, scores, softmax, weighted sum, ``w_uv``)."""
+    ``model.mla`` span: the absorb, ``latent_decode`` over the valid
+    positions, ``w_uv``."""
     dtype = x.dtype
     b, s, _ = x.shape
     h, r = cfg.n_heads, cfg.kv_lora_rank
@@ -403,14 +435,8 @@ def mla_attention(p, x, cfg: ModelConfig, *, positions, cache=None,
         wkv_b = p.wkv_b.reshape(r, h, nope + vd)
         w_uk, w_uv = wkv_b[..., :nope], wkv_b[..., nope:]
         # absorb: q' = q_nope @ w_uk -> score against the latent directly
-        q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope, w_uk)  # (B,1,H,r)
-        latf = lat.to(dtype)
-        sc = (torch.einsum("bqhr,bkr->bhqk", q_lat, latf)
-              + torch.einsum("bqhd,bkd->bhqk", q_rope, kr.to(dtype))
-              ).float() * scale
-        valid = torch.arange(lat.shape[1], device=x.device) < cache_index + s
-        sc = torch.where(valid, sc, NEG_INF)
-        w = torch.softmax(sc, dim=-1).to(dtype)
-        out_lat = torch.einsum("bhqk,bkr->bqhr", w, latf)     # (B,1,H,r)
-        out = torch.einsum("bqhr,rhd->bqhd", out_lat, w_uv)   # (B,1,H,vd)
+        q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope, w_uk)  # (B,s,H,r)
+        out_lat = latent_decode(q_lat, q_rope, lat, kr, cache_index + s,
+                                scale)                        # (B,s,H,r)
+        out = torch.einsum("bqhr,rhd->bqhd", out_lat, w_uv)   # (B,s,H,vd)
     return out.reshape(b, s, h * vd) @ p.wo, cache
